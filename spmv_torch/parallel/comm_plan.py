@@ -1,0 +1,167 @@
+"""CommPlan — the compiled halo-exchange schedule, over shards stacked on
+one device.
+
+Counterpart of ``spmv_tpu.parallel.comm_plan``. ``compile_plan`` builds the
+same numpy tables as the reference (per-round send indices and receive
+positions, padded to static per-round maxima; padding receive slots hold
+the out-of-bounds sentinel ``OOB``) and only then makes tensors.
+
+The reference runs one ``ppermute`` per round over a device mesh axis,
+src -> (src + d) % D. Here every shard lives on the leading axis of one
+tensor (as the reference stores them, ``dist_matrix.py:3-8``), so a round
+is ``torch.roll(buf, d, dims=0)`` and the reverse round rolls by -d.
+torch has no drop/fill scatter mode, so padding slots are redirected to a
+spare column before each scatter or gather and dropped afterwards.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from spmv_torch.parallel.partition import owner_of
+
+OOB = np.int32(2**31 - 1)  # receive-position sentinel of padding slots
+
+
+@dataclasses.dataclass
+class CommPlan:
+    """Static halo-exchange schedule, stacked over the shard axis:
+      send_idx: (D, R, S) int64 — owned-local indices each shard gathers to
+                send in round r (pad = 0; dropped at the receiver)
+      recv_pos: (D, R, S) int64 — ghost-buffer positions where round r's
+                received values land (pad = OOB)
+      nlocal:   (D,) logical owned size per shard
+      nghosts:  (D,) logical ghost count per shard
+    Static: rounds (ring offsets d, src -> (src+d) % D), n_devices (number
+    of stacked shards), nlocal_pad, nghost_pad.
+    """
+
+    send_idx: torch.Tensor
+    recv_pos: torch.Tensor
+    nlocal: torch.Tensor
+    nghosts: torch.Tensor
+    rounds: tuple[int, ...]
+    n_devices: int
+    nlocal_pad: int
+    nghost_pad: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def compile_plan(
+    ranges: np.ndarray,
+    ghost_lists: list[np.ndarray],
+    row_align: int = 8,
+    *,
+    device,
+) -> CommPlan:
+    """Compile ghost index lists into a CommPlan on ``device``.
+
+    ranges: (D+1,) ownership prefix array (partition.owner_ranges)
+    ghost_lists[s]: sorted global indices shard s needs but does not own
+    """
+    n = len(ghost_lists)
+    assert len(ranges) == n + 1
+    # requirements[(owner, dest)] = global indices dest needs from owner
+    reqs: dict[tuple[int, int], np.ndarray] = {}
+    for s, ghosts in enumerate(ghost_lists):
+        ghosts = np.asarray(ghosts, dtype=np.int64)
+        if len(ghosts) == 0:
+            continue
+        if np.any((ghosts >= ranges[s]) & (ghosts < ranges[s + 1])):
+            raise ValueError(f"shard {s}: ghost index inside owned range")
+        if np.any(ghosts < 0) or np.any(ghosts >= ranges[-1]):
+            raise ValueError(f"shard {s}: ghost index outside global range")
+        owners = owner_of(ranges, ghosts)
+        for o in np.unique(owners):
+            reqs[(int(o), s)] = ghosts[owners == o]
+
+    # rounds: distinct ring offsets present in the (owner -> dest) graph
+    rounds = sorted({(d - o) % n for (o, d) in reqs})
+    nlocal = np.diff(ranges).astype(np.int32)
+    nghosts = np.array([len(g) for g in ghost_lists], dtype=np.int32)
+    nlocal_pad = max(_round_up(int(nlocal.max()), row_align), row_align)
+    nghost_pad = max(_round_up(int(nghosts.max()), row_align), row_align) if nghosts.max() else 0
+
+    max_send = {
+        r: max(
+            (len(v) for (o, d), v in reqs.items() if (d - o) % n == r), default=0
+        )
+        for r in rounds
+    }
+    nr = len(rounds)
+    smax = max(max_send.values(), default=0)
+    send_idx = np.zeros((n, nr, smax), dtype=np.int32)
+    recv_pos = np.full((n, nr, smax), OOB, dtype=np.int32)
+    for (o, d), glob in reqs.items():
+        r = rounds.index((d - o) % n)
+        c = len(glob)
+        send_idx[o, r, :c] = (glob - ranges[o]).astype(np.int32)
+        # receiver scatters into its ghost buffer at the ghost-list position
+        gpos = np.searchsorted(ghost_lists[d], glob)
+        recv_pos[d, r, :c] = gpos.astype(np.int32)
+
+    def tensor(arr, dtype):
+        return torch.as_tensor(arr, dtype=dtype, device=device)
+
+    return CommPlan(
+        send_idx=tensor(send_idx, torch.int64),
+        recv_pos=tensor(recv_pos, torch.int64),
+        nlocal=tensor(nlocal, torch.int32),
+        nghosts=tensor(nghosts, torch.int32),
+        rounds=tuple(rounds),
+        n_devices=n,
+        nlocal_pad=nlocal_pad,
+        nghost_pad=nghost_pad,
+    )
+
+
+def _spare_slot(pos: torch.Tensor, nghost_pad: int) -> torch.Tensor:
+    """Receive positions with padding (OOB) redirected to the spare ghost
+    column ``nghost_pad``."""
+    return torch.where(pos == int(OOB), nghost_pad, pos)
+
+
+def halo_gather(
+    x: torch.Tensor,         # (D, nlocal_pad) owned values, stacked shards
+    send_idx: torch.Tensor,  # (D, R, S)
+    recv_pos: torch.Tensor,  # (D, R, S)
+    rounds: tuple[int, ...],
+    nghost_pad: int,
+) -> torch.Tensor:
+    """Forward halo exchange: build every shard's ghost buffer from the
+    owners. Per round, each shard gathers its send values, the buffer rolls
+    by d along the shard axis (shard src's values reach (src+d) % D), and
+    the receiver places them at its ghost positions. Returns (D, nghost_pad).
+    """
+    nd = x.shape[0]
+    g = torch.zeros((nd, nghost_pad + 1), dtype=x.dtype, device=x.device)
+    for i, d in enumerate(rounds):
+        buf = torch.gather(x, 1, send_idx[:, i])
+        buf = torch.roll(buf, d, dims=0)
+        g.scatter_(1, _spare_slot(recv_pos[:, i], nghost_pad), buf)
+    return g[:, :nghost_pad]
+
+
+def halo_scatter_add(
+    gz: torch.Tensor,        # (D, nghost_pad) ghost-slot contributions
+    y: torch.Tensor,         # (D, nlocal_pad) owned accumulator
+    send_idx: torch.Tensor,
+    recv_pos: torch.Tensor,
+    rounds: tuple[int, ...],
+) -> torch.Tensor:
+    """Reverse halo exchange: route ghost-slot contributions back to their
+    owners and accumulate into the owned entries (scatter-add). Padding
+    slots read 0 and add it at index 0. On CUDA the scatter-add uses
+    atomics, so its summation order is not fixed; on the CPU it is."""
+    nd, nghost_pad = gz.shape
+    gz_ext = torch.cat([gz, gz.new_zeros((nd, 1))], dim=1)
+    for i, d in enumerate(rounds):
+        buf = torch.gather(gz_ext, 1, _spare_slot(recv_pos[:, i], nghost_pad))
+        buf = torch.roll(buf, -d, dims=0)
+        y = y.scatter_add(1, send_idx[:, i], buf)
+    return y
