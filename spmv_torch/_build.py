@@ -2,9 +2,10 @@
 with ctypes.
 
 The library has a plain C interface, so nvcc builds it in seconds (no
-PyTorch headers). It goes to ``build/spmv_torch/lib<content-hash>.so`` at
-the repository root, written under a temporary name and moved into place
-with ``os.replace`` so a concurrent process never loads a half-written file.
+PyTorch headers): one nvcc per source, all started together, then one
+link. It goes to ``build/spmv_torch/lib<content-hash>.so`` at the
+repository root, written under a temporary name and moved into place with
+``os.replace`` so a concurrent process never loads a half-written file.
 A failed build raises with nvcc's output: there is no fallback.
 """
 from __future__ import annotations
@@ -21,10 +22,19 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "spmv_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-# C entry points: (data, x, y, npad, ndiags, offsets, nshards, stream) -> int
-KERNEL_ENTRIES = ("dia_spmv_f32", "dia_spmv_f64",
-                  "dia_sym_spmv_f32", "dia_sym_spmv_f64")
+              "-Xcompiler", "-fPIC")
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry points -> argument types; each returns a CUDA error code (int)
+_DIA_ARGS = [_P, _P, _P, _L, _I, _P, _I, _P]  # data, x, y, npad, ndiags,
+#                                               offsets, nshards, stream
+_WELL_ARGS = [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _P]  # values, pos, w0,
+#                 x, y, ngroups, k, tile_groups, col_pad, nshards, stream
+KERNEL_ENTRIES = {
+    **{f"{n}_{t}": _DIA_ARGS for n in ("dia_spmv", "dia_sym_spmv")
+       for t in ("f32", "f64")},
+    **{f"well_spmv_{t}_{p}": _WELL_ARGS for t in ("f32", "f64")
+       for p in ("i16", "i32")},
+}
 
 _lib: ctypes.CDLL | None = None
 
@@ -49,6 +59,18 @@ def library_path() -> Path:
     return BUILD_DIR / f"lib{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with the first failure's
+    output after all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, text in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n{text}")
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless it is built."""
     out = library_path()
@@ -59,20 +81,14 @@ def build() -> Path:
         raise RuntimeError(f"nvcc not found (looked for {nvcc}); the CUDA "
                            "kernels need the CUDA toolkit")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [str(Path(tmpdir) / f"{src.stem}.o")
+                for src in sorted(CSRC.glob("*.cu"))]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+              for obj, src in zip(objs, sorted(CSRC.glob("*.cu")))])
+        tmp = str(Path(tmpdir) / out.name)
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
 
 
@@ -82,11 +98,9 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         path = build()
         lib = ctypes.CDLL(str(path))
-        for name in KERNEL_ENTRIES:
+        for name, argtypes in KERNEL_ENTRIES.items():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

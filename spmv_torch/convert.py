@@ -37,12 +37,15 @@ def dist_matrix_from_numpy(arrays: dict[str, np.ndarray], meta: dict, *,
 
     ``arrays``: remote_colind, remote_values, jacobi_diag, send_idx,
     recv_pos, nlocal, nghosts; local_colind/local_values ("ell"),
-    local_dia_data ("dia"), diagonal (symmetric).
+    local_dia_data ("dia"), diagonal (symmetric); for "well"
+    local_well_values/pos/w0 and, when present, far_rows/cols/vals, plus
+    local_wellT_* and farT_* when symmetric.
     ``meta``: nrows_global, ncols_global, row_pad, symmetric, nnz_global,
-    local_format, dia_offsets, rounds, n_devices, nlocal_pad, nghost_pad.
+    local_format, dia_offsets, rounds, n_devices, nlocal_pad, nghost_pad;
+    for "well" well_meta, well_far_nnz (and wellT_meta, well_farT_nnz).
     """
     fmt = meta["local_format"]
-    if fmt not in ("ell", "dia"):
+    if fmt not in ("ell", "dia", "well"):
         raise ValueError(f"local_format {fmt!r} is not ported yet (ROADMAP.md)")
     plan = CommPlan(
         send_idx=_put(arrays["send_idx"], device, torch.int64),
@@ -55,6 +58,23 @@ def dist_matrix_from_numpy(arrays: dict[str, np.ndarray], meta: dict, *,
         nghost_pad=int(meta["nghost_pad"]),
     )
     is_ell = fmt == "ell"
+    well = {}
+    if fmt == "well":
+        for tag in ("", "T"):
+            if arrays.get(f"local_well{tag}_values") is None:
+                continue
+            well.update({
+                f"local_well{tag}_values": _put(arrays[f"local_well{tag}_values"], device),
+                f"local_well{tag}_pos": _put(arrays[f"local_well{tag}_pos"], device,
+                                             torch.int32),
+                f"local_well{tag}_w0": _put(arrays[f"local_well{tag}_w0"], device,
+                                            torch.int32),
+                f"well{tag}_meta": tuple(meta[f"well{tag}_meta"]),
+                f"well_far{tag}_nnz": int(meta.get(f"well_far{tag}_nnz", 0)),
+                f"far{tag}_rows": _put(arrays.get(f"far{tag}_rows"), device, torch.int64),
+                f"far{tag}_cols": _put(arrays.get(f"far{tag}_cols"), device, torch.int64),
+                f"far{tag}_vals": _put(arrays.get(f"far{tag}_vals"), device),
+            })
     return DistMatrix(
         local_colind=_put(arrays["local_colind"], device, torch.int64) if is_ell else None,
         local_values=_put(arrays["local_values"], device) if is_ell else None,
@@ -69,6 +89,7 @@ def dist_matrix_from_numpy(arrays: dict[str, np.ndarray], meta: dict, *,
         symmetric=bool(meta["symmetric"]),
         nnz_global=int(meta["nnz_global"]),
         local_format=fmt,
-        local_dia_data=None if is_ell else _put(arrays["local_dia_data"], device),
+        local_dia_data=_put(arrays.get("local_dia_data"), device),
         dia_offsets=tuple(int(o) for o in meta.get("dia_offsets", ())),
+        **well,
     )

@@ -54,6 +54,10 @@ class CSRHost:
     def dtype(self):
         return self.values.dtype
 
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.nrows, self.ncols)
+
     def row_nnz(self) -> np.ndarray:
         return np.diff(self.rowptr).astype(np.int32)
 
@@ -65,14 +69,16 @@ class CSRHost:
         vals: np.ndarray,
         nrows: int,
         ncols: int,
+        sum_duplicates: bool = True,
     ) -> "CSRHost":
-        """Build CSR from triplets (rows sorted stably; duplicates summed)."""
+        """Build CSR from triplets (rows sorted stably; duplicates summed
+        unless ``sum_duplicates=False``)."""
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals)
         order = np.lexsort((cols, rows))
         rows, cols, vals = rows[order], cols[order], vals[order]
-        if len(rows):
+        if sum_duplicates and len(rows):
             key_new = np.empty(len(rows), dtype=bool)
             key_new[0] = True
             key_new[1:] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
@@ -92,7 +98,7 @@ class CSRHost:
                   ncols=ncols)
         # lexsorted, summed triplets are strictly column-increasing per
         # row — downstream conversions skip their canonicality scan
-        out._sorted_unique = True
+        out._sorted_unique = bool(sum_duplicates)
         return out
 
     @classmethod
@@ -100,6 +106,12 @@ class CSRHost:
         dense = np.asarray(dense)
         rows, cols = np.nonzero(dense)
         return cls.from_coo(rows, cols, dense[rows, cols], dense.shape[0], dense.shape[1])
+
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros(self.shape, dtype=self.values.dtype)
+        rows = np.repeat(np.arange(self.nrows), self.row_nnz())
+        np.add.at(out, (rows, self.colind), self.values)
+        return out
 
     def matvec(self, x: np.ndarray) -> np.ndarray:
         """Sequential oracle SpMV, accumulated in float64 (complex128 for
@@ -125,3 +137,22 @@ class CSRHost:
         # canonical — propagate so downstream can take the no-sort paths
         out._sorted_unique = getattr(self, "_sorted_unique", False)
         return out
+
+    def transpose(self) -> "CSRHost":
+        rows = np.repeat(np.arange(self.nrows), self.row_nnz())
+        return CSRHost.from_coo(
+            self.colind, rows, self.values, self.ncols, self.nrows,
+            sum_duplicates=False)
+
+    def split_lower_diag(self) -> tuple["CSRHost", np.ndarray]:
+        """(strict lower triangle, dense diagonal vector): the L and D of
+        A = L + D + L^T that symmetric storage keeps."""
+        rows = np.repeat(np.arange(self.nrows), self.row_nnz())
+        diag = np.zeros(min(self.nrows, self.ncols), dtype=self.values.dtype)
+        on_diag = rows == self.colind
+        diag[rows[on_diag]] = self.values[on_diag]
+        keep = rows > self.colind
+        lower = CSRHost.from_coo(
+            rows[keep], self.colind[keep], self.values[keep], self.nrows,
+            self.ncols, sum_duplicates=False)
+        return lower, diag

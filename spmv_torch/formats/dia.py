@@ -107,9 +107,10 @@ def csr_to_dia(
     dtype=None,
     symmetric: bool = False,
     *,
-    device,
+    device="cuda",
 ) -> DiaMatrix:
-    """Convert host CSR to DIA on ``device``. Raises if the matrix has more
+    """Convert host CSR to DIA on ``device`` (the card unless the caller asks
+    for another). Raises if the matrix has more
     than ``max_diags`` distinct diagonals. Rows pad to a multiple of 128
     (the lane layout of ``DiaMatrix.data``).
 

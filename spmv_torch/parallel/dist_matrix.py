@@ -2,29 +2,37 @@
 leading axis of one device.
 
 Counterpart of ``spmv_tpu.parallel.dist_matrix`` for ``local_format``
-"ell" and "dia", square, symmetric or vanilla. The reference stacks each
+"ell", "dia", "well" and "auto", square, symmetric or vanilla. The
+reference stacks each
 shard's local/remote blocks along a device-mesh axis and runs ``matvec``
 inside ``shard_map``; here the same stacked arrays live on one torch device
 (``n_devices`` keeps its name and counts the stacked shards) and ``matvec``
 works on all shards at once:
 
     ghosts = halo_gather(x)            # one roll per plan round
-    y  = local_block @ x               # DIA kernel, one launch for D shards
+    y  = local_block @ x               # DIA/WELL kernel, one launch for D
     y += remote_block @ ghosts         # ELL gather over the ghost buffer
 
 The symmetric path stores the strict lower triangle plus diagonal; ghost
-column contributions return to their owners through the reverse plan.
+column contributions return to their owners through the reverse plan. The
+symmetric WELL form ("dual-WELL") also stores the local block's transpose
+as a second WELL stack, so its local apply is two gather launches plus the
+diagonal product, with no scatter.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from spmv_torch.formats.csr import CSRHost
 from spmv_torch.formats.dia import LANES, host_dtype
+from spmv_torch.formats.well import _build_arrays, _pack, split_window
 from spmv_torch.ops.spmv_dia_cuda import MAX_DIAGS, spmv_dia_stacked
+from spmv_torch.ops.spmv_well import far_add
+from spmv_torch.ops.spmv_well_cuda import spmv_well_stacked
 from spmv_torch.parallel.comm_plan import (
     CommPlan,
     compile_plan,
@@ -33,10 +41,17 @@ from spmv_torch.parallel.comm_plan import (
 )
 from spmv_torch.parallel.partition import ShardCSR, owner_ranges, partition_csr
 
-LOCAL_FORMATS = ("ell", "dia")
+LOCAL_FORMATS = ("ell", "dia", "well", "auto")
+# the reference's double-single formats, which "auto" picks for float64
+# input; not ported yet
+DS_FORMATS = ("dia_ds", "well_ds")
 # a stacked (D, R, K) ELL block larger than this means a degree-skewed
 # matrix that row-uniform storage cannot hold; assembly raises instead
 ELL_BYTES_CAP = 4e9
+# WELL: entries outside each tile's best window of this many 128-wide
+# segments form the far remainder; a group may hold at most this many slots
+WELL_WSEG_CAP = 512
+WELL_MAX_K = 64
 
 
 def _round_up(x: int, m: int) -> int:
@@ -70,6 +85,14 @@ class DistMatrix:
     diagonal: (D, R) when symmetric
     jacobi_diag: (D, R) dense diagonal (preconditioning)
     local_dia_data: (D, R/128, Kd*128) interleaved DIA local block ("dia")
+    local_well_*: (D, Kw, G, 128) values and int32 pos, (D, G/tg) int32 w0
+        of the stacked WELL local block ("well"; G*128 == R), well_meta =
+        (k_slots, wseg, tile_groups, paired)
+    far_rows/cols/vals: (D, F) compact COO of the window split's far
+        remainder (padding slots are (0, 0, 0.0)), None when every shard's
+        is empty
+    local_wellT_*, wellT_meta, farT_*: the same for the transpose of the
+        local strict lower triangle (symmetric "well")
     """
 
     local_colind: torch.Tensor | None
@@ -87,6 +110,22 @@ class DistMatrix:
     local_format: str = "ell"
     local_dia_data: torch.Tensor | None = None
     dia_offsets: tuple[int, ...] = ()
+    local_well_values: torch.Tensor | None = None
+    local_well_pos: torch.Tensor | None = None
+    local_well_w0: torch.Tensor | None = None
+    well_meta: tuple = ()
+    far_rows: torch.Tensor | None = None
+    far_cols: torch.Tensor | None = None
+    far_vals: torch.Tensor | None = None
+    well_far_nnz: int = 0
+    local_wellT_values: torch.Tensor | None = None
+    local_wellT_pos: torch.Tensor | None = None
+    local_wellT_w0: torch.Tensor | None = None
+    wellT_meta: tuple = ()
+    farT_rows: torch.Tensor | None = None
+    farT_cols: torch.Tensor | None = None
+    farT_vals: torch.Tensor | None = None
+    well_farT_nnz: int = 0
 
     @property
     def n_devices(self) -> int:
@@ -105,6 +144,14 @@ class DistMatrix:
     @property
     def device(self) -> torch.device:
         return self.remote_values.device
+
+    def format_size_bytes(self) -> int:
+        """Device bytes held by the matrix's arrays (the plan tables and the
+        Jacobi diagonal excluded, as in the reference)."""
+        return sum(
+            t.numel() * t.element_size()
+            for name, t in vars(self).items()
+            if isinstance(t, torch.Tensor) and name != "jacobi_diag")
 
     @property
     def row_lane_rows(self) -> int:
@@ -167,12 +214,27 @@ def _stacked_mult(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
         # and applies L + D + L^T of the local block itself
         y = spmv_dia_stacked(A.local_dia_data, x2, A.dia_offsets,
                              A.symmetric).reshape(nd, A.row_pad)
+    elif A.local_format == "well":
+        y = spmv_well_stacked(A.local_well_values, A.local_well_pos,
+                              A.local_well_w0, x2,
+                              A.well_meta[2]).reshape(nd, A.row_pad)
+        if A.far_rows is not None:
+            far_add(y, A.far_rows, A.far_cols, A.far_vals, x)
     else:
         y = _ell_apply(A.local_colind, A.local_values, x)
     if have_ghosts:
         y = y + _ell_apply(A.remote_colind, A.remote_values, ghosts)
     if A.symmetric:
-        if A.local_format != "dia":
+        if A.local_format == "well":
+            # dual-WELL: the local transpose term L^T x is a second gather
+            # launch over the pre-built transpose stack
+            y = y + spmv_well_stacked(A.local_wellT_values, A.local_wellT_pos,
+                                      A.local_wellT_w0, x2,
+                                      A.wellT_meta[2]).reshape(nd, A.row_pad)
+            y = y + A.diagonal * x
+            if A.farT_rows is not None:
+                far_add(y, A.farT_rows, A.farT_cols, A.farT_vals, x)
+        elif A.local_format != "dia":
             y = y + A.diagonal * x
             # transpose contributions to owned columns
             contrib = A.local_values * x[:, :, None]
@@ -208,9 +270,14 @@ def _assemble(
     local_format: str,
     device,
 ) -> DistMatrix:
-    """Compile the (column-side) CommPlan, stack the ELL/DIA blocks on the
-    host, and move everything to ``device`` once."""
+    """Compile the (column-side) CommPlan, stack the ELL/DIA/WELL blocks on
+    the host, and move everything to ``device`` once."""
     nd = len(shards)
+    well = None
+    if local_format == "well":
+        well = _stack_well(shards, symmetric, dtype)
+        # the shared per-shard pad is exactly the WELL geometry's G*128
+        row_align = well["gt"] * LANES
     plan = compile_plan(col_ranges, [s.ghosts for s in shards],
                         row_align=row_align, device=device)
     row_pad = max(
@@ -305,6 +372,24 @@ def _assemble(
         return None if arr is None else torch.as_tensor(
             np.ascontiguousarray(arr), dtype=dt, device=device)
 
+    well_fields = {}
+    if well is not None:
+        for tag in ("", "T"):
+            if f"well{tag}" not in well:
+                continue
+            v, p, w0, meta = well[f"well{tag}"]
+            rows, cols, vals, nnz = well[f"far{tag}"]
+            well_fields.update({
+                f"local_well{tag}_values": put(v),
+                f"local_well{tag}_pos": put(p),
+                f"local_well{tag}_w0": put(w0),
+                f"well{tag}_meta": meta,
+                f"far{tag}_rows": put(rows, torch.int64),
+                f"far{tag}_cols": put(cols, torch.int64),
+                f"far{tag}_vals": put(vals),
+                f"well_far{tag}_nnz": nnz,
+            })
+
     return DistMatrix(
         local_colind=put(lci, torch.int64),
         local_values=put(lv),
@@ -321,7 +406,83 @@ def _assemble(
         local_format=local_format,
         local_dia_data=put(dia_data),
         dia_offsets=dia_offsets,
+        **well_fields,
     )
+
+
+def _far_coo_stack(blocks: list[CSRHost], dtype):
+    """Per-shard far remainders as (D, F) compact COO (rows, cols, vals,
+    F = the largest shard's far nnz); all None when every one is empty."""
+    fmax = max((b.nnz for b in blocks), default=0)
+    if fmax == 0:
+        return None, None, None, 0
+    nd = len(blocks)
+    rows = np.zeros((nd, fmax), dtype=np.int32)
+    cols = np.zeros((nd, fmax), dtype=np.int32)
+    vals = np.zeros((nd, fmax), dtype=dtype or blocks[0].dtype)
+    for s, b in enumerate(blocks):
+        if b.nnz == 0:
+            continue
+        rows[s, : b.nnz] = np.repeat(np.arange(b.nrows, dtype=np.int32),
+                                     b.row_nnz())
+        cols[s, : b.nnz] = b.colind
+        vals[s, : b.nnz] = b.values
+        # padding slots stay (row 0, col 0, val 0): they add 0.0
+    return rows, cols, vals, fmax
+
+
+def _stack_well(shards: list[ShardCSR], symmetric: bool, dtype) -> dict:
+    """The WELL branch of the reference's ``_assemble`` (plain "well"):
+    per shard, split the local block into its near window and far
+    remainder, pack the near part, and stack every shard on one padded
+    geometry (D, K, G, 128); symmetric also packs and stacks the local
+    block's transpose. Returns {"gt": G, "well": (values, pos, w0, meta),
+    "far": (rows, cols, vals, F)} plus "wellT"/"farT" when symmetric."""
+    nd = len(shards)
+    max_groups = max(-(-(s.row_range[1] - s.row_range[0]) // LANES)
+                     for s in shards)
+    tg = next(t for t in (64, 32, 16, 8, 4, 2, 1) if t <= max_groups)
+    blocks = {"": [s.local for s in shards]}
+    if symmetric:
+        blocks["T"] = [s.local.transpose() for s in shards]
+    # K*tg <= 1024 is the reference's TPU VMEM envelope (its kernel holds a
+    # K*tg-row gather temporary); kept only so the stacked arrays equal the
+    # reference's: high-K matrices repack at a smaller tile until they fit
+    while True:
+        packed = {}
+        for tag, bl in blocks.items():
+            splits = [split_window(b, tile_groups=tg, wseg_cap=WELL_WSEG_CAP)
+                      for b in bl]
+            packed[tag] = ([_build_arrays(near, tg, WELL_MAX_K, dtype)
+                            for near, _ in splits],
+                           [far for _, far in splits])
+        k_all = max(v.shape[0] for ws, _ in packed.values() for v, *_ in ws)
+        if k_all * tg <= 1024 or tg <= 1:
+            break
+        tg = max(tg // 2, 1)
+    # one padded geometry for every shard: groups cover the rows, every
+    # window (w0 + wseg) and the owned column span (x and y share the
+    # per-shard padded length), for both stacks when symmetric
+    need = max(-(-(s.col_range[1] - s.col_range[0]) // LANES) for s in shards)
+    for ws, _ in packed.values():
+        wseg = max(w[3] for w in ws)
+        need = max(need, max(w[0].shape[1] for w in ws),
+                   max((int(w[2].max()) if len(w[2]) else 0) for w in ws) + wseg)
+    gt = -(-need // tg) * tg
+    out = {"gt": gt}
+    for tag, (ws, fars) in packed.items():
+        k = max(w[0].shape[0] for w in ws)
+        sv = np.zeros((nd, k, gt, LANES), dtype=ws[0][0].dtype)
+        sp = np.zeros((nd, k, gt, LANES), dtype=np.int32)
+        s0 = np.zeros((nd, gt // tg), dtype=np.int32)
+        for s, (v, p, w0, _, _, _) in enumerate(ws):
+            sv[s, : v.shape[0], : v.shape[1]] = v
+            sp[s, : p.shape[0], : p.shape[1]] = p
+            s0[s, : len(w0)] = w0
+        meta = (k, max(w[3] for w in ws), tg, any(w[5] for w in ws))
+        out[f"well{tag}"] = (sv, sp, s0, meta)
+        out[f"far{tag}"] = _far_coo_stack(fars, dtype)
+    return out
 
 
 def _hub_split(a: CSRHost) -> CSRHost:
@@ -345,6 +506,58 @@ def _hub_split(a: CSRHost) -> CSRHost:
         "row-uniform format")
 
 
+def _wants_ds(a: CSRHost, dtype) -> bool:
+    """float64 values (asked for, or the CSR's own): the reference's auto
+    choice routes them to the double-single formats."""
+    return np.dtype(dtype if dtype is not None else a.values.dtype) == np.float64
+
+
+def select_local_format(a: CSRHost, symmetric: bool = False,
+                        dtype=None) -> str:
+    """The reference's automatic local-format choice (numpy gate):
+
+      dia  — banded/stencil operators (at most 64 distinct diagonals);
+      well — general sparsity whose columns stay window-local (the far
+             remainder at most a quarter of the entries, occupancy at least
+             0.02, K <= 64, and WELL storage at most 8x the ELL fallback's
+             and 4 GB); symmetric matrices use the dual-WELL form;
+      ell  — everything else.
+
+    float64 input routes to the double-single variants ``dia_ds`` (vanilla
+    banded) and ``well_ds``, as in the reference; ``build_dist_matrix``
+    raises for those, since they are not ported yet.
+    """
+    dtype = host_dtype(dtype)
+    want_ds = _wants_ds(a, dtype)
+    if a.nnz == 0:
+        return "ell"
+    rows = np.repeat(np.arange(a.nrows, dtype=np.int64), a.row_nnz())
+    offs = a.colind.astype(np.int64) - rows
+    if a.nrows == a.ncols and len(np.unique(offs)) <= MAX_DIAGS:
+        return "dia_ds" if want_ds and not symmetric else "dia"
+    try:
+        near, far = split_window(a, tile_groups=8, wseg_cap=WELL_WSEG_CAP)
+        if far.nnz > 0.25 * a.nnz:
+            return "ell"
+        g_, k_, _, _, _, _ = _pack(near, 8, dry_run=True)
+        occupancy = near.nnz / max(g_ * k_ * LANES, 1)
+        if occupancy < 0.02:
+            return "ell"
+        itemsize = 8 if want_ds else np.dtype(dtype or np.float32).itemsize
+        well_bytes = g_ * k_ * LANES * (itemsize + 2)  # values + int16 pos
+        ell_bytes = a.nrows * int(a.row_nnz().max()) * (itemsize + 4)
+        if k_ <= WELL_MAX_K and well_bytes <= 8 * ell_bytes and well_bytes <= 4e9:
+            return "well_ds" if want_ds else "well"
+        warnings.warn(
+            f"WELL packing would store {well_bytes/1e6:.0f} MB vs "
+            f"{ell_bytes/1e6:.0f} MB for ELL (occupancy {occupancy:.3f}); "
+            "falling back to ELL — consider RCM reordering "
+            "(spmv_torch.reorder) to raise occupancy", stacklevel=2)
+    except ValueError:
+        pass
+    return "ell"
+
+
 def _dia_row_align(local_format: str, max_rows_per_shard: int) -> int:
     # distributed vectors live in the (rows, 128) lane layout
     if local_format != "dia":
@@ -362,16 +575,19 @@ def build_dist_matrix(
     local_format: str = "ell",
     hub_cap="auto",
     *,
-    device,
+    device="cuda",
 ) -> DistMatrix:
     """Assemble a DistMatrix from a global host CSR: partition rows into
     ``n_devices`` shards, classify local/remote(/diagonal) entries, compile
-    the halo plan, and move the stacked blocks to ``device``.
+    the halo plan, and move the stacked blocks to ``device`` (the card
+    unless the caller asks for another).
 
-    ``local_format``: "ell" or "dia" (square only). ``dtype``: value dtype
-    (numpy or torch), default the CSR's. ``hub_cap="auto"`` runs the
-    reference's degree-skew decision and raises where it would split (not
-    ported); ``None`` keeps every row in the row-uniform format.
+    ``local_format``: "ell", "dia" (square only), "well" (square only) or
+    "auto" (``select_local_format``; float64 input selects the
+    double-single formats, which raise NotImplementedError). ``dtype``:
+    value dtype (numpy or torch), default the CSR's. ``hub_cap="auto"``
+    runs the reference's degree-skew decision and raises where it would
+    split (not ported); ``None`` keeps every row in the row-uniform format.
     """
     if local_format not in LOCAL_FORMATS:
         raise ValueError(
@@ -379,14 +595,23 @@ def build_dist_matrix(
             f"{', '.join(LOCAL_FORMATS)}); see ROADMAP.md")
     if hub_cap not in ("auto", None):
         raise ValueError(f"hub_cap must be 'auto' or None, got {hub_cap!r}")
-    if hub_cap == "auto" and not symmetric:
+    dtype = host_dtype(dtype)
+    if (hub_cap == "auto" and not symmetric
+            and (local_format != "auto" or not _wants_ds(a, dtype))):
         a = _hub_split(a)
+    if local_format == "auto":
+        local_format = select_local_format(a, symmetric=symmetric, dtype=dtype)
+        if local_format in DS_FORMATS:
+            raise NotImplementedError(
+                f"local_format='auto' selects {local_format!r} for float64 "
+                "input, as the reference does; the double-single formats are "
+                "not ported yet (ROADMAP.md). Pass local_format='well', "
+                "'dia' or 'ell' to run float64 in a plain format")
     if local_format == "dia" and a.nrows != a.ncols:
         raise ValueError("local_format='dia' requires a square matrix")
     if a.nrows != a.ncols:
         raise NotImplementedError("rectangular operators are not ported yet "
                                   "(ROADMAP.md)")
-    dtype = host_dtype(dtype)
     row_align = _dia_row_align(local_format, -(-a.nrows // n_devices))
     shards = partition_csr(a, n_devices, symmetric=symmetric)
     return _assemble(

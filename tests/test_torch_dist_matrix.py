@@ -186,7 +186,7 @@ def test_jacobi_preconditioner_matches_reference():
 def test_unported_options_raise():
     _, pt = _pair()
     with pytest.raises(ValueError, match="ROADMAP"):
-        build_dist_matrix(pt, local_format="well", device="cpu")
+        build_dist_matrix(pt, local_format="well_ds", device="cpu")
     # a hub row: the reference's degree-skew decision would split it out
     rows = np.concatenate([np.arange(400), np.zeros(200, np.int64)])
     cols = np.concatenate([np.arange(400), np.arange(1, 201)])

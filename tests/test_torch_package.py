@@ -23,8 +23,9 @@ import torch
 from spmv_torch import _build
 from spmv_torch.formats.dia import csr_to_dia
 from spmv_torch.gen import create_laplace_2d
-from spmv_torch.ops import spmv_dia_cuda
+from spmv_torch.ops import spmv_dia_cuda, spmv_well_cuda
 from spmv_torch.ops.spmv_dia import spmv_dia_stacked_plain
+from spmv_torch.ops.spmv_well import spmv_well_stacked_plain
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "spmv_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -42,8 +43,10 @@ def cuda():
 @pytest.fixture(autouse=True)
 def _fresh_counters():
     spmv_dia_cuda.reset_launches()
+    spmv_well_cuda.reset_launches()
     yield
     spmv_dia_cuda.reset_launches()
+    spmv_well_cuda.reset_launches()
 
 
 def _env_with_repo():
@@ -170,6 +173,7 @@ def test_library_path_tracks_sources():
     assert p.parent == _build.BUILD_DIR and p.name.startswith("lib")
     assert p == _build.library_path()
     assert (_build.CSRC / "spmv_dia.cu").exists()
+    assert (_build.CSRC / "spmv_well.cu").exists()
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
@@ -194,7 +198,7 @@ def test_demo_refuses_missing_cuda_and_unported_flags():
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit):
             demo_cg.main(["--lap2d", "8"])
-    for flag in (["--amg"], ["--format", "well"], ["--solver", "gmres"],
+    for flag in (["--amg"], ["--format", "well_ds"], ["--solver", "gmres"],
                  ["--cpu"], ["--sstep", "4"]):
         with pytest.raises(SystemExit):
             demo_cg.main(["--lap2d", "8", "--device", "cpu", *flag])
@@ -251,3 +255,43 @@ def test_dist_matrix_runs_through_kernel_on_cuda(cuda):
     want = a.matvec(x)
     assert np.linalg.norm(y - want) <= 1e-12 * np.linalg.norm(want)
     assert spmv_dia_cuda.launches == {"dia": 0, "dia_sym": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.float64, 1e-13)])
+@pytest.mark.parametrize("pos_dtype", [torch.int16, torch.int32])
+def test_well_kernel_matches_plain_on_cuda(cuda, pos_dtype, dtype, tol):
+    """Stacked shards, random window starts and positions: kernel vs plain
+    on the card."""
+    rng = np.random.default_rng(11)
+    nd, k, g, tg, col_pad = 3, 5, 32, 8, 64 * 128
+    values = torch.as_tensor(rng.standard_normal((nd, k, g, 128)), dtype=dtype,
+                             device=cuda)
+    pos = torch.as_tensor(rng.integers(0, 24 * 128, (nd, k, g, 128)),
+                          dtype=pos_dtype, device=cuda)
+    w0 = torch.as_tensor(rng.integers(0, 5, (nd, g // tg)) * 8,
+                         dtype=torch.int32, device=cuda)
+    x2 = torch.as_tensor(rng.standard_normal((nd * col_pad // 128, 128)),
+                         dtype=dtype, device=cuda)
+    y = spmv_well_cuda.spmv_well_stacked(values, pos, w0, x2, tg)
+    torch.cuda.synchronize()
+    want = spmv_well_stacked_plain(values, pos, w0, x2, tg)
+    err = float(torch.linalg.vector_norm(y - want) / torch.linalg.vector_norm(want))
+    assert err <= tol
+    assert spmv_well_cuda.launches["well"] == 1
+
+
+@pytest.mark.cuda
+def test_dist_matrix_well_runs_through_kernel_on_cuda(cuda):
+    from spmv_torch.corpus import fem_p1_2d
+    from spmv_torch.parallel.dist_matrix import build_dist_matrix
+    from spmv_torch.reorder import rcm_reorder
+
+    a, _ = rcm_reorder(fem_p1_2d(5000, dtype=np.float64), keep_best=True)
+    A = build_dist_matrix(a, n_devices=2, symmetric=True, local_format="well",
+                          device=cuda)
+    x = np.random.default_rng(3).standard_normal(a.nrows)
+    y = A.from_dist(A.matvec(A.to_dist(x)))
+    want = a.matvec(x)
+    assert np.linalg.norm(y - want) <= 1e-12 * np.linalg.norm(want)
+    assert spmv_well_cuda.launches["well"] == 2  # L and L^T, D=2 in one launch each
