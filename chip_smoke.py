@@ -55,11 +55,36 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   9. the WELL halo path: an RCM'd 50k-node FEM on D=4 stacked shards,
      vanilla and symmetric, fp32 and fp64 — one matvec vs the host oracle
      and a 30-iteration Jacobi-PCG;
- 10. ms per apply of every ported kernel, kernel and plain in turns, with
-     the library yardstick (one torch CSR @ x call, cuSPARSE; the port never
-     calls it) and the bytes bound at 3.35 TB/s (the H100 SXM's published
-     HBM rate): the DIA kernels at 3200^2, spmv_well on the 4M bench matrix
-     and on the 800k FEM's lower-triangle stack.
+ 11. the double-single kernels vs their plain versions, both planes bit for
+     bit: dia_ds_spmv on the 3200^2 Laplacian and a random banded D=3 stack,
+     well_ds_spmv on the 4M bench matrix (tile_groups 64, int16 pos), a
+     pair=True and an int32-pos packing of 200k rows and a D=3 stack; on
+     values x (1 + 1e-9 N(0,1)) each also vs the host f64 CSR (<= 1e-13),
+     and the fp32 kernel on the same input must miss that by 100x or more
+     (the lo planes are read);
+ 12. the float64 main path (demo_cg's default: float64, --format auto)
+     through the transparent float64 matvec: (a) the 3200^2 Laplacian, auto
+     must pick dia_ds, CG to 1e-6 (every apply a dia_ds launch, the host
+     residual within 1e-8 of the reported, iterations within 1% and the
+     solution within 1e-8 of a native-f64 vanilla dia solve); (b) the
+     RCM'd 800k FEM, symmetric, auto must pick well_ds, Jacobi-PCG (2
+     well_ds launches per apply, A x at the solution within 1e-12 of
+     || |A| |x| ||, iterations within 2% and the solution within 1e-8 of
+     phase 8's native-f64 solve);
+ 13. mixed-precision refinement: cg_refined_dist(dia) at 1024^2 to rtol
+     1e-12 (8 outer passes at most, inner rtol 1e-6, inner kmax 20000): the
+     true float64 residual <= 1e-8 and 100x below a plain fp32 CG's; then,
+     printed, cg_refined at 1024^2 and cg_refined_dist at 3200^2;
+ 14. the DS halo path on D=4 stacked shards: one matvec_ds vs the host
+     oracle (<= 1e-13) for the 512^2 Laplacian (dia_ds) and the RCM'd 50k
+     FEM (well_ds, vanilla and symmetric); a Jacobi cg_refined_dist(well)
+     on that FEM, printed;
+ 10. (run last) ms per apply of every ported kernel, kernel and plain in
+     turns, with the library yardstick (one torch CSR @ x call, cuSPARSE,
+     float64 for the DS kernels; the port never calls it) and the bytes
+     bound at 3.35 TB/s (the H100 SXM's published HBM rate): the DIA
+     kernels and dia_ds_spmv at 3200^2, spmv_well and well_ds_spmv on the
+     4M bench matrix and on the 800k FEM's lower-triangle stack.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -78,18 +103,27 @@ from spmv_torch import _build
 from spmv_torch.corpus import circuit_network, fem_p1_2d
 from spmv_torch.formats.csr import CSRHost
 from spmv_torch.formats.dia import csr_to_dia
+from spmv_torch.ds import ds_from_f64, ds_to_f64
 from spmv_torch.formats.well import csr_to_well, csr_to_well_sym
 from spmv_torch.gen import create_laplace_2d, gaussian_bump
-from spmv_torch.ops import spmv_dia_cuda, spmv_well_cuda
+from spmv_torch.ops import (
+    spmv_dia_cuda,
+    spmv_dia_ds_cuda,
+    spmv_well_cuda,
+    spmv_well_ds_cuda,
+)
 from spmv_torch.ops.spmv_dia import spmv_dia_stacked_plain
+from spmv_torch.ops.spmv_dia_ds import csr_to_dia_ds, spmv_dia_ds_stacked_plain
 from spmv_torch.ops.spmv_well import (
     far_add,
     spmv_well_stacked_plain,
     spmv_well_sym,
 )
+from spmv_torch.ops.spmv_well_ds import csr_to_well_ds, spmv_well_ds_stacked_plain
 from spmv_torch.parallel.dist_matrix import build_dist_matrix
 from spmv_torch.reorder import rcm_reorder
 from spmv_torch.solvers.cg import cg
+from spmv_torch.solvers.refine import cg_refined, cg_refined_dist
 from spmv_torch.utils.timing import bench_chained, measure_copy_bandwidth_gbs
 
 NX = 3200           # headline: 3200^2 = 10.24M rows (bench.py:358)
@@ -107,6 +141,11 @@ N_FEM = 800_000      # bench.py:254, the corpus fem2d size
 HALO_FEM = 50_000
 CIRCUIT_NX = 400     # circuit_network(400): 160k nodes with long-range edges
 HBM_TBS = 3.35       # H100 SXM published HBM rate (TB/s)
+DS_ORACLE_TOL = 1e-13  # a DS apply vs the host float64 CSR (relative L2)
+DS_CONTROL_MISS = 100  # the fp32 kernel on the same input misses by this x
+FEM_DS_ITER_TOL = 0.02  # DS vs native f64 FEM Jacobi-PCG iterations
+REFINE_NX = 1024     # the reference's refinement record size (BENCH_NOTES.md)
+REFINE_TOL = 1e-8    # refined true relative residual at REFINE_NX^2
 
 
 def fail(msg: str) -> None:
@@ -124,8 +163,8 @@ def show(tag: str, **fields) -> None:
 
 
 def reset_counters() -> None:
-    spmv_dia_cuda.reset_launches()
-    spmv_well_cuda.reset_launches()
+    for mod in (spmv_dia_cuda, spmv_well_cuda, spmv_dia_ds_cuda, spmv_well_ds_cuda):
+        mod.reset_launches()
 
 
 def check_close(name, y_k, y_p, tol):
@@ -554,7 +593,7 @@ def phase_fem_main_path(dev):
     """Phase 8: the general-sparsity main path through the port's entry
     points. Returns (WELL launch count of the solves, its/s, the RCM'd FEM
     matrix, the symmetric fp32 operator, the largest abs kernel-vs-plain
-    difference on its stacks)."""
+    difference on its stacks, (iterations, solution) of the fp64 solve)."""
     t0 = time.perf_counter()
     a = fem_p1_2d(N_FEM)
     t_gen = time.perf_counter() - t0
@@ -655,13 +694,14 @@ def phase_fem_main_path(dev):
                  f"CSR by {op_err:.3e} of || |A| |x| ||")
         if dt == np.float64:
             fields.update(phase_fem_plain_witness(a, A, b, res))
+            fp64 = (res.iterations, x)
         its_per_s[tag] = res.iterations / t_solve
         show("8.main_path", **fields)
     if counts["well"] == 0:
         fail("the FEM main path launched no WELL kernel")
     show("8.main_path", launches=counts)
     phase_fem_plain_cg(runs[:2])
-    return counts["well"], its_per_s, a, runs[0][3], max_abs
+    return counts["well"], its_per_s, a, runs[0][3], max_abs, fp64
 
 
 def phase_fem_plain_cg(runs):
@@ -764,7 +804,7 @@ def phase_well_halo(dev):
                  cg_host_rel_residual=host_rel, cg_reported_rel_residual=rep_rel)
 
 
-def csr_tensor(a: CSRHost, dev, scale: float = 1.0):
+def csr_tensor(a: CSRHost, dev, scale: float = 1.0, dtype=np.float32):
     """The library yardstick's operand: torch CSR (int32 indices) on the
     card."""
     with warnings.catch_warnings():  # torch's "beta" notice for sparse CSR
@@ -772,8 +812,7 @@ def csr_tensor(a: CSRHost, dev, scale: float = 1.0):
         return torch.sparse_csr_tensor(
             torch.as_tensor(a.rowptr.astype(np.int32), device=dev),
             torch.as_tensor(a.colind, device=dev),
-            torch.as_tensor(a.values.astype(np.float32) * np.float32(scale),
-                            device=dev),
+            torch.as_tensor(a.values.astype(dtype) * dtype(scale), device=dev),
             size=a.shape)
 
 
@@ -787,10 +826,10 @@ def time_in_turns(kernel, plain, x0, iters_k=100, iters_p=25):
             [1e3 * t_k1, 1e3 * t_k2], [1e3 * t_p1, 1e3 * t_p2])
 
 
-def library_ms(a: CSRHost, dev, scale: float) -> float:
+def library_ms(a: CSRHost, dev, scale: float, dtype=np.float32) -> float:
     """ms of one torch CSR @ x (cuSPARSE) on the same matrix, chained."""
-    m = csr_tensor(a, dev, scale)
-    x0 = torch.as_tensor(gaussian_bump(a.ncols, dtype=np.float32), device=dev)
+    m = csr_tensor(a, dev, scale, dtype)
+    x0 = torch.as_tensor(gaussian_bump(a.ncols, dtype=dtype), device=dev)
     ms = 1e3 * bench_chained(lambda v: m @ v, x0, iters=50)
     del m
     return ms
@@ -865,6 +904,407 @@ def phase_timing_all(a_lap, dia_times, a4, w4, a_fem, A_fem, dev):
     return out
 
 
+def perturbed(a: CSRHost, seed: int) -> CSRHost:
+    """A float64 copy of ``a`` with every value multiplied by
+    1 + 1e-9 N(0,1): below float32 resolution, so the lo planes carry
+    information a float32 path cannot see."""
+    rng = np.random.default_rng(seed)
+    v = a.values.astype(np.float64) * (1 + 1e-9 * rng.standard_normal(a.nnz))
+    return CSRHost(a.rowptr, a.colind, v, a.ncols)
+
+
+def ds_pair(x: np.ndarray, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (hi, lo) float32 lane-layout pair of a float64 host vector."""
+    return tuple(torch.as_tensor(p, device=dev).view(-1, 128)
+                 for p in ds_from_f64(x))
+
+
+def ds_compare(name, kernel, plain, args) -> np.ndarray:
+    """One DS kernel launch vs its plain version on the same inputs: both
+    planes must be equal bit for bit. Returns hi + lo on the host."""
+    y_k = kernel(*args)
+    torch.cuda.synchronize()
+    y_p = plain(*args)
+    for plane, k, p in zip(("hi", "lo"), y_k, y_p):
+        if not bool(torch.isfinite(k).all()):
+            fail(f"{name}: non-finite kernel output ({plane})")
+        if not torch.equal(k, p):
+            diff = float((k.double() - p.double()).abs().max())
+            fail(f"{name}: {plane} plane differs from the plain version "
+                 f"(max abs {diff:.3e})")
+    return ds_to_f64(y_k[0].cpu().numpy(), y_k[1].cpu().numpy()).ravel()
+
+
+def well_ds_args(w, xs):
+    return (w.values_hi.unsqueeze(0), w.values_lo.unsqueeze(0),
+            w.pos.unsqueeze(0), w.w0.unsqueeze(0), *xs, w.tile_groups)
+
+
+def phase_ds_kernels(a_lap, a4, w4, dev):
+    """Phase 11: both DS kernels vs their plain versions (bit for bit), vs
+    the host float64 CSR oracle (DS_ORACLE_TOL) on values perturbed below
+    float32 resolution, and the fp32 kernel on the same input as a control
+    that must miss the oracle by DS_CONTROL_MISS x DS_ORACLE_TOL at least.
+    Returns the 4M bench matrix's DS packing (phase 10 times it)."""
+    rng = np.random.default_rng(11)
+    dia_args = (spmv_dia_ds_cuda.spmv_dia_ds_stacked, spmv_dia_ds_stacked_plain)
+    well_fns = (spmv_well_ds_cuda.spmv_well_ds_stacked, spmv_well_ds_stacked_plain)
+
+    def gate(name, err, err32=None):
+        if not err <= DS_ORACLE_TOL:
+            fail(f"{name}: {err:.3e} from the host float64 CSR > {DS_ORACLE_TOL:.0e}")
+        if err32 is not None and not err32 >= DS_CONTROL_MISS * DS_ORACLE_TOL:
+            fail(f"{name}: the fp32 control is {err32:.3e} from the host CSR, "
+                 "so the case cannot show that the lo planes are read")
+
+    # the 3200^2 Laplacian
+    ap = perturbed(a_lap, 110)
+    n = ap.nrows
+    d = csr_to_dia_ds(ap, row_align=ROW_ALIGN, device=dev)
+    x = np.zeros(d.nrows_pad)
+    x[:n] = rng.standard_normal(n)
+    y = ds_compare(f"dia_ds_spmv lap{NX}", *dia_args,
+                   (d.data_hi.unsqueeze(0), d.data_lo.unsqueeze(0),
+                    *ds_pair(x, dev), d.offsets))
+    want = ap.matvec(x[:n])
+    d32 = csr_to_dia(ap, row_align=ROW_ALIGN, dtype=np.float32, device=dev)
+    y32 = spmv_dia_cuda.spmv_dia_2d(
+        d32, torch.as_tensor(x.astype(np.float32), device=dev).view(-1, 128))
+    err, err32 = rel_l2(y[:n], want), rel_l2(y32.cpu().numpy().ravel()[:n], want)
+    gate(f"dia_ds_spmv lap{NX}", err, err32)
+    show("11.kernel", kernel="dia_ds_spmv", matrix=f"laplace2d {NX}^2, values "
+         "x (1 + 1e-9 N(0,1))", bit_equal_to_plain=True,
+         rel_l2_vs_host_csr=err, fp32_kernel_rel_l2_vs_host_csr=err32)
+    del d, d32
+
+    # random banded, odd offsets, D=3 stacked shards
+    offs = (-301, -37, -5, -1, 0, 1, 5, 37, 301)
+    nd, nr = 3, 1000
+    planes = []
+    for shape in ((nd, nr, len(offs) * 128), (nd * nr, 128)):
+        hi = rng.standard_normal(shape)
+        planes += [hi, hi * 1e-8 * rng.standard_normal(shape)]
+    t = [torch.as_tensor(p, dtype=torch.float32, device=dev) for p in planes]
+    ds_compare(f"dia_ds_spmv banded D={nd}", *dia_args, (*t, offs))
+    show("11.kernel", kernel="dia_ds_spmv", bit_equal_to_plain=True,
+         matrix=f"random banded hi/lo planes, offsets {list(offs)}, D={nd}")
+
+    # the 4M bench matrix (tile_groups 64, int16 pos), a pair=True and an
+    # int32-pos (tile_groups 8) packing of 200k rows, and a D=3 stack
+    t0 = time.perf_counter()
+    a4p = perturbed(a4, 111)
+    w4ds = csr_to_well_ds(a4p, tile_groups=64, device=dev)
+    show("11.well_ds_pack", matrix=f"bench banded-random {N_WELL}",
+         k_slots=w4ds.k_slots, pos_dtype=str(w4ds.pos.dtype),
+         pack_s=time.perf_counter() - t0)
+    small = perturbed(build_well_matrix(N_WELL_SMALL, np.random.default_rng(1)), 112)
+    # the fp32 control reuses phase 7's packing of the unperturbed matrix:
+    # in float32 the two differ only where a 1e-9 perturbation crosses a
+    # rounding boundary
+    cases = [(f"bench {N_WELL} tg64", a4p, w4ds, w4)]
+    for tg, pair in ((64, True), (8, False)):
+        cases.append((f"bench {N_WELL_SMALL} tg{tg}{' paired' if pair else ''}",
+                       small, csr_to_well_ds(small, tile_groups=tg, pair=pair,
+                                             device=dev), None))
+    for tag, a, w, w32 in cases:
+        if "paired" in tag and not w.paired:
+            fail(f"{tag}: pair=True packed no paired slot")
+        x = np.zeros(w.ncols_pad)
+        x[: a.ncols] = rng.standard_normal(a.ncols)
+        y = ds_compare(f"well_ds_spmv {tag}", *well_fns, well_ds_args(w, ds_pair(x, dev)))
+        want = a.matvec(x[: a.ncols])
+        err = rel_l2(y[: a.nrows], want)
+        err32 = None
+        if w32 is not None:
+            x32 = torch.as_tensor(x.astype(np.float32), device=dev).view(-1, 128)
+            y32 = spmv_well_cuda.spmv_well_stacked(
+                w32.values.unsqueeze(0), w32.pos.unsqueeze(0), w32.w0.unsqueeze(0),
+                x32, w32.tile_groups)
+            err32 = rel_l2(y32.cpu().numpy().ravel()[: a.nrows], want)
+        gate(f"well_ds_spmv {tag}", err, err32)
+        show("11.kernel", kernel="well_ds_spmv", matrix=tag + ", values x (1 + "
+             "1e-9 N(0,1))", k_slots=w.k_slots, paired=w.paired,
+             pos_dtype=str(w.pos.dtype), bit_equal_to_plain=True,
+             rel_l2_vs_host_csr=err, fp32_kernel_rel_l2_vs_host_csr=err32)
+    A = build_dist_matrix(small, n_devices=3, local_format="well_ds", device=dev)
+    x = rng.standard_normal(small.nrows)
+    xs = (A.to_dist(ds_from_f64(x)[0]), A.to_dist(ds_from_f64(x)[1]))
+    ds_compare("well_ds_spmv D=3", *well_fns,
+               (A.local_well_values, A.local_well_values_lo, A.local_well_pos,
+                A.local_well_w0, *xs, A.well_meta[2]))
+    err = rel_l2(ds_to_f64(*(A.from_dist(t) for t in A.matvec_ds(*xs))),
+                 small.matvec(x))
+    gate("well_ds D=3 matvec_ds", err)
+    show("11.kernel", kernel="well_ds_spmv", matrix=f"bench {N_WELL_SMALL}, D=3 "
+         "stacked", well_meta=list(A.well_meta), bit_equal_to_plain=True,
+         matvec_ds_rel_l2_vs_host=err)
+    return w4ds
+
+
+def phase_ds_main_path(a_lap, a_fem, fem_fp64, dev):
+    """Phase 12: the float64 main path, demo_cg's default (float64,
+    --format auto), through the transparent float64 matvec. (a) The 3200^2
+    Laplacian: auto must pick dia_ds; CG beside the native-f64 vanilla dia
+    solve. (b) The RCM'd 800k FEM, symmetric: auto must pick well_ds;
+    Jacobi-PCG beside phase 8's native-f64 solve. Returns (launch counts,
+    launches per CG iteration, the symmetric well_ds FEM operator)."""
+    n = a_lap.nrows
+    t0 = time.perf_counter()
+    A = build_dist_matrix(a_lap, n_devices=1, local_format="auto", device=dev)
+    if A.local_format != "dia_ds":
+        fail(f"auto on the float64 Laplacian built {A.local_format!r}, not dia_ds")
+    N = build_dist_matrix(a_lap, n_devices=1, dtype=np.float64,
+                          local_format="dia", device=dev)
+    b_host = gaussian_bump(n)
+    b = A.to_dist(b_host)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+
+    reset_counters()
+    t0 = time.perf_counter()
+    res = cg(A.as_linear_operator(), b, kmax=20000, rtol=1e-6)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    counts = {"dia_ds": spmv_dia_ds_cuda.launches["dia_ds"]}
+    t0 = time.perf_counter()
+    res_n = cg(N.as_linear_operator(), N.to_dist(b_host), kmax=20000, rtol=1e-6)
+    torch.cuda.synchronize()
+    t_native = time.perf_counter() - t0
+    if not (res.converged and res_n.converged):
+        fail(f"12a: CG did not converge (DS {res.iterations}, native "
+             f"{res_n.iterations})")
+    if counts["dia_ds"] < res.iterations + 1:
+        fail(f"12a: {counts['dia_ds']} dia_ds launches for {res.iterations + 1} applies")
+    x, x_n = A.from_dist(res.x), N.from_dist(res_n.x)
+    if not np.all(np.isfinite(x)):
+        fail("12a: non-finite solution")
+    host_rel = float(np.linalg.norm(b_host - a_lap.matvec(x)) / np.linalg.norm(b_host))
+    rep_rel = float(res.rnorm) / float(res.rnorm0)
+    diff = rel_l2(x, x_n)
+    show("12.main_path", run=f"laplace2d {NX}^2 float64 auto -> dia_ds, CG",
+         rows=n, iterations=res.iterations, native_f64_dia_iterations=res_n.iterations,
+         reported_rel_residual=rep_rel, host_rel_residual=host_rel,
+         rel_l2_vs_native_f64_solution=diff, assemble_s=t_asm, solve_s=t_solve,
+         it_per_s=res.iterations / t_solve, native_solve_s=t_native,
+         native_it_per_s=res_n.iterations / t_native,
+         dia_ds_launches=counts["dia_ds"],
+         launches_per_iteration=counts["dia_ds"] / (res.iterations + 1))
+    if abs(host_rel - rep_rel) > 1e-8:
+        fail(f"12a: host residual {host_rel:.3e} vs reported {rep_rel:.3e}")
+    if abs(res.iterations - res_n.iterations) > 0.01 * res_n.iterations:
+        fail(f"12a: {res.iterations} iterations, native f64 {res_n.iterations}")
+    if not diff <= 1e-8:
+        fail(f"12a: solution {diff:.3e} from the native f64 solution")
+    per_iter = {"dia_ds": counts["dia_ds"] / (res.iterations + 1)}
+    del A, N, b, res, res_n
+
+    # (b) the FEM: demo_cg's float64 default on the RCM'd operator
+    t0 = time.perf_counter()
+    A = build_dist_matrix(a_fem, n_devices=1, symmetric=True, dtype=np.float64,
+                          local_format="auto", device=dev)
+    if A.local_format != "well_ds":
+        fail(f"auto on the float64 FEM built {A.local_format!r}, not well_ds")
+    b_host = gaussian_bump(a_fem.nrows)
+    b = A.to_dist(b_host)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    # the kernel vs its plain version on the stacks the solve launches
+    x = np.random.default_rng(12).standard_normal(a_fem.nrows)
+    xs = (A.to_dist(ds_from_f64(x)[0]), A.to_dist(ds_from_f64(x)[1]))
+    for part, tag in (("L", ""), ("L^T", "T")):
+        meta = getattr(A, f"well{tag}_meta")
+        ds_compare(f"well_ds_spmv FEM {part}", spmv_well_ds_cuda.spmv_well_ds_stacked,
+                   spmv_well_ds_stacked_plain,
+                   (getattr(A, f"local_well{tag}_values"),
+                    getattr(A, f"local_well{tag}_values_lo"),
+                    getattr(A, f"local_well{tag}_pos"),
+                    getattr(A, f"local_well{tag}_w0"), *xs, meta[2]))
+        show("12.kernel", kernel="well_ds_spmv", bit_equal_to_plain=True,
+             matrix=f"fem_p1_2d {N_FEM} RCM, {part} stack (auto, float64)",
+             k_slots=meta[0], tile_groups=meta[2])
+    del xs
+
+    reset_counters()
+    t0 = time.perf_counter()
+    res = cg(A.as_linear_operator(), b, kmax=20000, rtol=1e-6,
+             preconditioner=A.jacobi_preconditioner())
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    counts["well_ds"] = spmv_well_ds_cuda.launches["well_ds"]
+    if not res.converged:
+        fail(f"12b: Jacobi-PCG did not converge in {res.iterations}")
+    if counts["well_ds"] < 2 * (res.iterations + 1):
+        fail(f"12b: {counts['well_ds']} well_ds launches for "
+             f"{res.iterations + 1} applies")
+    x = A.from_dist(res.x)
+    if not np.all(np.isfinite(x)):
+        fail("12b: non-finite solution")
+    ax = A.from_dist(A.matvec(res.x))
+    absa = CSRHost(a_fem.rowptr, a_fem.colind,
+                   np.abs(a_fem.values.astype(np.float64)), a_fem.ncols)
+    ax_scale = float(np.linalg.norm(absa.matvec(np.abs(x))))
+    op_err = float(np.linalg.norm(ax - a_fem.matvec(x)) / ax_scale)
+    its_64, x_64 = fem_fp64
+    diff = rel_l2(x, x_64)
+    rep_rel = float(res.rnorm) / float(res.rnorm0)
+    host_rel = float(np.linalg.norm(b_host - a_fem.matvec(x)) / np.linalg.norm(b_host))
+    show("12.main_path", run=f"fem_p1_2d {N_FEM} RCM symmetric float64 auto -> "
+         "well_ds, Jacobi-PCG", **well_stats(A, a_fem), iterations=res.iterations,
+         native_f64_well_iterations=its_64, reported_rel_residual=rep_rel,
+         host_rel_residual=host_rel, ax_at_solution_err_vs_host=op_err,
+         rel_l2_vs_native_f64_solution=diff, assemble_s=t_asm, solve_s=t_solve,
+         it_per_s=res.iterations / t_solve, well_ds_launches=counts["well_ds"],
+         launches_per_iteration=counts["well_ds"] / (res.iterations + 1))
+    if not op_err <= TOL_ORACLE["float64"]:
+        fail(f"12b: A x at the solution {op_err:.3e} of || |A| |x| || from the host CSR")
+    if abs(res.iterations - its_64) > FEM_DS_ITER_TOL * its_64:
+        fail(f"12b: {res.iterations} iterations, phase 8's native f64 {its_64}")
+    if not diff <= WITNESS_SOLUTION_TOL:
+        fail(f"12b: solution {diff:.3e} from phase 8's native f64 solution")
+    per_iter["well_ds"] = counts["well_ds"] / (res.iterations + 1)
+    show("12.main_path", launches=counts, launches_per_iteration=per_iter)
+    return counts, per_iter, A
+
+
+def true_rel(a: CSRHost, x: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm(b - a.matvec(x)) / np.linalg.norm(b))
+
+
+def phase_refine(dev):
+    """Phase 13: mixed-precision refinement, fp32 inner CG (rtol 1e-6,
+    kmax 20000 each) with DS residuals, to rtol 1e-12 in at most 8 outer
+    passes. Gated at REFINE_NX^2: the true float64 residual of
+    cg_refined_dist <= REFINE_TOL and 100x below a plain fp32 CG's on the
+    same system. cg_refined there and cg_refined_dist at NX^2 are printed,
+    not gated."""
+    kw = dict(rtol=1e-12, max_outer=8, inner_rtol=1e-6, inner_kmax=20000,
+              device=dev)
+    a = create_laplace_2d(REFINE_NX, REFINE_NX)
+    b = gaussian_bump(a.nrows)
+
+    def run(tag, fn, mat, rhs, **extra):
+        t0 = time.perf_counter()
+        res = fn(mat, rhs, **kw, **extra)
+        seconds = time.perf_counter() - t0
+        rel = true_rel(mat, res.x, rhs)
+        show("13.refine", run=tag, rows=mat.nrows, outer=res.outer_iterations,
+             inner=res.inner_iterations, converged=res.converged,
+             history=res.history, true_rel_residual=rel, seconds=seconds)
+        return rel
+
+    rel = run(f"cg_refined_dist dia, laplace2d {REFINE_NX}^2", cg_refined_dist, a, b)
+    A32 = build_dist_matrix(a, n_devices=1, dtype=np.float32, local_format="dia",
+                            device=dev)
+    t0 = time.perf_counter()
+    r32 = cg(A32.as_linear_operator(), A32.to_dist(b.astype(np.float32)),
+             kmax=20000, rtol=1e-6)
+    rel32 = true_rel(a, A32.from_dist(r32.x).astype(np.float64), b)
+    show("13.refine", run=f"plain fp32 CG, laplace2d {REFINE_NX}^2 (the control)",
+         iterations=r32.iterations, converged=r32.converged,
+         true_rel_residual=rel32, seconds=time.perf_counter() - t0)
+    if not rel <= REFINE_TOL:
+        fail(f"13: refined true residual {rel:.3e} > {REFINE_TOL:.0e}")
+    if not 100 * rel <= rel32:
+        fail(f"13: refined true residual {rel:.3e} not 100x below fp32 CG's {rel32:.3e}")
+    del A32
+    run(f"cg_refined (one device), laplace2d {REFINE_NX}^2", cg_refined, a, b)
+    big = create_laplace_2d(NX, NX)
+    run(f"cg_refined_dist dia, laplace2d {NX}^2 (not gated)", cg_refined_dist, big,
+        gaussian_bump(big.nrows))
+
+
+def phase_ds_halo(dev):
+    """Phase 14: the DS halo path on D=4 stacked shards, one matvec_ds vs
+    the host float64 oracle (DS_ORACLE_TOL): the 512^2 Laplacian as dia_ds,
+    the RCM'd 50k FEM as well_ds, vanilla and symmetric (the transposed
+    remote chain and the error-free reverse exchange). Then, printed, a
+    Jacobi cg_refined_dist(well) on that FEM at D=4."""
+    rng = np.random.default_rng(14)
+    lap = perturbed(create_laplace_2d(HALO_NX, HALO_NX), 140)
+    fem, _ = rcm_reorder(fem_p1_2d(HALO_FEM, seed=3, dtype=np.float64),
+                         keep_best=True)
+    for a, fmt, sym in ((lap, "dia_ds", False), (fem, "well_ds", False),
+                        (fem, "well_ds", True)):
+        A = build_dist_matrix(a, n_devices=HALO_D, symmetric=sym, local_format=fmt,
+                              device=dev)
+        x = rng.standard_normal(a.nrows) * 1e3
+        xh, xl = ds_from_f64(x)
+        yh, yl = A.matvec_ds(A.to_dist(xh), A.to_dist(xl))
+        err = rel_l2(ds_to_f64(A.from_dist(yh), A.from_dist(yl)), a.matvec(x))
+        tag = f"{fmt} {'symmetric' if sym else 'vanilla'}"
+        show("14.halo", run=tag, rows=a.nrows, shards=HALO_D,
+             rounds=list(A.plan.rounds), nghost_pad=A.plan.nghost_pad,
+             reverse_exchange=A.remoteT_colind is not None,
+             matvec_ds_rel_l2_vs_host=err)
+        if not err <= DS_ORACLE_TOL:
+            fail(f"14: {tag} matvec_ds {err:.3e} from the host CSR")
+    b = gaussian_bump(fem.nrows)
+    t0 = time.perf_counter()
+    res = cg_refined_dist(fem, b, n_devices=HALO_D, rtol=1e-12, max_outer=8,
+                          inner_kmax=20000, jacobi=True, local_format="well",
+                          device=dev)
+    show("14.refine", run=f"cg_refined_dist well jacobi, fem_p1_2d {HALO_FEM} "
+         f"RCM, D={HALO_D} (not gated)", outer=res.outer_iterations,
+         inner=res.inner_iterations, converged=res.converged,
+         history=res.history, true_rel_residual=true_rel(fem, res.x, b),
+         seconds=time.perf_counter() - t0)
+
+
+def phase_ds_timing(a_lap, a4, w4ds, A_fem_ds, a_fem, dev):
+    """Phase 10, DS kernels: kernel and plain ms in turns, the bytes bound
+    (both value planes, pos and w0, x and y in both planes, once each) and
+    the library yardstick (one float64 torch CSR @ x, cuSPARSE): dia_ds at
+    NX^2, well_ds on the FEM's DS lower stack and on the 4M bench matrix."""
+    out = {}
+
+    def row(kernel, plain, x0, nbytes, a_lib, lib_scale):
+        ms_k, ms_p, runs_k, runs_p = time_in_turns(kernel, plain, x0)
+        return dict(ms=ms_k, plain_ms=ms_p,
+                    library_ms=library_ms(a_lib, dev, lib_scale, np.float64),
+                    bound_ms=bound_ms(nbytes), bytes=nbytes, ms_runs=runs_k,
+                    plain_ms_runs=runs_p)
+
+    # the Laplacian scaled by 1/9 so chained applies stay bounded
+    a9 = CSRHost(a_lap.rowptr, a_lap.colind, a_lap.values / 9.0, a_lap.ncols)
+    d = csr_to_dia_ds(a9, row_align=ROW_ALIGN, device=dev)
+    x = np.zeros(d.nrows_pad)
+    x[: a9.nrows] = gaussian_bump(a9.nrows)
+    planes = (d.data_hi.unsqueeze(0), d.data_lo.unsqueeze(0))
+    out["dia_ds_spmv"] = row(
+        lambda v: spmv_dia_ds_cuda.spmv_dia_ds_stacked(*planes, *v, d.offsets),
+        lambda v: spmv_dia_ds_stacked_plain(*planes, *v, d.offsets),
+        ds_pair(x, dev), (2 * d.ndiags + 4) * d.nrows_pad * 4, a9, 1.0)
+    show("10.timing", kernel="dia_ds_spmv", rows=a9.nrows, ndiags=d.ndiags,
+         **out["dia_ds_spmv"], library="float64 torch CSR @ x (cuSPARSE), full matrix")
+    del d, planes
+
+    def well_row(tag, vh, vl, pos, w0, tg, a_lib, lib_scale):
+        x = np.zeros(vh.shape[2] * 128)
+        x[: a_lib.ncols] = gaussian_bump(a_lib.ncols)
+        args = (vh, vl, pos, w0)
+        nbytes = (a_lib.nnz * (8 + pos.element_size()) + w0.numel() * 4
+                  + (a_lib.ncols + a_lib.nrows) * 8)
+        r = row(lambda v: spmv_well_ds_cuda.spmv_well_ds_stacked(*args, *v, tg),
+                lambda v: spmv_well_ds_stacked_plain(*args, *v, tg),
+                ds_pair(x, dev), nbytes, a_lib, lib_scale)
+        show("10.timing", kernel="well_ds_spmv", matrix=tag, k_slots=vh.shape[1],
+             tile_groups=tg, pos_dtype=str(pos.dtype), **r,
+             library="float64 torch CSR @ x (cuSPARSE), same matrix")
+        return r
+
+    bench = well_row(f"bench {N_WELL}", *well_ds_args(w4ds, ())[:4], 64, a4, 1.0)
+    lower, _ = a_fem.split_lower_diag()
+    row_sums = np.bincount(np.repeat(np.arange(lower.nrows), lower.row_nnz()),
+                           weights=np.abs(lower.values), minlength=lower.nrows)
+    scale = float(0.9 / row_sums.max())
+    A = A_fem_ds
+    fem = well_row(f"fem_p1_2d {N_FEM} RCM DS lower stack", A.local_well_values * scale,
+                   A.local_well_values_lo * scale, A.local_well_pos,
+                   A.local_well_w0, A.well_meta[2], lower, scale)
+    out["well_ds_spmv"] = dict(fem, other_shapes={f"bench {N_WELL}": bench})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -910,15 +1350,34 @@ def main() -> int:
     max_abs["spmv_well"], a4, w4 = phase_well_kernel(dev)
     show("7.seconds", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    counts["well"], fem_its, a_fem, A_fem, fem_abs = phase_fem_main_path(dev)
+    counts["well"], fem_its, a_fem, A_fem, fem_abs, fem_fp64 = phase_fem_main_path(dev)
     max_abs["spmv_well"] = max(max_abs["spmv_well"], fem_abs)
     show("8.seconds", seconds=time.perf_counter() - t0, it_per_s=fem_its)
     t0 = time.perf_counter()
     phase_well_halo(dev)
     show("9.seconds", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    w4ds = phase_ds_kernels(a, a4, w4, dev)
+    # every DS comparison is bit for bit (ds_compare fails otherwise)
+    max_abs.update(dia_ds_spmv=0.0, well_ds_spmv=0.0)
+    show("11.seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ds_counts, per_iter, A_fem_ds = phase_ds_main_path(a, a_fem, fem_fp64, dev)
+    counts.update(ds_counts)
+    show("12.seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_refine(dev)
+    show("13.seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_ds_halo(dev)
+    show("14.seconds", seconds=time.perf_counter() - t0)
+
     t0 = time.perf_counter()
     timing = phase_timing_all(a, times, a4, w4, a_fem, A_fem, dev)
-    show("10.seconds", seconds=time.perf_counter() - t0)
+    timing.update(phase_ds_timing(a, a4, w4ds, A_fem_ds, a_fem, dev))
+    show("10.seconds", seconds=time.perf_counter() - t0,
+         ds_launches_per_cg_iteration=per_iter)
 
     kernels = []
     for kname, key, source, replaces in (
@@ -927,7 +1386,11 @@ def main() -> int:
             ("dia_sym_spmv", "dia_sym", "spmv_torch/csrc/spmv_dia.cu",
              "spmv_tpu/ops/spmv_dia_pallas.py:265"),
             ("spmv_well", "well", "spmv_torch/csrc/spmv_well.cu",
-             "spmv_tpu/ops/spmv_well_pallas.py:43")):
+             "spmv_tpu/ops/spmv_well_pallas.py:43"),
+            ("dia_ds_spmv", "dia_ds", "spmv_torch/csrc/spmv_dia_ds.cu",
+             "spmv_tpu/ops/spmv_dia_ds_pallas.py:164"),
+            ("well_ds_spmv", "well_ds", "spmv_torch/csrc/spmv_well_ds.cu",
+             "spmv_tpu/ops/spmv_well_pallas.py:407")):
         row = timing[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
@@ -938,6 +1401,11 @@ def main() -> int:
             **({"other_shapes": row["other_shapes"]} if "other_shapes" in row
                else {}),
         })
+    # DS timing rows carry their runs; the kernels line keeps the summary
+    for k in kernels:
+        for shape in (k, *k.get("other_shapes", {}).values()):
+            shape.pop("ms_runs", None)
+            shape.pop("plain_ms_runs", None)
     print(smi[0], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,20 +6,27 @@ Module names mirror ``spmv_tpu`` so each counterpart is found by name:
 spmv_tpu (JAX/Pallas)  spmv_torch (PyTorch/CUDA)
 ====================  ===================================================
 formats.csr            formats.csr   (host CSR, numpy, carried across)
+ds                     ds            (double-single on torch tensors)
 gen                    gen           (numpy generators)
 formats.dia            formats.dia   (DiaMatrix holding a torch tensor)
 formats.well           formats.well  (WellMatrix, SymWellMatrix; numpy packer)
 ops.spmv_dia           ops.spmv_dia  (plain torch DIA apply, CPU path)
 ops.spmv_dia_pallas    ops.spmv_dia_cuda + csrc/spmv_dia.cu (sm_90a)
 ops.spmv_well_pallas   ops.spmv_well (plain torch, CPU path) +
-                       ops.spmv_well_cuda + csrc/spmv_well.cu (sm_90a)
+                       ops.spmv_well_cuda + csrc/spmv_well.cu (sm_90a);
+                       its double-single part: ops.spmv_well_ds +
+                       ops.spmv_well_ds_cuda + csrc/spmv_well_ds.cu
+ops.spmv_dia_ds_pallas ops.spmv_dia_ds (plain torch, CPU path) +
+                       ops.spmv_dia_ds_cuda + csrc/spmv_dia_ds.cu
 corpus                 corpus        (numpy + scipy generators)
 reorder                reorder       (numpy RCM)
 io.matrix_market       io.matrix_market
 parallel.partition     parallel.partition
 parallel.comm_plan     parallel.comm_plan (shards stacked on one device)
-parallel.dist_matrix   parallel.dist_matrix (ell, dia, well, auto)
+parallel.dist_matrix   parallel.dist_matrix (ell, dia, dia_ds, well,
+                       well_ds, auto; matvec_ds)
 solvers.cg             solvers.cg
+solvers.refine         solvers.refine (cg_refined, cg_refined_dist)
 utils.timing           utils.timing  (CUDA events)
 demos.demo_cg          demos.demo_cg
 ====================  ===================================================
@@ -41,9 +48,12 @@ from spmv_torch.gen import (
     create_laplace_2d,
     create_laplace_3d,
     gaussian_bump,
+    random_csr,
 )
 from spmv_torch.io.matrix_market import read_matrix_market, write_matrix_market
+from spmv_torch.ops.spmv_dia_ds import DiaDsMatrix, csr_to_dia_ds, spmv_dia_ds
 from spmv_torch.ops.spmv_well import spmv_well, spmv_well_sym
+from spmv_torch.ops.spmv_well_ds import WellDsMatrix, csr_to_well_ds, spmv_well_ds
 from spmv_torch.parallel.dist_matrix import (
     DistMatrix,
     build_dist_matrix,
@@ -51,6 +61,7 @@ from spmv_torch.parallel.dist_matrix import (
 )
 from spmv_torch.reorder import rcm_reorder
 from spmv_torch.solvers.cg import CGResult, cg, cg_residual_history
+from spmv_torch.solvers.refine import RefineResult, cg_refined, cg_refined_dist
 
 __all__ = [
     "corpus",
@@ -63,6 +74,12 @@ __all__ = [
     "csr_to_well_sym",
     "spmv_well",
     "spmv_well_sym",
+    "DiaDsMatrix",
+    "csr_to_dia_ds",
+    "spmv_dia_ds",
+    "WellDsMatrix",
+    "csr_to_well_ds",
+    "spmv_well_ds",
     "read_matrix_market",
     "write_matrix_market",
     "rcm_reorder",
@@ -71,9 +88,13 @@ __all__ = [
     "create_laplace_2d",
     "create_laplace_3d",
     "gaussian_bump",
+    "random_csr",
     "DistMatrix",
     "build_dist_matrix",
     "CGResult",
     "cg",
     "cg_residual_history",
+    "RefineResult",
+    "cg_refined",
+    "cg_refined_dist",
 ]

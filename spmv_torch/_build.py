@@ -1,5 +1,5 @@
-"""Build the CUDA kernels (csrc/*.cu) with nvcc at first use and bind them
-with ctypes.
+"""Build the CUDA kernels (csrc/*.cu, with their csrc/*.cuh headers) with
+nvcc at first use and bind them with ctypes.
 
 The library has a plain C interface, so nvcc builds it in seconds (no
 PyTorch headers): one nvcc per source, all started together, then one
@@ -29,11 +29,18 @@ _DIA_ARGS = [_P, _P, _P, _L, _I, _P, _I, _P]  # data, x, y, npad, ndiags,
 #                                               offsets, nshards, stream
 _WELL_ARGS = [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _P]  # values, pos, w0,
 #                 x, y, ngroups, k, tile_groups, col_pad, nshards, stream
+_DIA_DS_ARGS = [_P, _P, _P, _P, _P, _P, _L, _I, _P, _I, _P]  # data hi, lo,
+#                 x hi, lo, y hi, lo, npad, ndiags, offsets, nshards, stream
+_WELL_DS_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _P]
+#                 values hi, lo, pos, w0, x hi, lo, y hi, lo, ngroups, k,
+#                 tile_groups, col_pad, nshards, stream
 KERNEL_ENTRIES = {
     **{f"{n}_{t}": _DIA_ARGS for n in ("dia_spmv", "dia_sym_spmv")
        for t in ("f32", "f64")},
     **{f"well_spmv_{t}_{p}": _WELL_ARGS for t in ("f32", "f64")
        for p in ("i16", "i32")},
+    "dia_ds_spmv": _DIA_DS_ARGS,
+    **{f"well_ds_spmv_{p}": _WELL_DS_ARGS for p in ("i16", "i32")},
 }
 
 _lib: ctypes.CDLL | None = None
@@ -53,7 +60,7 @@ def nvcc_path() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{h.hexdigest()[:16]}.so"

@@ -39,14 +39,18 @@ def dist_matrix_from_numpy(arrays: dict[str, np.ndarray], meta: dict, *,
     recv_pos, nlocal, nghosts; local_colind/local_values ("ell"),
     local_dia_data ("dia"), diagonal (symmetric); for "well"
     local_well_values/pos/w0 and, when present, far_rows/cols/vals, plus
-    local_wellT_* and farT_* when symmetric.
+    local_wellT_* and farT_* when symmetric. The double-single formats
+    add the lo planes (``<name>_lo``); "dia_ds" takes local_dia_data(_lo),
+    "well_ds" its far ELL local_colind/local_values(_lo) and, symmetric,
+    farT_cols/farT_vals(_lo), diagonal_lo and remoteT_colind/vals(_lo).
     ``meta``: nrows_global, ncols_global, row_pad, symmetric, nnz_global,
     local_format, dia_offsets, rounds, n_devices, nlocal_pad, nghost_pad;
-    for "well" well_meta, well_far_nnz (and wellT_meta, well_farT_nnz).
+    for "well"/"well_ds" well_meta, well_far_nnz (and wellT_meta,
+    well_farT_nnz).
     """
     fmt = meta["local_format"]
-    if fmt not in ("ell", "dia", "well"):
-        raise ValueError(f"local_format {fmt!r} is not ported yet (ROADMAP.md)")
+    if fmt not in ("ell", "dia", "dia_ds", "well", "well_ds"):
+        raise ValueError(f"unknown local_format {fmt!r}")
     plan = CommPlan(
         send_idx=_put(arrays["send_idx"], device, torch.int64),
         recv_pos=_put(arrays["recv_pos"], device, torch.int64),
@@ -57,13 +61,13 @@ def dist_matrix_from_numpy(arrays: dict[str, np.ndarray], meta: dict, *,
         nlocal_pad=int(meta["nlocal_pad"]),
         nghost_pad=int(meta["nghost_pad"]),
     )
-    is_ell = fmt == "ell"
-    well = {}
-    if fmt == "well":
+    has_local_ell = fmt in ("ell", "well_ds")
+    extra = {}
+    if fmt in ("well", "well_ds"):
         for tag in ("", "T"):
             if arrays.get(f"local_well{tag}_values") is None:
                 continue
-            well.update({
+            extra.update({
                 f"local_well{tag}_values": _put(arrays[f"local_well{tag}_values"], device),
                 f"local_well{tag}_pos": _put(arrays[f"local_well{tag}_pos"], device,
                                              torch.int32),
@@ -75,9 +79,16 @@ def dist_matrix_from_numpy(arrays: dict[str, np.ndarray], meta: dict, *,
                 f"far{tag}_cols": _put(arrays.get(f"far{tag}_cols"), device, torch.int64),
                 f"far{tag}_vals": _put(arrays.get(f"far{tag}_vals"), device),
             })
+    if fmt.endswith("_ds"):
+        extra.update({name: _put(arrays.get(name), device) for name in (
+            "local_dia_data_lo", "remote_values_lo", "local_well_values_lo",
+            "local_values_lo", "local_wellT_values_lo", "farT_vals_lo",
+            "diagonal_lo", "remoteT_vals", "remoteT_vals_lo")})
+        extra["remoteT_colind"] = _put(arrays.get("remoteT_colind"), device, torch.int64)
     return DistMatrix(
-        local_colind=_put(arrays["local_colind"], device, torch.int64) if is_ell else None,
-        local_values=_put(arrays["local_values"], device) if is_ell else None,
+        local_colind=(_put(arrays["local_colind"], device, torch.int64)
+                      if has_local_ell else None),
+        local_values=_put(arrays["local_values"], device) if has_local_ell else None,
         remote_colind=_put(arrays["remote_colind"], device, torch.int64),
         remote_values=_put(arrays["remote_values"], device),
         diagonal=_put(arrays.get("diagonal"), device),
@@ -91,5 +102,5 @@ def dist_matrix_from_numpy(arrays: dict[str, np.ndarray], meta: dict, *,
         local_format=fmt,
         local_dia_data=_put(arrays.get("local_dia_data"), device),
         dia_offsets=tuple(int(o) for o in meta.get("dia_offsets", ())),
-        **well,
+        **extra,
     )

@@ -12,6 +12,9 @@ Usage:
   python -m spmv_torch.demos.demo_cg --lap2d 3200 --dia --symmetric --fp32
   python -m spmv_torch.demos.demo_cg --mtx A.mtx --reorder rcm --format auto \
       --symmetric --fp32 --kmax 20000 --rtol 1e-6
+  python -m spmv_torch.demos.demo_cg --lap2d 3200 --format auto --kmax 20000 \
+      --rtol 1e-6                    # float64: auto picks double-single dia_ds
+  python -m spmv_torch.demos.demo_cg --lap2d 1024 --refine --kmax 20000
   python -m spmv_torch.demos.demo_cg --lap2d 48 --device cpu
 """
 from __future__ import annotations
@@ -34,7 +37,6 @@ _NOT_PORTED = {
     "--deflated": dict(type=int, default=0),
     "--amg": dict(action="store_true"),
     "--amg-aggregate": dict(default="auto"),
-    "--refine": dict(action="store_true"),
     "--cpu": dict(action="store_true"),
 }
 
@@ -53,8 +55,8 @@ def main(argv=None) -> int:
                     help="number of stacked shards (default 1)")
     ap.add_argument("--format", choices=["ell", "dia", "dia_ds", "well",
                                          "well_ds", "auto"], default=None,
-                    help="local-block format (default: ell; 'auto' selects; "
-                         "the double-single formats are not ported)")
+                    help="local-block format (default: ell; 'auto' selects, "
+                         "double-single dia_ds/well_ds for float64)")
     ap.add_argument("--dia", action="store_true", help="DIA local blocks (stencil fast path)")
     ap.add_argument("--jacobi", action="store_true", help="Jacobi (diagonal) preconditioning")
     ap.add_argument("--solver", choices=["cg", "minres", "bicgstab", "gmres"],
@@ -65,6 +67,10 @@ def main(argv=None) -> int:
                          "is mapped back to the original numbering)")
     ap.add_argument("--symmetric", action="store_true")
     ap.add_argument("--fp32", action="store_true")
+    ap.add_argument("--refine", action="store_true",
+                    help="mixed-precision iterative refinement: fp32 inner "
+                         "CG (--kmax iterations each) with double-single "
+                         "residuals, to a float64-class true residual")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the operator and vectors live (default cuda)")
     for flag, kw in _NOT_PORTED.items():
@@ -78,8 +84,6 @@ def main(argv=None) -> int:
     if args.solver != "cg":
         ap.error(f"--solver {args.solver} is not yet ported, see ROADMAP.md")
     fmt = args.format or ("dia" if args.dia else "ell")
-    if fmt in ("dia_ds", "well_ds"):
-        ap.error(f"--format {fmt} is not yet ported, see ROADMAP.md")
 
     import torch
 
@@ -126,6 +130,32 @@ def main(argv=None) -> int:
         timer.add("0.Reorder", time.perf_counter() - t0)
         print(f"RCM: bandwidth {b0} -> {bandwidth(a)}", file=sys.stderr)
 
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    if args.refine:
+        from spmv_torch.solvers.refine import cg_refined, cg_refined_dist
+
+        b64 = b_host.astype(np.float64)
+        t0 = time.perf_counter()
+        if args.devices and args.devices > 1:
+            res = cg_refined_dist(a, b64, n_devices=args.devices,
+                                  rtol=args.rtol, inner_kmax=args.kmax,
+                                  jacobi=args.jacobi, device=device)
+        else:
+            res = cg_refined(a, b64, rtol=args.rtol, inner_kmax=args.kmax,
+                             device=device)
+        timer.add("1.Solve", time.perf_counter() - t0)
+        r = a.matvec(res.x) - b64
+        print(f"device: {name}, {args.devices or 1} stacked shard(s), "
+              "refinement: fp32 inner CG, double-single residuals",
+              file=sys.stderr)
+        print(timer.report())
+        print(f"Converged: {res.converged} in {res.outer_iterations} outer / "
+              f"{res.inner_iterations} inner iterations")
+        print(f"r.norm = {np.linalg.norm(r):.12e}  (TRUE f64 residual)")
+        print(f"x.norm = {np.linalg.norm(res.x):.12e}")
+        return 0
+
     try:
         A = build_dist_matrix(a, n_devices=args.devices or 1,
                               symmetric=args.symmetric, dtype=dtype,
@@ -149,8 +179,6 @@ def main(argv=None) -> int:
         inv[order] = np.arange(len(order))
         x_host = x_host[inv]
 
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
     print(f"device: {name}, {A.n_devices} stacked shard(s), "
           f"local_format={A.local_format}, symmetric={args.symmetric}, "
           f"dtype={np.dtype(dtype).name}", file=sys.stderr)

@@ -3,7 +3,10 @@
 
 Assembles a 2-D Laplacian as a DIA DistMatrix (or, with ``--fem N``, an
 RCM-reordered N-node P1 FEM operator as a WELL DistMatrix solved with
-Jacobi-PCG, the general-sparsity path) on one CUDA device, runs a fixed
+Jacobi-PCG, the general-sparsity path) on one CUDA device; ``--format
+auto`` lets ``select_local_format`` choose, which on float64 input (no
+``--fp32``) builds the double-single ``dia_ds`` / ``well_ds`` operator that
+CG applies through its float64 ``matvec``. It runs a fixed
 number of CG iterations (rtol 0, so none stops early) once under the host
 clock and once under ``torch.profiler``, and prints one JSON line per
 device kernel (calls and device microseconds per CG iteration), then a
@@ -14,6 +17,7 @@ Usage:
   python -m spmv_torch.demos.profile_cg --lap2d 3200 --symmetric --fp32
   python -m spmv_torch.demos.profile_cg --lap2d 3200 --iters 200
   python -m spmv_torch.demos.profile_cg --fem 800000 --symmetric --fp32
+  python -m spmv_torch.demos.profile_cg --lap2d 3200 --format auto
 """
 from __future__ import annotations
 
@@ -31,6 +35,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fem", type=int, default=0,
                     help="N-node fem_p1_2d, RCM'd, WELL, Jacobi-PCG "
                          "(replaces --lap2d)")
+    ap.add_argument("--format", choices=["auto"], default=None,
+                    help="local format: default dia (--lap2d) or well "
+                         "(--fem); auto selects (double-single on float64)")
     ap.add_argument("--iters", type=int, default=200, help="CG iterations profiled")
     ap.add_argument("--symmetric", action="store_true")
     ap.add_argument("--fp32", action="store_true")
@@ -57,7 +64,8 @@ def main(argv=None) -> int:
         a = create_laplace_2d(args.lap2d, args.lap2d)
         fmt = "dia"
     A = build_dist_matrix(a, n_devices=1, symmetric=args.symmetric, dtype=dtype,
-                          local_format=fmt, device=dev)
+                          local_format=args.format or fmt, device=dev)
+    fmt = A.local_format
     b = A.to_dist(gaussian_bump(a.nrows, dtype=dtype))
     op = A.as_linear_operator()
     precond = A.jacobi_preconditioner() if args.fem else None

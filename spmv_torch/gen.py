@@ -1,10 +1,10 @@
 """Problem generators (host side, numpy).
 
 Carried across from ``spmv_tpu.gen``: the 1-D gamma-coupled operator, the
-2-D 5-point and 3-D 7-point Dirichlet Laplacians, and the Gaussian-bump
-input vector. Only the numpy path comes along; the native single-pass C++
-fill is still to port (ROADMAP.md). At 3200² the numpy 2-D path allocates a
-few hundred MB and runs in seconds.
+2-D 5-point and 3-D 7-point Dirichlet Laplacians, the random test matrix
+and the Gaussian-bump input vector. Only the numpy path comes along; the
+native single-pass C++ fill is still to port (ROADMAP.md). At 3200² the
+numpy 2-D path allocates a few hundred MB and runs in seconds.
 """
 from __future__ import annotations
 
@@ -87,6 +87,37 @@ def create_laplace_3d(nx: int, ny: int | None = None, nz: int | None = None,
                   values=values, ncols=n)
     out._sorted_unique = True  # ascending-offset construction
     return out
+
+
+def random_csr(
+    nrows: int,
+    ncols: int,
+    nnz_per_row: int,
+    seed: int = 0,
+    dtype=np.float64,
+    symmetric: bool = False,
+    spd_shift: float = 0.0,
+) -> CSRHost:
+    """Random sparse matrix for tests (duplicates merged). With
+    ``symmetric=True`` returns A + A^T (+ spd_shift * row-sum on the
+    diagonal, making it strictly diagonally dominant SPD when
+    spd_shift >= 1)."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(nrows, dtype=np.int64), nnz_per_row)
+    cols = rng.integers(0, ncols, size=nrows * nnz_per_row)
+    vals = rng.standard_normal(nrows * nnz_per_row).astype(dtype)
+    a = CSRHost.from_coo(rows, cols, vals, nrows, ncols)
+    if symmetric:
+        assert nrows == ncols
+        dense_sym = a.to_dense()
+        dense_sym = dense_sym + dense_sym.T
+        if spd_shift:
+            np.fill_diagonal(
+                dense_sym,
+                np.abs(dense_sym).sum(axis=1) * spd_shift + 1.0,
+            )
+        a = CSRHost.from_dense(dense_sym)
+    return a
 
 
 def gaussian_bump(n: int, dtype=np.float64) -> np.ndarray:

@@ -12,6 +12,8 @@ tensor (as the reference stores them, ``dist_matrix.py:3-8``), so a round
 is ``torch.roll(buf, d, dims=0)`` and the reverse round rolls by -d.
 torch has no drop/fill scatter mode, so padding slots are redirected to a
 spare column before each scatter or gather and dropped afterwards.
+``halo_scatter_add_ds`` is the error-free double-single reverse exchange
+of the symmetric "well_ds" operator.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from spmv_torch.ds import ds_add
 from spmv_torch.parallel.partition import owner_of
 
 OOB = np.int32(2**31 - 1)  # receive-position sentinel of padding slots
@@ -165,3 +168,37 @@ def halo_scatter_add(
         buf = torch.roll(buf, -d, dims=0)
         y = y.scatter_add(1, send_idx[:, i], buf)
     return y
+
+
+def halo_scatter_add_ds(
+    gzh: torch.Tensor,       # (D, nghost_pad) ghost-slot contributions, hi
+    gzl: torch.Tensor,       # lo plane
+    acc_h: torch.Tensor,     # (D, nlocal_pad) owned DS accumulator, hi
+    acc_l: torch.Tensor,
+    send_idx: torch.Tensor,
+    recv_pos: torch.Tensor,
+    rounds: tuple[int, ...],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Error-free double-single reverse halo exchange. Within one round
+    each shard receives from exactly one peer, whose ghost list has no
+    duplicates, so the round's owned indices are unique: each round is a
+    placement into zeros (a deterministic scatter, no atomics), followed by
+    one dense ``ds_add``. Padding slots are redirected to a spare column
+    before the placement and dropped with it, so they add an exact (0, 0)
+    and leave the accumulator's bits unchanged."""
+    nd, nghost_pad = gzh.shape
+    nlocal_pad = acc_h.shape[1]
+    ext = [torch.cat([g, g.new_zeros((nd, 1))], dim=1) for g in (gzh, gzl)]
+    for i, d in enumerate(rounds):
+        pos = _spare_slot(recv_pos[:, i], nghost_pad)
+        # the owner's slots line up with its receiver's: padding where the
+        # receiver's position is OOB
+        pad = torch.roll(recv_pos[:, i], -d, dims=0) == int(OOB)
+        dst = torch.where(pad, nlocal_pad, send_idx[:, i])
+        placed = []
+        for g in ext:
+            buf = torch.roll(torch.gather(g, 1, pos), -d, dims=0)
+            placed.append(g.new_zeros((nd, nlocal_pad + 1))
+                          .scatter_(1, dst, buf)[:, :nlocal_pad])
+        acc_h, acc_l = ds_add(acc_h, acc_l, *placed)
+    return acc_h, acc_l

@@ -27,24 +27,27 @@ import warnings
 import numpy as np
 import torch
 
+from spmv_torch.ds import ds_add, ds_from_f64, ds_mul_f32
 from spmv_torch.formats.csr import CSRHost
 from spmv_torch.formats.dia import LANES, host_dtype
 from spmv_torch.formats.well import _build_arrays, _pack, split_window
 from spmv_torch.ops.spmv_dia_cuda import MAX_DIAGS, spmv_dia_stacked
+from spmv_torch.ops.spmv_dia_ds_cuda import spmv_dia_ds_stacked
 from spmv_torch.ops.spmv_well import far_add
 from spmv_torch.ops.spmv_well_cuda import spmv_well_stacked
+from spmv_torch.ops.spmv_well_ds_cuda import spmv_well_ds_stacked
 from spmv_torch.parallel.comm_plan import (
     CommPlan,
     compile_plan,
     halo_gather,
     halo_scatter_add,
+    halo_scatter_add_ds,
 )
 from spmv_torch.parallel.partition import ShardCSR, owner_ranges, partition_csr
 
-LOCAL_FORMATS = ("ell", "dia", "well", "auto")
-# the reference's double-single formats, which "auto" picks for float64
-# input; not ported yet
-DS_FORMATS = ("dia_ds", "well_ds")
+# "dia_ds" and "well_ds" are the double-single (float64-class) formats,
+# which "auto" picks for float64 input
+LOCAL_FORMATS = ("ell", "dia", "dia_ds", "well", "well_ds", "auto")
 # a stacked (D, R, K) ELL block larger than this means a degree-skewed
 # matrix that row-uniform storage cannot hold; assembly raises instead
 ELL_BYTES_CAP = 4e9
@@ -93,6 +96,13 @@ class DistMatrix:
         is empty
     local_wellT_*, wellT_meta, farT_*: the same for the transpose of the
         local strict lower triangle (symmetric "well")
+
+    Double-single ("dia_ds", "well_ds"): every value array above holds the
+    float32 hi plane and ``<name>_lo`` the lo plane. "well_ds" keeps its
+    far remainders as ELL rectangles: local_colind/local_values (D, R, Kf)
+    and farT_cols/farT_vals (D, R, KfT). Symmetric "well_ds" also stores
+    the transposed remote block over the ghost slots, remoteT_colind/vals
+    (D, nghost_pad, Kg), for the error-free reverse exchange.
     """
 
     local_colind: torch.Tensor | None
@@ -126,6 +136,18 @@ class DistMatrix:
     farT_cols: torch.Tensor | None = None
     farT_vals: torch.Tensor | None = None
     well_farT_nnz: int = 0
+    # double-single lo planes ("dia_ds", "well_ds"; the fields above hold
+    # the hi planes), and the symmetric "well_ds" transposed-remote ELL
+    local_dia_data_lo: torch.Tensor | None = None
+    remote_values_lo: torch.Tensor | None = None
+    local_well_values_lo: torch.Tensor | None = None
+    local_values_lo: torch.Tensor | None = None
+    local_wellT_values_lo: torch.Tensor | None = None
+    farT_vals_lo: torch.Tensor | None = None
+    diagonal_lo: torch.Tensor | None = None
+    remoteT_colind: torch.Tensor | None = None
+    remoteT_vals: torch.Tensor | None = None
+    remoteT_vals_lo: torch.Tensor | None = None
 
     @property
     def n_devices(self) -> int:
@@ -180,8 +202,35 @@ class DistMatrix:
 
     # ----- distributed SpMV -----
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A @ x: x and y in the stacked lane layout (D*pad/128, 128)."""
+        """y = A @ x: x and y in the stacked lane layout (D*pad/128, 128).
+
+        A double-single operator takes a float64 x: it is split into an
+        error-free hi/lo float32 pair, applied through ``matvec_ds`` and
+        recombined, so operators that "auto" picks for float64 input stay
+        drop-in. Loops that keep pairs call ``matvec_ds`` directly."""
+        if self.local_format.endswith("_ds"):
+            if x.dtype != torch.float64:
+                raise ValueError(
+                    "double-single operators apply via matvec_ds (hi/lo pair "
+                    f"vectors) or a float64 x, got {x.dtype}; build a "
+                    "separate float32 operator for a plain float32 matvec")
+            xh = x.to(torch.float32)
+            xl = (x - xh.to(torch.float64)).to(torch.float32)
+            yh, yl = self.matvec_ds(xh, xl)
+            return yh.to(torch.float64) + yl.to(torch.float64)
         return _stacked_mult(self, x)
+
+    def matvec_ds(self, xh: torch.Tensor, xl: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Double-single SpMV ("dia_ds", "well_ds"): (xh, xl) float32 pairs
+        in the stacked lane layout -> (yh, yl). Both planes ride the same
+        halo plan; the local block runs the DS kernel, the far, remote and
+        reverse-exchange terms error-free float32 arithmetic
+        (``spmv_torch.ds``)."""
+        if not self.local_format.endswith("_ds"):
+            raise ValueError("matvec_ds requires local_format 'dia_ds' or "
+                             "'well_ds'")
+        return _stacked_mult_ds(self, xh, xl)
 
     def as_linear_operator(self):
         """Closure for solvers: matvec on the stacked padded layout."""
@@ -250,6 +299,78 @@ def _stacked_mult(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
     return y.reshape(nd * A.row_lane_rows, LANES)
 
 
+def _stacked_mult_ds(A: DistMatrix, xh2: torch.Tensor, xl2: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """All shards' (yh, yl) = A_s @ (xh, xl) at once (the reference's
+    ``matvec_ds``), its terms in the reference's order: the local kernel,
+    the far chain, the transpose kernel, the diagonal, the farT chain, the
+    remote chain, then the error-free reverse exchange."""
+    nd, plan, rp = A.n_devices, A.plan, A.row_pad
+    xh, xl = xh2.reshape(nd, A.col_pad), xl2.reshape(nd, A.col_pad)
+    have_ghosts = plan.nghost_pad > 0 and len(plan.rounds) > 0
+    if have_ghosts:
+        gh = halo_gather(xh, plan.send_idx, plan.recv_pos, plan.rounds,
+                         plan.nghost_pad)
+        gl = halo_gather(xl, plan.send_idx, plan.recv_pos, plan.rounds,
+                         plan.nghost_pad)
+
+    def add(acc, term):
+        return ds_add(*acc, *(t.reshape(nd, rp) for t in term))
+
+    if A.local_format == "well_ds":
+        y = spmv_well_ds_stacked(A.local_well_values, A.local_well_values_lo,
+                                 A.local_well_pos, A.local_well_w0, xh2, xl2,
+                                 A.well_meta[2])
+        y = tuple(t.reshape(nd, rp) for t in y)
+        if A.well_far_nnz > 0:
+            y = add(y, _ell_ds_term(A.local_colind, A.local_values,
+                                    A.local_values_lo, xh, xl))
+        if A.symmetric:
+            # dual-WELL in DS: the local L^T term is a second DS gather
+            # launch, then the DS diagonal product and the farT chain
+            y = add(y, spmv_well_ds_stacked(
+                A.local_wellT_values, A.local_wellT_values_lo,
+                A.local_wellT_pos, A.local_wellT_w0, xh2, xl2,
+                A.wellT_meta[2]))
+            y = add(y, ds_mul_f32(A.diagonal, A.diagonal_lo, xh, xl))
+            if A.farT_cols is not None:
+                y = add(y, _ell_ds_term(A.farT_cols, A.farT_vals,
+                                        A.farT_vals_lo, xh, xl))
+    else:
+        y = spmv_dia_ds_stacked(A.local_dia_data, A.local_dia_data_lo, xh2,
+                                xl2, A.dia_offsets)
+        y = tuple(t.reshape(nd, rp) for t in y)
+    if have_ghosts:
+        y = add(y, _ell_ds_term(A.remote_colind, A.remote_values,
+                                A.remote_values_lo, gh, gl))
+        if A.remoteT_colind is not None:
+            # transpose contributions to ghost columns, exactly: the
+            # per-ghost DS chain over the transposed remote block, then the
+            # error-free reverse exchange
+            gz = _ell_ds_term(A.remoteT_colind, A.remoteT_vals,
+                              A.remoteT_vals_lo, xh, xl)
+            zero = xh.new_zeros((nd, rp))
+            y = add(y, halo_scatter_add_ds(*gz, zero, zero, plan.send_idx,
+                                           plan.recv_pos, plan.rounds))
+    return tuple(t.reshape(nd * A.row_lane_rows, LANES) for t in y)
+
+
+def _ell_ds_term(colind: torch.Tensor, vh: torch.Tensor, vl: torch.Tensor,
+                 src_h: torch.Tensor, src_l: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard ELL product in DS arithmetic: colind/values (D, R, K),
+    src (D, n) -> (D, R) pair, accumulated slot by slot from (0, 0)."""
+    nd, r, k = colind.shape
+    idx = colind.reshape(nd, r * k)
+    gh = torch.gather(src_h, 1, idx).reshape(nd, r, k)
+    gl = torch.gather(src_l, 1, idx).reshape(nd, r, k)
+    acc = (src_h.new_zeros((nd, r)), src_h.new_zeros((nd, r)))
+    for kk in range(k):
+        acc = ds_add(*acc, *ds_mul_f32(vh[:, :, kk], vl[:, :, kk],
+                                       gh[:, :, kk], gl[:, :, kk]))
+    return acc
+
+
 def _ell_apply(colind: torch.Tensor, values: torch.Tensor,
                src: torch.Tensor) -> torch.Tensor:
     """Per-shard ELL product: colind/values (D, R, K), src (D, n) -> (D, R)."""
@@ -271,11 +392,23 @@ def _assemble(
     device,
 ) -> DistMatrix:
     """Compile the (column-side) CommPlan, stack the ELL/DIA/WELL blocks on
-    the host, and move everything to ``device`` once."""
+    the host, and move everything to ``device`` once. The double-single
+    formats pack in float64 and store every value array as a float32 hi
+    plane under its own name plus a lo plane under ``<name>_lo``."""
     nd = len(shards)
+    ds = local_format.endswith("_ds")
+    pack_dtype = np.float64 if ds else dtype
+    host: dict = {}  # DistMatrix field -> host array or static metadata
+
+    def planes(name: str, arr: np.ndarray, split: bool = ds) -> None:
+        if split:
+            host[name], host[f"{name}_lo"] = ds_from_f64(arr)
+        else:
+            host[name] = arr
+
     well = None
-    if local_format == "well":
-        well = _stack_well(shards, symmetric, dtype)
+    if local_format in ("well", "well_ds"):
+        well = _stack_well(shards, symmetric, pack_dtype)
         # the shared per-shard pad is exactly the WELL geometry's G*128
         row_align = well["gt"] * LANES
     plan = compile_plan(col_ranges, [s.ghosts for s in shards],
@@ -286,49 +419,10 @@ def _assemble(
     )
     r = row_pad
 
-    dia_data = None
-    dia_offsets: tuple[int, ...] = ()
-    if local_format == "dia":
-        # union of diagonal offsets across shards; per-shard data stacked to
-        # (D, Kd, R) with absent diagonals all-zero
-        per_shard = []
-        all_offs = []
-        for sh in shards:
-            loc = sh.local
-            lens = loc.row_nnz()
-            rows = np.repeat(np.arange(loc.nrows, dtype=np.int64), lens)
-            offs = loc.colind.astype(np.int64) - rows
-            vals = loc.values
-            if symmetric:
-                # symmetric shards keep the diagonal separately; fold it in
-                # as offset 0 so the symmetric DIA block holds offsets <= 0
-                drows = np.arange(sh.nlocal, dtype=np.int64)
-                rows = np.concatenate([rows, drows])
-                offs = np.concatenate([offs, np.zeros_like(drows)])
-                vals = np.concatenate([vals, sh.diagonal])
-            per_shard.append((rows, offs, vals))
-            all_offs.append(np.unique(offs))
-        union = np.unique(np.concatenate(all_offs)) if all_offs else np.array([0])
-        if len(union) > MAX_DIAGS:
-            raise ValueError(
-                f"local blocks have {len(union)} distinct diagonals "
-                f"(> {MAX_DIAGS}, the DIA kernels' limit); local_format='dia' "
-                "is for banded/stencil operators"
-            )
-        kd = max(len(union), 1)
-        dd = np.zeros((nd, kd, r), dtype=dtype or shards[0].local.dtype)
-        for s, (rows, offs, vals) in enumerate(per_shard):
-            if len(rows) == 0:
-                continue
-            dsel = np.searchsorted(union, offs)
-            flat = dsel * np.int64(r) + rows
-            acc = np.bincount(flat, weights=vals, minlength=kd * r)
-            dd[s] += acc.reshape(kd, r).astype(dd.dtype)
-        # row-interleaved device layout (see DiaMatrix.data)
-        dia_data = (dd.reshape(nd, kd, r // LANES, LANES)
-                    .transpose(0, 2, 1, 3)
-                    .reshape(nd, r // LANES, kd * LANES))
-        dia_offsets = tuple(int(o) for o in union)
+    if local_format in ("dia", "dia_ds"):
+        data, host["dia_offsets"] = _stack_dia(
+            shards, symmetric, r, pack_dtype or shards[0].local.dtype)
+        planes("local_dia_data", data)
 
     kl = max(max((int(s.local.row_nnz().max()) if s.local.nnz else 0) for s in shards), 1)
     kr = max(max((int(s.remote.row_nnz().max()) if s.remote.nnz else 0) for s in shards), 1)
@@ -344,70 +438,135 @@ def _assemble(
                 f"(K={k} slots x {nd}x{r} rows) > {ELL_BYTES_CAP/1e9:.1f} GB "
                 "— the matrix is degree-skewed for row-uniform storage"
             )
-    lci = lv = None
     if local_format == "ell":
-        lci, lv = _stack_ell([s.local for s in shards], r, kl, dtype=dtype)
-    rci, rv = _stack_ell([s.remote for s in shards], r, kr, dtype=dtype)
-    vdtype = rv.dtype
+        host["local_colind"], host["local_values"] = _stack_ell(
+            [s.local for s in shards], r, kl, dtype=dtype)
 
-    diag = None
+    if well is not None:
+        for tag in ("", "T"):
+            if f"well{tag}" not in well:
+                continue
+            v, p, w0, meta = well[f"well{tag}"]
+            planes(f"local_well{tag}_values", v)
+            host.update({f"local_well{tag}_pos": p, f"local_well{tag}_w0": w0,
+                         f"well{tag}_meta": meta})
+            fars = well[f"far{tag}"]
+            host[f"well_far{tag}_nnz"] = max((b.nnz for b in fars), default=0)
+            if not ds:
+                (host[f"far{tag}_rows"], host[f"far{tag}_cols"],
+                 host[f"far{tag}_vals"], _) = _far_coo_stack(fars, dtype)
+                continue
+            # double-single far remainders stay ELL rectangles (the DS
+            # chain accumulates per output row, slot by slot, error-free):
+            # the local block's in the local ELL fields, kept even when
+            # empty as the reference keeps it; the transpose's only when
+            # non-empty
+            if tag == "T" and host["well_farT_nnz"] == 0:
+                continue
+            kf = max(max((int(b.row_nnz().max()) if b.nnz else 0) for b in fars), 1)
+            ci, v64 = _stack_ell(fars, r, kf, dtype=np.float64)
+            if tag == "":
+                host["local_colind"] = ci
+                planes("local_values", v64)
+            else:
+                host["farT_cols"] = ci
+                planes("farT_vals", v64)
+
+    rci, rv = _stack_ell([s.remote for s in shards], r, kr, dtype=pack_dtype)
+    host["remote_colind"] = rci
+    planes("remote_values", rv)
+    if symmetric and local_format == "well_ds" and plan.nghost_pad > 0:
+        # transposed-remote ELL over ghost slots: the symmetric DS reverse
+        # exchange forms each ghost's contribution with an error-free
+        # slot-wise chain (no scatter)
+        rem_t = [s.remote.transpose() for s in shards]
+        kg = max(max((int(b.row_nnz().max()) if b.nnz else 0) for b in rem_t), 1)
+        host["remoteT_colind"], v64 = _stack_ell(rem_t, plan.nghost_pad, kg,
+                                                 dtype=np.float64)
+        planes("remoteT_vals", v64)
+    vdtype = host["remote_values"].dtype  # float32 (the hi plane) for DS
+
     if symmetric:
-        diag = np.zeros((nd, r), dtype=vdtype)
+        dg = np.zeros((nd, r), dtype=np.float64 if ds else vdtype)
         for s, sh in enumerate(shards):
-            diag[s, : sh.nlocal] = sh.diagonal
+            dg[s, : sh.nlocal] = sh.diagonal
+        planes("diagonal", dg)
 
     # dense diagonal for Jacobi preconditioning (vanilla storage keeps the
     # diagonal inside the local block; extract it once, host-side)
     jd = np.zeros((nd, r), dtype=vdtype)
     if symmetric:
-        jd[:] = diag
+        jd[:] = host["diagonal"]
     else:
         for s, sh in enumerate(shards):
             loc = sh.local
             rows = np.repeat(np.arange(loc.nrows), loc.row_nnz())
             on_diag = loc.colind == rows
             jd[s, rows[on_diag]] = loc.values[on_diag]
+    host["jacobi_diag"] = jd
 
-    def put(arr, dt=None):
-        return None if arr is None else torch.as_tensor(
-            np.ascontiguousarray(arr), dtype=dt, device=device)
+    def put(name, arr):
+        if not isinstance(arr, np.ndarray):
+            return arr  # static metadata
+        dt = torch.int64 if name in _INDEX_FIELDS else None
+        return torch.as_tensor(np.ascontiguousarray(arr), dtype=dt, device=device)
 
-    well_fields = {}
-    if well is not None:
-        for tag in ("", "T"):
-            if f"well{tag}" not in well:
-                continue
-            v, p, w0, meta = well[f"well{tag}"]
-            rows, cols, vals, nnz = well[f"far{tag}"]
-            well_fields.update({
-                f"local_well{tag}_values": put(v),
-                f"local_well{tag}_pos": put(p),
-                f"local_well{tag}_w0": put(w0),
-                f"well{tag}_meta": meta,
-                f"far{tag}_rows": put(rows, torch.int64),
-                f"far{tag}_cols": put(cols, torch.int64),
-                f"far{tag}_vals": put(vals),
-                f"well_far{tag}_nnz": nnz,
-            })
+    fields = dict(local_colind=None, local_values=None, diagonal=None)
+    fields.update({name: put(name, arr) for name, arr in host.items()})
+    return DistMatrix(plan=plan, nrows_global=nrows_global,
+                      ncols_global=ncols_global, row_pad=row_pad,
+                      symmetric=symmetric, nnz_global=nnz_global,
+                      local_format=local_format, **fields)
 
-    return DistMatrix(
-        local_colind=put(lci, torch.int64),
-        local_values=put(lv),
-        remote_colind=put(rci, torch.int64),
-        remote_values=put(rv),
-        diagonal=put(diag),
-        jacobi_diag=put(jd),
-        plan=plan,
-        nrows_global=nrows_global,
-        ncols_global=ncols_global,
-        row_pad=row_pad,
-        symmetric=symmetric,
-        nnz_global=nnz_global,
-        local_format=local_format,
-        local_dia_data=put(dia_data),
-        dia_offsets=dia_offsets,
-        **well_fields,
-    )
+
+# index arrays, int64 on the device (torch.gather and scatter take int64)
+_INDEX_FIELDS = ("local_colind", "remote_colind", "remoteT_colind", "far_rows",
+                 "far_cols", "farT_rows", "farT_cols")
+
+
+def _stack_dia(shards: list[ShardCSR], symmetric: bool, r: int, dtype
+               ) -> tuple[np.ndarray, tuple[int, ...]]:
+    """The union of the shards' diagonal offsets and the local blocks
+    stacked on it, (D, R/128, Kd*128) in the interleaved DIA layout (absent
+    diagonals all-zero). Symmetric shards keep the diagonal separately;
+    it is folded in as offset 0, so the block holds offsets <= 0."""
+    nd = len(shards)
+    per_shard = []
+    all_offs = []
+    for sh in shards:
+        loc = sh.local
+        lens = loc.row_nnz()
+        rows = np.repeat(np.arange(loc.nrows, dtype=np.int64), lens)
+        offs = loc.colind.astype(np.int64) - rows
+        vals = loc.values
+        if symmetric:
+            drows = np.arange(sh.nlocal, dtype=np.int64)
+            rows = np.concatenate([rows, drows])
+            offs = np.concatenate([offs, np.zeros_like(drows)])
+            vals = np.concatenate([vals, sh.diagonal])
+        per_shard.append((rows, offs, vals))
+        all_offs.append(np.unique(offs))
+    union = np.unique(np.concatenate(all_offs)) if all_offs else np.array([0])
+    if len(union) > MAX_DIAGS:
+        raise ValueError(
+            f"local blocks have {len(union)} distinct diagonals "
+            f"(> {MAX_DIAGS}, the DIA kernels' limit); local_format='dia' "
+            "is for banded/stencil operators"
+        )
+    kd = max(len(union), 1)
+    dd = np.zeros((nd, kd, r), dtype=dtype)
+    for s, (rows, offs, vals) in enumerate(per_shard):
+        if len(rows) == 0:
+            continue
+        dsel = np.searchsorted(union, offs)
+        flat = dsel * np.int64(r) + rows
+        acc = np.bincount(flat, weights=vals, minlength=kd * r)
+        dd[s] += acc.reshape(kd, r).astype(dd.dtype)
+    # row-interleaved device layout (see DiaMatrix.data)
+    data = (dd.reshape(nd, kd, r // LANES, LANES)
+            .transpose(0, 2, 1, 3)
+            .reshape(nd, r // LANES, kd * LANES))
+    return data, tuple(int(o) for o in union)
 
 
 def _far_coo_stack(blocks: list[CSRHost], dtype):
@@ -437,7 +596,8 @@ def _stack_well(shards: list[ShardCSR], symmetric: bool, dtype) -> dict:
     remainder, pack the near part, and stack every shard on one padded
     geometry (D, K, G, 128); symmetric also packs and stacks the local
     block's transpose. Returns {"gt": G, "well": (values, pos, w0, meta),
-    "far": (rows, cols, vals, F)} plus "wellT"/"farT" when symmetric."""
+    "far": the per-shard far CSR blocks} plus "wellT"/"farT" when
+    symmetric."""
     nd = len(shards)
     max_groups = max(-(-(s.row_range[1] - s.row_range[0]) // LANES)
                      for s in shards)
@@ -481,7 +641,7 @@ def _stack_well(shards: list[ShardCSR], symmetric: bool, dtype) -> dict:
             s0[s, : len(w0)] = w0
         meta = (k, max(w[3] for w in ws), tg, any(w[5] for w in ws))
         out[f"well{tag}"] = (sv, sp, s0, meta)
-        out[f"far{tag}"] = _far_coo_stack(fars, dtype)
+        out[f"far{tag}"] = fars
     return out
 
 
@@ -524,8 +684,8 @@ def select_local_format(a: CSRHost, symmetric: bool = False,
       ell  — everything else.
 
     float64 input routes to the double-single variants ``dia_ds`` (vanilla
-    banded) and ``well_ds``, as in the reference; ``build_dist_matrix``
-    raises for those, since they are not ported yet.
+    banded) and ``well_ds``, as in the reference; symmetric banded float64
+    stays ``dia``.
     """
     dtype = host_dtype(dtype)
     want_ds = _wants_ds(a, dtype)
@@ -560,7 +720,7 @@ def select_local_format(a: CSRHost, symmetric: bool = False,
 
 def _dia_row_align(local_format: str, max_rows_per_shard: int) -> int:
     # distributed vectors live in the (rows, 128) lane layout
-    if local_format != "dia":
+    if local_format not in ("dia", "dia_ds"):
         return LANES
     # the reference's TPU tile constraints; kept so the padded layout (and
     # every stacked array) matches the reference's
@@ -582,33 +742,33 @@ def build_dist_matrix(
     the halo plan, and move the stacked blocks to ``device`` (the card
     unless the caller asks for another).
 
-    ``local_format``: "ell", "dia" (square only), "well" (square only) or
-    "auto" (``select_local_format``; float64 input selects the
-    double-single formats, which raise NotImplementedError). ``dtype``:
-    value dtype (numpy or torch), default the CSR's. ``hub_cap="auto"``
+    ``local_format``: "ell", "dia" (square only), "well" (square only),
+    their double-single variants "dia_ds" (vanilla only) and "well_ds"
+    (float64-class values as hi/lo float32 planes, applied by
+    ``matvec_ds``), or "auto" (``select_local_format``; float64 input
+    selects the double-single formats). ``dtype``: value dtype (numpy or
+    torch), default the CSR's; the double-single formats ignore it. ``hub_cap="auto"``
     runs the reference's degree-skew decision and raises where it would
     split (not ported); ``None`` keeps every row in the row-uniform format.
     """
     if local_format not in LOCAL_FORMATS:
-        raise ValueError(
-            f"local_format {local_format!r} is not ported yet (ported: "
-            f"{', '.join(LOCAL_FORMATS)}); see ROADMAP.md")
+        raise ValueError(f"unknown local_format {local_format!r} (one of "
+                         f"{', '.join(LOCAL_FORMATS)})")
     if hub_cap not in ("auto", None):
         raise ValueError(f"hub_cap must be 'auto' or None, got {hub_cap!r}")
     dtype = host_dtype(dtype)
-    if (hub_cap == "auto" and not symmetric
+    # the double-single formats keep every row in their own format, as in
+    # the reference
+    if (hub_cap == "auto" and not symmetric and not local_format.endswith("_ds")
             and (local_format != "auto" or not _wants_ds(a, dtype))):
         a = _hub_split(a)
     if local_format == "auto":
         local_format = select_local_format(a, symmetric=symmetric, dtype=dtype)
-        if local_format in DS_FORMATS:
-            raise NotImplementedError(
-                f"local_format='auto' selects {local_format!r} for float64 "
-                "input, as the reference does; the double-single formats are "
-                "not ported yet (ROADMAP.md). Pass local_format='well', "
-                "'dia' or 'ell' to run float64 in a plain format")
-    if local_format == "dia" and a.nrows != a.ncols:
-        raise ValueError("local_format='dia' requires a square matrix")
+    if local_format in ("dia", "dia_ds") and a.nrows != a.ncols:
+        raise ValueError(f"local_format={local_format!r} requires a square matrix")
+    if local_format == "dia_ds" and symmetric:
+        raise ValueError("local_format='dia_ds' stores the full matrix (no "
+                         "symmetric lower-triangle variant)")
     if a.nrows != a.ncols:
         raise NotImplementedError("rectangular operators are not ported yet "
                                   "(ROADMAP.md)")

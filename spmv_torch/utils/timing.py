@@ -39,17 +39,17 @@ class PhaseTimer:
         return "\n".join(lines)
 
 
-def bench_chained(step: Callable[[torch.Tensor], torch.Tensor],
-                  x0: torch.Tensor, iters: int, warmup: int = 3) -> float:
+def bench_chained(step: Callable, x0, iters: int, warmup: int = 3) -> float:
     """Median seconds per call of a chained x -> step(x) loop, from CUDA
-    events over 5 batches of ``iters // 5`` calls."""
-    if x0.device.type != "cuda":
-        raise RuntimeError("bench_chained times the card; x0 is on "
-                           f"{x0.device}")
+    events over 5 batches of ``iters // 5`` calls. ``x0`` is a tensor or a
+    tuple of tensors (a double-single hi/lo pair)."""
+    dev = (x0[0] if isinstance(x0, tuple) else x0).device
+    if dev.type != "cuda":
+        raise RuntimeError(f"bench_chained times the card; x0 is on {dev}")
     x = x0
     for _ in range(warmup):
         x = step(x)
-    torch.cuda.synchronize(x0.device)
+    torch.cuda.synchronize(dev)
     batch = max(1, iters // 5)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)

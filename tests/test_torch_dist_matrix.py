@@ -185,8 +185,13 @@ def test_jacobi_preconditioner_matches_reference():
 
 def test_unported_options_raise():
     _, pt = _pair()
-    with pytest.raises(ValueError, match="ROADMAP"):
-        build_dist_matrix(pt, local_format="well_ds", device="cpu")
+    with pytest.raises(ValueError, match="unknown local_format"):
+        build_dist_matrix(pt, local_format="csr", device="cpu")
+    # rectangular operators are not ported yet
+    rect = pt_csr.CSRHost.from_coo(np.arange(10), np.arange(10) * 2,
+                                   np.ones(10), 10, 20)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_dist_matrix(rect, local_format="ell", device="cpu")
     # a hub row: the reference's degree-skew decision would split it out
     rows = np.concatenate([np.arange(400), np.zeros(200, np.int64)])
     cols = np.concatenate([np.arange(400), np.arange(1, 201)])

@@ -181,20 +181,22 @@ def test_auto_picks_well_for_fem_and_raises_for_float64():
                   n_devices=1)
     assert P.local_format == R.local_format == "well"
     _assert_same_assembly(R, P)
-    # the reference picks a double-single format for float64; the port
-    # raises instead of quietly building another format
+    # for float64 the reference picks a double-single format, and so does
+    # the port (held against the reference in test_torch_dist_ds.py)
     assert select_local_format(pt, symmetric=True, dtype=np.float64) == "well_ds"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_dist_matrix(pt, symmetric=True, dtype=np.float64,
+    D = build_dist_matrix(pt, symmetric=True, dtype=np.float64,
                           local_format="auto", device="cpu")
+    assert D.local_format == "well_ds" and D.local_wellT_values_lo is not None
     lap = pt_corpus.aniso_laplace_2d(30)
     assert select_local_format(lap, dtype=np.float64) == "dia_ds"
-    with pytest.raises(NotImplementedError, match="dia_ds"):
-        build_dist_matrix(lap, dtype=np.float64, local_format="auto",
+    L = build_dist_matrix(lap, dtype=np.float64, local_format="auto",
                           device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        build_dist_matrix(pt, local_format="well_ds", device="cpu")
+    assert L.local_format == "dia_ds" and L.local_dia_data_lo is not None
+    x = np.random.default_rng(4).standard_normal(lap.nrows)
+    y = L.from_dist(L.matvec(L.to_dist(x)))
+    assert _rel(y, lap.matvec(x)) <= TOL[np.float64]
     assert P.format_size_bytes() > 0
+    assert D.format_size_bytes() > 0
 
 
 @pytest.mark.parametrize("symmetric", [True, False])
@@ -279,6 +281,8 @@ def test_demo_format_auto(tmp_path, capsys):
     out = capsys.readouterr()
     assert "local_format=well" in out.err
     _iterations(out.out)
-    # float64 input selects a double-single format, which is not ported
-    with pytest.raises(SystemExit):
-        pt_demo.main(args)
+    # float64 input selects the double-single dual-WELL format
+    assert pt_demo.main(args) == 0
+    out = capsys.readouterr()
+    assert "local_format=well_ds" in out.err and "dtype=float64" in out.err
+    _iterations(out.out)

@@ -23,9 +23,18 @@ import torch
 from spmv_torch import _build
 from spmv_torch.formats.dia import csr_to_dia
 from spmv_torch.gen import create_laplace_2d
-from spmv_torch.ops import spmv_dia_cuda, spmv_well_cuda
+from spmv_torch.ops import (
+    spmv_dia_cuda,
+    spmv_dia_ds_cuda,
+    spmv_well_cuda,
+    spmv_well_ds_cuda,
+)
 from spmv_torch.ops.spmv_dia import spmv_dia_stacked_plain
+from spmv_torch.ops.spmv_dia_ds import spmv_dia_ds_stacked_plain
 from spmv_torch.ops.spmv_well import spmv_well_stacked_plain
+from spmv_torch.ops.spmv_well_ds import csr_to_well_ds, spmv_well_ds_stacked_plain
+
+COUNTERS = (spmv_dia_cuda, spmv_well_cuda, spmv_dia_ds_cuda, spmv_well_ds_cuda)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "spmv_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -42,11 +51,11 @@ def cuda():
 
 @pytest.fixture(autouse=True)
 def _fresh_counters():
-    spmv_dia_cuda.reset_launches()
-    spmv_well_cuda.reset_launches()
+    for mod in COUNTERS:
+        mod.reset_launches()
     yield
-    spmv_dia_cuda.reset_launches()
-    spmv_well_cuda.reset_launches()
+    for mod in COUNTERS:
+        mod.reset_launches()
 
 
 def _env_with_repo():
@@ -172,8 +181,57 @@ def test_library_path_tracks_sources():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("lib")
     assert p == _build.library_path()
-    assert (_build.CSRC / "spmv_dia.cu").exists()
-    assert (_build.CSRC / "spmv_well.cu").exists()
+    for src in ("spmv_dia.cu", "spmv_well.cu", "spmv_dia_ds.cu",
+                "spmv_well_ds.cu", "ds.cuh"):
+        assert (_build.CSRC / src).exists()
+
+
+def test_library_path_tracks_headers(monkeypatch, tmp_path):
+    """An edit to a header the kernels include gives a new library."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path()
+    (csrc / "ds.cuh").write_text((csrc / "ds.cuh").read_text() + "\n")
+    assert _build.library_path() != before
+
+
+def _code(path: Path) -> str:
+    """A CUDA source with its comments removed."""
+    import re
+
+    text = re.sub(r"/\*.*?\*/", "", path.read_text(), flags=re.S)
+    return re.sub(r"//[^\n]*", "", text)
+
+
+def test_ds_chain_cannot_be_contracted():
+    """nvcc contracts a*b + c into an fma unless told not to, and a
+    contracted step breaks the error-free transformations. Every float
+    add, subtract and multiply of the DS chain (csrc/ds.cuh) is an
+    __fadd_rn / __fsub_rn / __fmul_rn intrinsic, which nvcc never
+    contracts: the functions' bodies hold no bare + or * at all, and their
+    one minus is the exact negation inside two_prod's fmaf. The kernels
+    touch their accumulators only through ds_add and ds_mul_f32, and the
+    build never asks for fast math."""
+    import re
+
+    header = _code(_build.CSRC / "ds.cuh")
+    bodies = re.findall(r"__device__ __forceinline__ Ds \w+\([^)]*\) \{(.*?)\n\}",
+                        header, flags=re.S)
+    assert len(bodies) == 4
+    for body in bodies:
+        assert "+" not in body and "*" not in body, body
+        assert body.replace("fmaf(a.hi, b.hi, -p)", "").count("-") == 0, body
+    for src in ("spmv_dia_ds.cu", "spmv_well_ds.cu"):
+        code = _code(_build.CSRC / src)
+        assert '#include "ds.cuh"' in code
+        acc_lines = [ln.strip() for ln in code.splitlines() if "acc" in ln]
+        assert "acc = ds_add(acc, ds_mul_f32(" in "\n".join(acc_lines)
+        for ln in acc_lines:
+            assert ("ds_add(acc, ds_mul_f32(" in ln or ln.startswith("Ds acc =")
+                    or re.fullmatch(r"y[hl]\[.*\] = acc\.(hi|lo);", ln)), ln
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "fast_math" not in flags and "fast-math" not in flags
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
@@ -198,7 +256,7 @@ def test_demo_refuses_missing_cuda_and_unported_flags():
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit):
             demo_cg.main(["--lap2d", "8"])
-    for flag in (["--amg"], ["--format", "well_ds"], ["--solver", "gmres"],
+    for flag in (["--amg"], ["--refine", "--amg"], ["--solver", "gmres"],
                  ["--cpu"], ["--sstep", "4"]):
         with pytest.raises(SystemExit):
             demo_cg.main(["--lap2d", "8", "--device", "cpu", *flag])
@@ -295,3 +353,111 @@ def test_dist_matrix_well_runs_through_kernel_on_cuda(cuda):
     want = a.matvec(x)
     assert np.linalg.norm(y - want) <= 1e-12 * np.linalg.norm(want)
     assert spmv_well_cuda.launches["well"] == 2  # L and L^T, D=2 in one launch each
+
+
+def _bits_equal(got, want):
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_dia_ds_kernel_matches_plain_on_cuda(cuda):
+    """Stacked shards, odd offsets, random hi/lo planes: kernel vs plain
+    on the card, both planes bit for bit."""
+    rng = np.random.default_rng(21)
+    offs = (-301, -37, -5, -1, 0, 1, 5, 37, 301)
+    nd, nr = 3, 40
+    dh = rng.standard_normal((nd, nr, len(offs) * 128))
+    xh = rng.standard_normal((nd * nr, 128))
+    t = [torch.as_tensor(v, dtype=torch.float32, device=cuda)
+         for v in (dh, dh * 1e-8 * rng.standard_normal(dh.shape),
+                   xh, xh * 1e-8 * rng.standard_normal(xh.shape))]
+    got = spmv_dia_ds_cuda.spmv_dia_ds_stacked(*t, offs)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, spmv_dia_ds_stacked_plain(*t, offs))
+    assert spmv_dia_ds_cuda.launches["dia_ds"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos_dtype", [torch.int16, torch.int32])
+def test_well_ds_kernel_matches_plain_on_cuda(cuda, pos_dtype):
+    """Stacked shards, random window starts and positions: kernel vs plain
+    on the card, both planes bit for bit."""
+    rng = np.random.default_rng(22)
+    nd, k, g, tg, col_pad = 3, 5, 32, 8, 64 * 128
+    vh = rng.standard_normal((nd, k, g, 128))
+    xh = rng.standard_normal((nd * col_pad // 128, 128))
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=cuda)
+
+    args = (f32(vh), f32(vh * 1e-8 * rng.standard_normal(vh.shape)),
+            torch.as_tensor(rng.integers(0, 24 * 128, (nd, k, g, 128)),
+                            dtype=pos_dtype, device=cuda),
+            torch.as_tensor(rng.integers(0, 5, (nd, g // tg)) * 8,
+                            dtype=torch.int32, device=cuda),
+            f32(xh), f32(xh * 1e-8 * rng.standard_normal(xh.shape)), tg)
+    got = spmv_well_ds_cuda.spmv_well_ds_stacked(*args)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, spmv_well_ds_stacked_plain(*args))
+    assert spmv_well_ds_cuda.launches["well_ds"] == 1
+
+
+@pytest.mark.cuda
+def test_ds_kernels_padding_adds_exact_zero_on_cuda(cuda):
+    """A packing that is mostly padding (rows of 0 to 3 entries, K slots
+    for the longest): the padding slots add an exact (0, 0), so the kernel
+    equals the plain version bit for bit, empty rows are exactly (0, 0),
+    and a DIA diagonal reaching past the shard adds nothing."""
+    from spmv_torch.formats.csr import CSRHost
+    from spmv_torch.ops.spmv_well_ds import spmv_well_ds_2d
+
+    rng = np.random.default_rng(23)
+    n = 3000
+    lens = rng.integers(0, 4, n)
+    lens[:130] = 0
+    rows = np.repeat(np.arange(n), lens)
+    cols = np.clip(rows + rng.integers(-200, 200, len(rows)), 0, n - 1)
+    a = CSRHost.from_coo(rows, cols, rng.standard_normal(len(rows)), n, n)
+    w = csr_to_well_ds(a, tile_groups=16, device=cuda)
+    x = np.zeros(w.ncols_pad)
+    x[:n] = rng.standard_normal(n)
+    xs = [torch.as_tensor(v.reshape(-1, 128), device=cuda)
+          for v in (x.astype(np.float32), (x - x.astype(np.float32)).astype(np.float32))]
+    got = spmv_well_ds_2d(w, *xs)
+    torch.cuda.synchronize()
+    want = spmv_well_ds_stacked_plain(
+        w.values_hi.unsqueeze(0), w.values_lo.unsqueeze(0), w.pos.unsqueeze(0),
+        w.w0.unsqueeze(0), *xs, w.tile_groups)
+    assert _bits_equal(got, want)
+    empty = torch.as_tensor(np.flatnonzero(lens == 0), device=cuda)
+    assert not got[0].view(-1)[empty].any() and not got[1].view(-1)[empty].any()
+    # a DIA diagonal entirely outside the shard: zero data, zero result
+    t = [torch.zeros((1, 1, 128), device=cuda) for _ in range(2)]
+    t += [torch.ones((1, 128), device=cuda) for _ in range(2)]
+    yh, yl = spmv_dia_ds_cuda.spmv_dia_ds_stacked(t[0] + 1, t[1] + 1, t[2], t[3], (200,))
+    torch.cuda.synchronize()
+    assert not yh.any() and not yl.any()
+
+
+@pytest.mark.cuda
+def test_dist_matrix_ds_runs_through_kernels_on_cuda(cuda):
+    from spmv_torch.ds import ds_from_f64, ds_to_f64
+    from spmv_torch.gen import random_csr
+    from spmv_torch.parallel.dist_matrix import build_dist_matrix
+
+    rng = np.random.default_rng(24)
+    a = create_laplace_2d(64, 64)
+    a.values[:] = a.values * (1 + 1e-9 * rng.standard_normal(a.nnz))
+    g = random_csr(700, 700, 5, seed=95, symmetric=True, spd_shift=1.0)
+    for mat, fmt, sym in ((a, "dia_ds", False), (g, "well_ds", True)):
+        A = build_dist_matrix(mat, n_devices=4, symmetric=sym, local_format=fmt,
+                              device=cuda)
+        x = rng.standard_normal(mat.nrows) * 1e3
+        xh, xl = ds_from_f64(x)
+        yh, yl = A.matvec_ds(A.to_dist(xh), A.to_dist(xl))
+        got = ds_to_f64(A.from_dist(yh), A.from_dist(yl))
+        want = mat.matvec(x)
+        assert np.linalg.norm(got - want) < 1e-13 * np.linalg.norm(want)
+    assert spmv_dia_ds_cuda.launches["dia_ds"] == 1
+    assert spmv_well_ds_cuda.launches["well_ds"] == 2  # L and L^T
