@@ -74,17 +74,48 @@ Phases (any failure exits non-zero; nothing is caught and continued):
  13. mixed-precision refinement: cg_refined_dist(dia) at 1024^2 to rtol
      1e-12 (8 outer passes at most, inner rtol 1e-6, inner kmax 20000): the
      true float64 residual <= 1e-8 and 100x below a plain fp32 CG's; then,
-     printed, cg_refined at 1024^2 and cg_refined_dist at 3200^2;
+     printed, cg_refined at 1024^2 and cg_refined_dist at 2048^2;
  14. the DS halo path on D=4 stacked shards: one matvec_ds vs the host
      oracle (<= 1e-13) for the 512^2 Laplacian (dia_ds) and the RCM'd 50k
      FEM (well_ds, vanilla and symmetric); a Jacobi cg_refined_dist(well)
      on that FEM, printed;
+ 15. the five block (SpMM) kernels vs their plain versions on the card
+     (fp32/fp64 within TOL_KERNEL, double-single both planes bit for bit),
+     every column bit-equal to the single-RHS kernel on that column:
+     dia_spmm and dia_sym_spmm at 3200^2 fp32 and fp64 and dia_ds_spmm at
+     3200^2, nrhs 1, 3, 8 and 11 (11 = a chunk of 8 columns and one of 3),
+     and on a random banded D=3 stack; well_spmm and well_ds_spmm on the
+     4M bench matrix, a paired and an int32-pos packing of 200k rows and a
+     D=3 stack, nrhs 1, 8 and 11;
+ 16. the block path at full size, nrhs 8; before each solve, its block
+     kernels vs their plain versions on its own operators' stacks (as in
+     phase 15: the fp32 and DS stacks block_cg_refined_dist builds, the
+     float64 symmetric packing of block_cg_dia), then, counters zeroed just
+     before each solve: block_cg_refined_dist(dia) at 512^2 (inner rtol 1e-4, inner
+     kmax 1500; every column's true float64 residual <= 1e-11) and at
+     1024^2 (inner kmax 4000, max_outer 10; <= 1e-8), and
+     block_cg_refined_dist(well) on circuit_network(800) (640k nodes,
+     RCM'd, a far remainder; <= 1e-9), each inner iteration exactly one
+     dia_spmm / well_spmm launch plus one per pass, each residual one
+     dia_ds_spmm / well_ds_spmm launch, no single-RHS launch; then
+     block_cg_dia on symmetric float64 storage at 1024^2 (rtol 1e-10, every
+     column <= 1e-9, one dia_sym_spmm launch per block apply);
+ 17. the block halo on D=4 stacked shards, nrhs 3: matmat per column vs the
+     host oracle (512^2 Laplacian: dia vanilla and symmetric, ell
+     symmetric; RCM'd 50k FEM: well vanilla and symmetric; fp32 and fp64)
+     and matmat_ds (dia_ds, well_ds; <= 1e-13), and a 20-iteration block_cg
+     on the fp64 dia operator (host residuals within 1e-9 of the reported);
  10. (run last) ms per apply of every ported kernel, kernel and plain in
      turns, with the library yardstick (one torch CSR @ x call, cuSPARSE,
      float64 for the DS kernels; the port never calls it) and the bytes
      bound at 3.35 TB/s (the H100 SXM's published HBM rate): the DIA
      kernels and dia_ds_spmv at 3200^2, spmv_well and well_ds_spmv on the
-     4M bench matrix and on the 800k FEM's lower-triangle stack.
+     4M bench matrix and on the 800k FEM's lower-triangle stack; the block
+     kernels at nrhs 8 (DIA and DS DIA at 3200^2, WELL and DS WELL on the
+     4M matrix; the yardstick the faster of one torch CSR @ X on a
+     row-major and on a column-major (n, 8) block) beside 8 x the
+     single-RHS kernel's ms from this run, and each block kernel at nrhs 1
+     beside its single-RHS kernel, in turns.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -107,13 +138,24 @@ from spmv_torch.ds import ds_from_f64, ds_to_f64
 from spmv_torch.formats.well import csr_to_well, csr_to_well_sym
 from spmv_torch.gen import create_laplace_2d, gaussian_bump
 from spmv_torch.ops import (
+    spmm_dia_cuda,
+    spmm_well_cuda,
     spmv_dia_cuda,
     spmv_dia_ds_cuda,
     spmv_well_cuda,
     spmv_well_ds_cuda,
 )
+from spmv_torch.ops.spmm_dia import columns, spmm_dia_stacked_plain
+from spmv_torch.ops.spmm_well import (
+    spmm_well_ds_stacked_plain,
+    spmm_well_stacked_plain,
+)
 from spmv_torch.ops.spmv_dia import spmv_dia_stacked_plain
-from spmv_torch.ops.spmv_dia_ds import csr_to_dia_ds, spmv_dia_ds_stacked_plain
+from spmv_torch.ops.spmv_dia_ds import (
+    csr_to_dia_ds,
+    spmm_dia_ds_stacked_plain,
+    spmv_dia_ds_stacked_plain,
+)
 from spmv_torch.ops.spmv_well import (
     far_add,
     spmv_well_stacked_plain,
@@ -122,6 +164,7 @@ from spmv_torch.ops.spmv_well import (
 from spmv_torch.ops.spmv_well_ds import csr_to_well_ds, spmv_well_ds_stacked_plain
 from spmv_torch.parallel.dist_matrix import build_dist_matrix
 from spmv_torch.reorder import rcm_reorder
+from spmv_torch.solvers.block_cg import block_cg, block_cg_dia, block_cg_refined_dist
 from spmv_torch.solvers.cg import cg
 from spmv_torch.solvers.refine import cg_refined, cg_refined_dist
 from spmv_torch.utils.timing import bench_chained, measure_copy_bandwidth_gbs
@@ -146,6 +189,16 @@ DS_CONTROL_MISS = 100  # the fp32 kernel on the same input misses by this x
 FEM_DS_ITER_TOL = 0.02  # DS vs native f64 FEM Jacobi-PCG iterations
 REFINE_NX = 1024     # the reference's refinement record size (BENCH_NOTES.md)
 REFINE_TOL = 1e-8    # refined true relative residual at REFINE_NX^2
+REFINE_RECORD_NX = 2048  # phase 13's printed record; below NX for run time
+NRHS_KERNEL = (1, 3, 8, 11)  # phase 15; 11 = a chunk of 8 columns and one of 3
+NRHS_WELL = (1, 8, 11)
+NRHS = 8             # the block path's width (BENCH_NOTES.md:451-455)
+BLOCK_NX = 512       # 16a: the reference's refined block sample (262k rows)
+CIRCUIT_BLOCK_NX = 800  # 16c: circuit_network(800), 640k nodes (corpus size)
+# phase 16's per-column true residual gates: (a) the reference's sample
+# reached 0.8-1.8e-13 on the TPU; (b) REFINE_TOL, the single-RHS gate at
+# this size; (c) kappa ~ 1e5 with a far remainder
+BLOCK_TOL = {"a": 1e-11, "b": REFINE_TOL, "c": 1e-9}
 
 
 def fail(msg: str) -> None:
@@ -163,7 +216,8 @@ def show(tag: str, **fields) -> None:
 
 
 def reset_counters() -> None:
-    for mod in (spmv_dia_cuda, spmv_well_cuda, spmv_dia_ds_cuda, spmv_well_ds_cuda):
+    for mod in (spmv_dia_cuda, spmv_well_cuda, spmv_dia_ds_cuda, spmv_well_ds_cuda,
+                spmm_dia_cuda, spmm_well_cuda):
         mod.reset_launches()
 
 
@@ -835,6 +889,30 @@ def library_ms(a: CSRHost, dev, scale: float, dtype=np.float32) -> float:
     return ms
 
 
+def library_block_ms(a: CSRHost, dev, scale: float, dtype, nrhs: int) -> dict:
+    """ms of one torch CSR @ X (cuSPARSE SpMM) on a random (n, nrhs) block
+    of the square matrix ``a``, chained: with X and the product row-major
+    (``m @ X``), and with both column-major (``torch.mm(m, X, out=)`` into
+    two column-major buffers in turn). ``column_major_kept`` says the
+    buffers kept their column-major strides."""
+    m = csr_tensor(a, dev, scale, dtype)
+    x0 = torch.as_tensor(np.random.default_rng(10).standard_normal((a.ncols, nrhs))
+                         .astype(dtype), device=dev)
+    row_major = 1e3 * bench_chained(lambda v: m @ v, x0, iters=50)
+    bufs = [torch.empty((nrhs, a.nrows), dtype=x0.dtype, device=dev).t()
+            for _ in range(2)]
+    turn = [0]
+
+    def col_step(v):
+        turn[0] ^= 1
+        return torch.mm(m, v, out=bufs[turn[0]])
+
+    column_major = 1e3 * bench_chained(col_step, x0.t().contiguous().t(), iters=50)
+    kept = all(b.stride() == (1, a.nrows) for b in bufs)
+    del m, bufs
+    return dict(row_major=row_major, column_major=column_major, column_major_kept=kept)
+
+
 def bound_ms(nbytes: float) -> float:
     return nbytes / (HBM_TBS * 1e12) * 1e3
 
@@ -1175,8 +1253,8 @@ def phase_refine(dev):
     kmax 20000 each) with DS residuals, to rtol 1e-12 in at most 8 outer
     passes. Gated at REFINE_NX^2: the true float64 residual of
     cg_refined_dist <= REFINE_TOL and 100x below a plain fp32 CG's on the
-    same system. cg_refined there and cg_refined_dist at NX^2 are printed,
-    not gated."""
+    same system. cg_refined there and cg_refined_dist at REFINE_RECORD_NX^2
+    are printed, not gated."""
     kw = dict(rtol=1e-12, max_outer=8, inner_rtol=1e-6, inner_kmax=20000,
               device=dev)
     a = create_laplace_2d(REFINE_NX, REFINE_NX)
@@ -1208,9 +1286,9 @@ def phase_refine(dev):
         fail(f"13: refined true residual {rel:.3e} not 100x below fp32 CG's {rel32:.3e}")
     del A32
     run(f"cg_refined (one device), laplace2d {REFINE_NX}^2", cg_refined, a, b)
-    big = create_laplace_2d(NX, NX)
-    run(f"cg_refined_dist dia, laplace2d {NX}^2 (not gated)", cg_refined_dist, big,
-        gaussian_bump(big.nrows))
+    big = create_laplace_2d(REFINE_RECORD_NX, REFINE_RECORD_NX)
+    run(f"cg_refined_dist dia, laplace2d {REFINE_RECORD_NX}^2 (not gated)",
+        cg_refined_dist, big, gaussian_bump(big.nrows))
 
 
 def phase_ds_halo(dev):
@@ -1305,6 +1383,487 @@ def phase_ds_timing(a_lap, a4, w4ds, A_fem_ds, a_fem, dev):
     return out
 
 
+BLOCK_KERNELS = ("dia_spmm", "dia_sym_spmm", "well_spmm", "dia_ds_spmm",
+                 "well_ds_spmm")
+
+
+def block_launches() -> dict:
+    """The block kernels' launch counters, by kernel name."""
+    return {**spmm_dia_cuda.launches, **spmm_well_cuda.launches,
+            "dia_ds_spmm": spmv_dia_ds_cuda.launches["dia_ds_spmm"]}
+
+
+def single_launches() -> int:
+    """Launches of the single-RHS kernels, all together."""
+    return (sum(spmv_dia_cuda.launches.values()) + spmv_well_cuda.launches["well"]
+            + spmv_dia_ds_cuda.launches["dia_ds"] + spmv_well_ds_cuda.launches["well_ds"])
+
+
+def lanes_block(gen: torch.Generator, rows: int, nrhs: int, dtype, dev) -> torch.Tensor:
+    """A random (rows, nrhs*128) block in the SpMM lane layout, drawn on
+    the card from a seeded generator."""
+    return torch.randn((rows, nrhs * 128), generator=gen, dtype=dtype, device=dev)
+
+
+def spmm_check(name, kernel, plain, single, xs, tol) -> tuple[float, float]:
+    """One block kernel launch vs its plain version on the same inputs:
+    relative L2 <= ``tol`` (computed on the card), or with ``tol`` None
+    (double-single) both planes bit for bit. Then every column vs the
+    single-RHS kernel on that column, bit for bit. Returns (relative L2,
+    max abs difference) vs the plain version."""
+    yk = kernel(*xs)
+    torch.cuda.synchronize()
+    yp = plain(*xs)
+    yk = yk if isinstance(yk, tuple) else (yk,)
+    yp = yp if isinstance(yp, tuple) else (yp,)
+    for k in yk:
+        if not bool(torch.isfinite(k).all()):
+            fail(f"{name}: non-finite kernel output")
+    diff = yk[0].double() - yp[0].double()
+    err = float(torch.linalg.vector_norm(diff)
+                / torch.clamp(torch.linalg.vector_norm(yp[0].double()), min=1e-300))
+    mabs = float(diff.abs().max())
+    del diff
+    if tol is None:
+        for plane, k, p in zip(("hi", "lo"), yk, yp):
+            if not torch.equal(k, p):
+                fail(f"{name}: {plane} plane differs from the plain version")
+    elif not err <= tol:
+        fail(f"{name}: kernel vs plain rel L2 {err:.3e} > {tol:.0e}")
+    kcols = [columns(k) for k in yk]
+    xcols = [columns(x) for x in xs]
+    for c in range(len(xcols[0])):
+        one = single(*(xc[c] for xc in xcols))
+        one = one if isinstance(one, tuple) else (one,)
+        for plane, kc, o in zip(("hi", "lo"), kcols, one):
+            if not torch.equal(kc[c], o):
+                fail(f"{name}: column {c} ({plane}) differs from the single-RHS "
+                     "kernel on that column")
+    return err, mabs
+
+
+def block_check(max_abs, phase, kname, matrix, dname, nrhs, kernel, plain, single,
+                xs, tol, **extra):
+    """``spmm_check`` of one block kernel case, printed under ``phase`` and
+    folded into ``max_abs[kname]``."""
+    err, mabs = spmm_check(f"{phase} {kname} {matrix} {dname} nrhs={nrhs}", kernel,
+                           plain, single, xs, tol)
+    max_abs[kname] = max(max_abs[kname], mabs)
+    show(f"{phase}.kernel", kernel=kname, matrix=matrix, dtype=dname, nrhs=nrhs,
+         rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
+         columns_bit_equal_to_single_rhs=True, **extra)
+
+
+def ds_block(gen, rows: int, nrhs: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """A random float64 lane-layout block split on the card into its
+    double-single (hi, lo) float32 planes."""
+    x = lanes_block(gen, rows, nrhs, torch.float64, dev)
+    hi = x.float()
+    return hi, (x - hi.double()).float()
+
+
+def phase_block_kernels(a, w4, w4ds, dev):
+    """Phase 15: the five block kernels vs their plain versions on the card
+    (fp32/fp64 within TOL_KERNEL, DS both planes bit for bit), each column
+    bit-equal to the single-RHS kernel on it; nrhs 11 runs a chunk of 8
+    columns and one of 3. DIA at NX^2 (the packing's symmetric and fp64
+    forms derived on the card: the Laplacian's values are exact in both)
+    and on a random banded D=3 stack; WELL on the 4M bench matrix, a
+    paired and an int32-pos packing of 200k rows and a D=3 stack. Returns
+    ({kernel: largest abs difference vs plain}, the fp32 vanilla DIA
+    packing)."""
+    rng = np.random.default_rng(15)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    max_abs = dict.fromkeys(BLOCK_KERNELS, 0.0)
+
+    def run(*args, **extra):
+        block_check(max_abs, "15", *args, **extra)
+
+    def dia_run(data, offs, sym, matrix, nrhs, dt):
+        kname = "dia_sym_spmm" if sym else "dia_spmm"
+        dname = str(dt).split(".")[1]
+        x = lanes_block(gen, data.shape[0] * data.shape[1], nrhs, dt, dev)
+        run(kname, matrix, dname, nrhs,
+            lambda v: spmm_dia_cuda.spmm_dia_stacked(data, v, offs, sym),
+            lambda v: spmm_dia_stacked_plain(data, v, offs, sym),
+            lambda v: spmv_dia_cuda.spmv_dia_stacked(data, v, offs, sym),
+            (x,), TOL_KERNEL[dname])
+
+    d32 = csr_to_dia(a, row_align=ROW_ALIGN, dtype=np.float32, device=dev)
+    nr, k0 = d32.data.shape[0], d32.offsets.index(0)
+    lower = d32.data.view(nr, d32.ndiags, 128)[:, : k0 + 1].reshape(nr, -1)
+    for dt in (torch.float32, torch.float64):
+        for sym in (False, True):
+            data = (lower if sym else d32.data).to(dt).unsqueeze(0).contiguous()
+            offs = d32.offsets[: k0 + 1] if sym else d32.offsets
+            for nrhs in NRHS_KERNEL:
+                dia_run(data, offs, sym, f"laplace2d {NX}^2", nrhs, dt)
+            del data
+    full = (-301, -37, -5, -1, 0, 1, 5, 37, 301)
+    for dt in (torch.float32, torch.float64):
+        for sym in (False, True):
+            offs = tuple(o for o in full if o <= 0) if sym else full
+            data = torch.as_tensor(rng.standard_normal((3, 1000, len(offs) * 128)),
+                                   dtype=dt, device=dev)
+            for nrhs in (3, 11):
+                dia_run(data, offs, sym, f"random banded offsets {list(offs)}, D=3",
+                        nrhs, dt)
+
+    # the DS DIA block kernel on the same shapes: the fp32 data as hi plane
+    # and a small lo plane (bit equality needs no exact split)
+    for data, offs, matrix in (
+            (d32.data.unsqueeze(0), d32.offsets, f"laplace2d {NX}^2"),
+            (torch.as_tensor(rng.standard_normal((3, 1000, len(full) * 128)),
+                             dtype=torch.float32, device=dev), full,
+             f"random banded offsets {list(full)}, D=3")):
+        planes = (data, data * 1e-8)
+        for nrhs in (NRHS_KERNEL if data.shape[0] == 1 else (3, 11)):
+            xh = lanes_block(gen, data.shape[0] * data.shape[1], nrhs, torch.float32, dev)
+            run("dia_ds_spmm", matrix, "double-single", nrhs,
+                lambda h, lo: spmv_dia_ds_cuda.spmm_dia_ds_stacked(*planes, h, lo, offs),
+                lambda h, lo: spmm_dia_ds_stacked_plain(*planes, h, lo, offs),
+                lambda h, lo: spmv_dia_ds_cuda.spmv_dia_ds_stacked(*planes, h, lo, offs),
+                (xh, xh * 1e-8), None)
+        del planes
+
+    # WELL and DS WELL: the 4M bench packings of phases 7 and 11, a paired
+    # and an int32-pos packing of 200k rows, and D=3 stacks
+    small = build_well_matrix(N_WELL_SMALL, np.random.default_rng(1))
+    small64 = perturbed(small, 150)
+    cases = [(f"bench {N_WELL} tg64", w4, w4ds)]
+    for tg, pair in ((64, True), (8, False)):
+        w = csr_to_well(small, tile_groups=tg, dtype=np.float32, pair=pair, device=dev)
+        wds = csr_to_well_ds(small64, tile_groups=tg, pair=pair, device=dev)
+        if pair and not (w.paired and wds.paired):
+            fail(f"pair=True packed no paired slot at tg {tg}")
+        cases.append((f"bench {N_WELL_SMALL} tg{tg}{' paired' if pair else ''}", w, wds))
+    stacks = []
+    for dt in (np.float32, np.float64):
+        A = build_dist_matrix(small, n_devices=3, dtype=dt, local_format="well",
+                              device=dev)
+        stacks.append((A.local_well_values, A.local_well_pos, A.local_well_w0,
+                       A.well_meta[2], A.n_devices * A.col_pad // 128))
+    Ads = build_dist_matrix(small64, n_devices=3, local_format="well_ds", device=dev)
+    ds_stack = (Ads.local_well_values, Ads.local_well_values_lo, Ads.local_well_pos,
+                Ads.local_well_w0, Ads.well_meta[2], Ads.n_devices * Ads.col_pad // 128)
+
+    def well_run(matrix, v, pos, w0, tg, rows, nrhs):
+        dname = str(v.dtype).split(".")[1]
+        args = (v, pos, w0)
+        run("well_spmm", matrix, dname, nrhs,
+            lambda x: spmm_well_cuda.spmm_well_stacked(*args, x, tg),
+            lambda x: spmm_well_stacked_plain(*args, x, tg),
+            lambda x: spmv_well_cuda.spmv_well_stacked(*args, x, tg),
+            (lanes_block(gen, rows, nrhs, v.dtype, dev),), TOL_KERNEL[dname],
+            k_slots=v.shape[1], pos_dtype=str(pos.dtype))
+
+    def well_ds_run(matrix, vh, vl, pos, w0, tg, rows, nrhs):
+        args = (vh, vl, pos, w0)
+        xh = lanes_block(gen, rows, nrhs, torch.float32, dev)
+        run("well_ds_spmm", matrix, "double-single", nrhs,
+            lambda h, lo: spmm_well_cuda.spmm_well_ds_stacked(*args, h, lo, tg),
+            lambda h, lo: spmm_well_ds_stacked_plain(*args, h, lo, tg),
+            lambda h, lo: spmv_well_ds_cuda.spmv_well_ds_stacked(*args, h, lo, tg),
+            (xh, xh * 1e-8), None, k_slots=vh.shape[1], pos_dtype=str(pos.dtype))
+
+    for nrhs in NRHS_WELL:
+        for matrix, w, wds in cases:
+            for dt in (torch.float32, torch.float64):
+                wd = as_dtype(w, dt)
+                well_run(matrix, wd.values.unsqueeze(0), wd.pos.unsqueeze(0),
+                         wd.w0.unsqueeze(0), wd.tile_groups, wd.ncols_pad // 128, nrhs)
+                del wd
+            well_ds_run(matrix, *well_ds_args(wds, ())[:4], wds.tile_groups,
+                        wds.ncols_pad // 128, nrhs)
+        for v, pos, w0, tg, rows in stacks:
+            well_run(f"bench {N_WELL_SMALL}, D=3 stacked", v, pos, w0, tg, rows, nrhs)
+        well_ds_run(f"bench {N_WELL_SMALL}, D=3 stacked", *ds_stack, nrhs)
+    return max_abs, d32
+
+
+def true_rels(a: CSRHost, X: np.ndarray, B: np.ndarray) -> np.ndarray:
+    """Per-column true float64 relative residuals on the host CSR."""
+    R = np.stack([a.matvec(X[:, r]) for r in range(B.shape[1])], axis=1) - B
+    return np.linalg.norm(R, axis=0) / np.linalg.norm(B, axis=0)
+
+
+def path_stack_checks(a, fmt, matrix, gen, dev, max_abs):
+    """Phase 16, before a refined solve: the block kernels vs their plain
+    versions at nrhs NRHS on the local stacks of the fp32 operator and its
+    double-single twin, built by the same ``build_dist_matrix`` calls that
+    ``block_cg_refined_dist`` makes (fp32 within TOL_KERNEL, DS both planes
+    bit for bit, every column bit-equal to the single-RHS kernel). These
+    launches come before the counters are zeroed."""
+    a32 = build_dist_matrix(a, n_devices=1, dtype=np.float32, local_format=fmt,
+                            device=dev)
+    ads = build_dist_matrix(a, n_devices=1, local_format=fmt + "_ds", device=dev)
+    rows = a32.n_devices * a32.row_lane_rows
+    x = (lanes_block(gen, rows, NRHS, torch.float32, dev),)
+    xds = ds_block(gen, rows, NRHS, dev)
+    tag = f"{matrix}, block_cg_refined_dist's operators"
+    if fmt == "dia":
+        data, offs, sym = a32.local_dia_data, a32.dia_offsets, a32.symmetric
+        block_check(max_abs, "16", "dia_spmm", tag, "float32", NRHS,
+                    lambda v: spmm_dia_cuda.spmm_dia_stacked(data, v, offs, sym),
+                    lambda v: spmm_dia_stacked_plain(data, v, offs, sym),
+                    lambda v: spmv_dia_cuda.spmv_dia_stacked(data, v, offs, sym),
+                    x, TOL_KERNEL["float32"], ndiags=len(offs))
+        planes, offs = (ads.local_dia_data, ads.local_dia_data_lo), ads.dia_offsets
+        block_check(max_abs, "16", "dia_ds_spmm", tag, "double-single", NRHS,
+                    lambda h, lo: spmv_dia_ds_cuda.spmm_dia_ds_stacked(*planes, h, lo, offs),
+                    lambda h, lo: spmm_dia_ds_stacked_plain(*planes, h, lo, offs),
+                    lambda h, lo: spmv_dia_ds_cuda.spmv_dia_ds_stacked(*planes, h, lo, offs),
+                    xds, None, ndiags=len(offs))
+    else:
+        args, tg = (a32.local_well_values, a32.local_well_pos,
+                    a32.local_well_w0), a32.well_meta[2]
+        block_check(max_abs, "16", "well_spmm", tag, "float32", NRHS,
+                    lambda v: spmm_well_cuda.spmm_well_stacked(*args, v, tg),
+                    lambda v: spmm_well_stacked_plain(*args, v, tg),
+                    lambda v: spmv_well_cuda.spmv_well_stacked(*args, v, tg),
+                    x, TOL_KERNEL["float32"], k_slots=args[0].shape[1],
+                    far_nnz=a32.well_far_nnz)
+        dargs, tg = (ads.local_well_values, ads.local_well_values_lo, ads.local_well_pos,
+                     ads.local_well_w0), ads.well_meta[2]
+        block_check(max_abs, "16", "well_ds_spmm", tag, "double-single", NRHS,
+                    lambda h, lo: spmm_well_cuda.spmm_well_ds_stacked(*dargs, h, lo, tg),
+                    lambda h, lo: spmm_well_ds_stacked_plain(*dargs, h, lo, tg),
+                    lambda h, lo: spmv_well_ds_cuda.spmv_well_ds_stacked(*dargs, h, lo, tg),
+                    xds, None, k_slots=dargs[0].shape[1], far_nnz=ads.well_far_nnz)
+    del a32, ads
+
+
+def phase_block_path(dev, max_abs):
+    """Phase 16: the block path at full size through the port's entry
+    points, nrhs = NRHS. Before each solve its operators' block kernels
+    are held against their plain versions on those operators' own stacks
+    (``path_stack_checks``; 16d on its float64 symmetric packing), folded
+    into ``max_abs``. (a)-(c) block_cg_refined_dist: fp32 block CG inner
+    passes (simultaneous recurrences, one dia_spmm / well_spmm launch per
+    inner iteration plus one per pass for the initial residual) and DS
+    true residuals (one dia_ds_spmm / well_ds_spmm launch each), gated on
+    every column's true float64 residual on the host CSR. (d) block_cg_dia
+    on symmetric storage in float64 (coupled O'Leary CG, one dia_sym_spmm
+    launch per iteration plus the initial residual's). The counters are
+    zeroed just before each solve and read just after. Returns the block
+    kernels' launch counts, summed."""
+    totals = dict.fromkeys(BLOCK_KERNELS, 0)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    lap_refine = create_laplace_2d(REFINE_NX, REFINE_NX)
+
+    def circuit():
+        a, _ = rcm_reorder(circuit_network(CIRCUIT_BLOCK_NX, dtype=np.float64),
+                           keep_best=True)
+        return a
+
+    runs = (
+        ("a", f"laplace2d {BLOCK_NX}^2", lambda: create_laplace_2d(BLOCK_NX, BLOCK_NX),
+         "dia", dict(inner_rtol=1e-4, inner_kmax=1500), BLOCK_TOL["a"]),
+        ("b", f"laplace2d {REFINE_NX}^2", lambda: lap_refine, "dia",
+         dict(inner_rtol=1e-4, inner_kmax=4000, max_outer=10), BLOCK_TOL["b"]),
+        ("c", f"circuit_network({CIRCUIT_BLOCK_NX}) RCM", circuit, "well",
+         dict(inner_rtol=1e-4, inner_kmax=4000, max_outer=10), BLOCK_TOL["c"]),
+    )
+    for tag, matrix, make, fmt, kw, tol in runs:
+        t0 = time.perf_counter()
+        a = make()
+        B = np.random.default_rng(160).standard_normal((a.nrows, NRHS))
+        t_make = time.perf_counter() - t0
+        path_stack_checks(a, fmt, matrix, gen, dev, max_abs)
+        reset_counters()
+        t0 = time.perf_counter()
+        X, outer, inner, rnorms = block_cg_refined_dist(a, B, local_format=fmt,
+                                                        device=dev, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got, singles = block_launches(), single_launches()
+        if not np.all(np.isfinite(X)):
+            fail(f"16{tag}: non-finite solution")
+        rel = true_rels(a, X, B)
+        inner_key, ds_key = f"{fmt}_spmm", f"{fmt}_ds_spmm"
+        show("16.block_path", run=f"block_cg_refined_dist {fmt}, {matrix}",
+             rows=a.nrows, nnz=a.nnz, nrhs=NRHS, **kw, outer_passes=outer,
+             inner_iterations=inner, true_rel_residuals=rel.tolist(),
+             max_true_rel_residual=float(rel.max()), gate=tol,
+             ds_rel_residuals=(rnorms / np.linalg.norm(B, axis=0)).tolist(),
+             launches=got, single_rhs_launches=singles, generate_s=t_make,
+             seconds=seconds)
+        if not rel.max() <= tol:
+            fail(f"16{tag}: a column's true residual is {rel.max():.3e} > {tol:.0e}")
+        if got[inner_key] != inner + outer - 1 or got[ds_key] != outer:
+            fail(f"16{tag}: {got[inner_key]} {inner_key} launches for {inner} inner "
+                 f"iterations in {outer - 1} inner solves, {got[ds_key]} {ds_key} "
+                 f"launches for {outer} residuals")
+        if singles:
+            fail(f"16{tag}: the block path launched {singles} single-RHS kernels")
+        for key in totals:
+            totals[key] += got[key]
+        del X, a
+
+    d = csr_to_dia(lap_refine, row_align=ROW_ALIGN, dtype=np.float64, symmetric=True,
+                   device=dev)
+    B = np.random.default_rng(161).standard_normal((lap_refine.nrows, NRHS))
+    data = d.data.unsqueeze(0)
+    block_check(max_abs, "16", "dia_sym_spmm",
+                f"laplace2d {REFINE_NX}^2, block_cg_dia's symmetric packing", "float64",
+                NRHS, lambda v: spmm_dia_cuda.spmm_dia_stacked(data, v, d.offsets, True),
+                lambda v: spmm_dia_stacked_plain(data, v, d.offsets, True),
+                lambda v: spmv_dia_cuda.spmv_dia_stacked(data, v, d.offsets, True),
+                (lanes_block(gen, data.shape[1], NRHS, torch.float64, dev),),
+                TOL_KERNEL["float64"], ndiags=len(d.offsets))
+    del data
+    reset_counters()
+    t0 = time.perf_counter()
+    X, res = block_cg_dia(d, B, kmax=20000, rtol=1e-10)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got, singles = block_launches(), single_launches()
+    X = X.cpu().numpy()
+    rel = true_rels(lap_refine, X[: lap_refine.nrows], B)
+    show("16.block_path", run=f"block_cg_dia symmetric float64, laplace2d {REFINE_NX}^2",
+         rows=lap_refine.nrows, nrhs=NRHS, rtol=1e-10, iterations=res.iterations,
+         converged=res.converged, true_rel_residuals=rel.tolist(),
+         max_true_rel_residual=float(rel.max()), gate=1e-9, launches=got,
+         seconds=seconds, it_per_s=res.iterations / seconds)
+    if not (res.converged and rel.max() <= 1e-9):
+        fail(f"16d: converged {res.converged}, true residual {rel.max():.3e} > 1e-9")
+    if got["dia_sym_spmm"] != res.iterations + 1 or singles:
+        fail(f"16d: {got['dia_sym_spmm']} dia_sym_spmm launches for "
+             f"{res.iterations + 1} block applies ({singles} single-RHS launches)")
+    for key in totals:
+        totals[key] += got[key]
+    show("16.block_path", launches=totals)
+    return totals
+
+
+def phase_block_halo(dev):
+    """Phase 17: the block halo on D=4 stacked shards, nrhs 3: matmat per
+    column vs the host oracle (TOL_ORACLE, as phases 5 and 9) on the 512^2
+    Laplacian (dia vanilla and symmetric, ell symmetric) and the RCM'd 50k
+    FEM (well vanilla and symmetric), fp32 and fp64; matmat_ds per column
+    vs the host float64 oracle (DS_ORACLE_TOL, as phase 14) for dia_ds and
+    well_ds; then a 20-iteration block_cg on the D=4 fp64 dia operator,
+    each column's host residual within TOL_SOLVE of the reported one."""
+    rng = np.random.default_rng(17)
+    lap = create_laplace_2d(HALO_NX, HALO_NX)
+    fem, _ = rcm_reorder(fem_p1_2d(HALO_FEM, seed=3, dtype=np.float64), keep_best=True)
+    for a, fmt, sym in ((lap, "dia", False), (lap, "dia", True), (lap, "ell", True),
+                        (fem, "well", False), (fem, "well", True)):
+        for dt in (np.float32, np.float64):
+            dname = np.dtype(dt).name
+            tag = f"{fmt} {'symmetric' if sym else 'vanilla'} {dname}"
+            A = build_dist_matrix(a, n_devices=HALO_D, symmetric=sym, dtype=dt,
+                                  local_format=fmt, device=dev)
+            X = rng.standard_normal((a.nrows, 3)).astype(dt)
+            Y = A.from_dist_block(A.matmat(A.to_dist_block(X)))
+            errs = [rel_l2(Y[:, c], a.matvec(X[:, c].astype(np.float64)))
+                    for c in range(3)]
+            show("17.halo", run=tag, rows=a.nrows, shards=HALO_D,
+                 rounds=list(A.plan.rounds), nrhs=3, matmat_rel_l2_vs_host=errs)
+            if not max(errs) <= TOL_ORACLE[dname]:
+                fail(f"17: matmat {tag} rel err {max(errs):.3e}")
+    for a, fmt in ((perturbed(lap, 170), "dia_ds"), (fem, "well_ds")):
+        A = build_dist_matrix(a, n_devices=HALO_D, local_format=fmt, device=dev)
+        X = rng.standard_normal((a.nrows, 3)) * 1e3
+        xs = [A.to_dist_block(p) for p in ds_from_f64(X)]
+        yh, yl = A.matmat_ds(*xs)
+        Y = ds_to_f64(A.from_dist_block(yh), A.from_dist_block(yl))
+        errs = [rel_l2(Y[:, c], a.matvec(X[:, c])) for c in range(3)]
+        show("17.halo", run=f"{fmt} vanilla", rows=a.nrows, shards=HALO_D,
+             rounds=list(A.plan.rounds), nrhs=3, matmat_ds_rel_l2_vs_host=errs)
+        if not max(errs) <= DS_ORACLE_TOL:
+            fail(f"17: matmat_ds {fmt} rel err {max(errs):.3e}")
+    A = build_dist_matrix(lap, n_devices=HALO_D, dtype=np.float64, local_format="dia",
+                          device=dev)
+    B = rng.standard_normal((lap.nrows, 3))
+    res = block_cg(A.matmat, A.to_dist_block(B), 3, kmax=20, rtol=1e-30)
+    host = true_rels(lap, A.from_dist_block(res.x), B)
+    rep = (res.rnorm / res.rnorm0).cpu().numpy()
+    show("17.block_cg", run=f"block_cg dia float64, laplace2d {HALO_NX}^2, D={HALO_D}",
+         iterations=res.iterations, host_rel_residuals=host.tolist(),
+         reported_rel_residuals=rep.tolist())
+    if res.iterations != 20 or not np.all(np.abs(host - rep) <= TOL_SOLVE["float64"]):
+        fail(f"17: block_cg host residuals {host} vs reported {rep} after "
+             f"{res.iterations}")
+
+
+def phase_block_timing(a_lap, d32, a4, w4, w4ds, single_ms, dev):
+    """Phase 10, block kernels at nrhs = NRHS: kernel and plain ms in
+    turns (CUDA events, chained), the bytes bound, the library yardstick
+    (one torch CSR @ X on an (n, NRHS) block, cuSPARSE SpMM, row-major and
+    column-major, the faster as ``library_ms``; float64 for the DS
+    kernels; the port never calls it) and NRHS x the single-RHS kernel's
+    ms at the same shape from this run. Then each block kernel at nrhs 1
+    and its single-RHS kernel on the same column, in turns. DIA on the
+    NX^2 Laplacian scaled by 1/9, WELL and DS WELL on the 4M bench
+    matrix."""
+    gen = torch.Generator(device=dev).manual_seed(100)
+    out = {}
+
+    def row(kname, kernel, plain, single_kernel, x0, x1, nbytes, a_lib, scale,
+            lib_dtype, single, **extra):
+        ms_k, ms_p, runs_k, runs_p = time_in_turns(kernel, plain, x0, iters_p=10)
+        lib = library_block_ms(a_lib, dev, scale, lib_dtype, NRHS)
+        ms_1, ms_s, runs_1, runs_s = time_in_turns(kernel, single_kernel, x1, iters_p=100)
+        out[kname] = dict(ms=ms_k, plain_ms=ms_p,
+                          library_ms=min(lib["row_major"], lib["column_major"]),
+                          bound_ms=bound_ms(nbytes), bytes=nbytes, nrhs=NRHS,
+                          single_rhs_x8_ms=NRHS * single,
+                          nrhs1=dict(ms=ms_1, single_rhs_ms=ms_s))
+        show("10.timing", kernel=kname, **out[kname], ms_runs=runs_k,
+             plain_ms_runs=runs_p, single_rhs_ms=single, **extra,
+             library=f"torch CSR @ X, ({a_lib.ncols}, {NRHS}) block (cuSPARSE SpMM)",
+             library_block_ms=lib, nrhs1_ms_runs=runs_1, nrhs1_single_rhs_ms_runs=runs_s)
+
+    # the NX^2 Laplacian scaled by 1/9 (phase 6's operator), fp32
+    nr, k0 = d32.data.shape[0], d32.offsets.index(0)
+    npad = d32.nrows_pad
+    data9 = (d32.data * np.float32(1.0 / 9.0)).unsqueeze(0)
+    lower9 = data9.view(nr, d32.ndiags, 128)[:, : k0 + 1].reshape(1, nr, -1).contiguous()
+    for kname, data, offs, sym in (("dia_spmm", data9, d32.offsets, False),
+                                   ("dia_sym_spmm", lower9, d32.offsets[: k0 + 1], True)):
+        row(kname, lambda v: spmm_dia_cuda.spmm_dia_stacked(data, v, offs, sym),
+            lambda v: spmm_dia_stacked_plain(data, v, offs, sym),
+            lambda v: spmv_dia_cuda.spmv_dia_stacked(data, v, offs, sym),
+            lanes_block(gen, nr, NRHS, torch.float32, dev),
+            lanes_block(gen, nr, 1, torch.float32, dev),
+            (len(offs) + 2 * NRHS) * npad * 4, a_lap, 1.0 / 9.0, np.float32,
+            single_ms["dia_sym_spmv" if sym else "dia_spmv"], rows=a_lap.nrows,
+            ndiags=len(offs))
+    # its double-single planes: the exact float64 values / 9 split on the card
+    v9 = d32.data.double() / 9.0
+    planes = (v9.float().unsqueeze(0), (v9 - v9.float().double()).float().unsqueeze(0))
+    del v9, data9, lower9
+    row("dia_ds_spmm",
+        lambda v: spmv_dia_ds_cuda.spmm_dia_ds_stacked(*planes, *v, d32.offsets),
+        lambda v: spmm_dia_ds_stacked_plain(*planes, *v, d32.offsets),
+        lambda v: spmv_dia_ds_cuda.spmv_dia_ds_stacked(*planes, *v, d32.offsets),
+        ds_block(gen, nr, NRHS, dev), ds_block(gen, nr, 1, dev),
+        (2 * d32.ndiags + 4 * NRHS) * npad * 4, a_lap, 1.0 / 9.0, np.float64,
+        single_ms["dia_ds_spmv"], rows=a_lap.nrows, ndiags=d32.ndiags)
+    del planes
+    # the 4M bench matrix (rows scaled to ||A||_inf = 0.9 in phase 7)
+    args = (w4.values.unsqueeze(0), w4.pos.unsqueeze(0), w4.w0.unsqueeze(0))
+    rows = w4.ncols_pad // 128
+    row("well_spmm", lambda v: spmm_well_cuda.spmm_well_stacked(*args, v, 64),
+        lambda v: spmm_well_stacked_plain(*args, v, 64),
+        lambda v: spmv_well_cuda.spmv_well_stacked(*args, v, 64),
+        lanes_block(gen, rows, NRHS, torch.float32, dev),
+        lanes_block(gen, rows, 1, torch.float32, dev),
+        a4.nnz * (4 + w4.pos.element_size()) + w4.w0.numel() * 4
+        + NRHS * (a4.ncols + a4.nrows) * 4, a4, 1.0, np.float32,
+        single_ms["spmv_well"], matrix=f"bench {N_WELL}", k_slots=w4.k_slots)
+    dargs = well_ds_args(w4ds, ())[:4]
+    row("well_ds_spmm", lambda v: spmm_well_cuda.spmm_well_ds_stacked(*dargs, *v, 64),
+        lambda v: spmm_well_ds_stacked_plain(*dargs, *v, 64),
+        lambda v: spmv_well_ds_cuda.spmv_well_ds_stacked(*dargs, *v, 64),
+        ds_block(gen, rows, NRHS, dev), ds_block(gen, rows, 1, dev),
+        a4.nnz * (8 + w4ds.pos.element_size()) + w4ds.w0.numel() * 4
+        + NRHS * (a4.ncols + a4.nrows) * 8, a4, 1.0, np.float64,
+        single_ms["well_ds_spmv"], matrix=f"bench {N_WELL}", k_slots=w4ds.k_slots)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1374,8 +1933,25 @@ def main() -> int:
     show("14.seconds", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
+    block_abs, d32 = phase_block_kernels(a, w4, w4ds, dev)
+    max_abs.update(block_abs)
+    show("15.seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    counts.update(phase_block_path(dev, max_abs))
+    show("16.seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_block_halo(dev)
+    show("17.seconds", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
     timing = phase_timing_all(a, times, a4, w4, a_fem, A_fem, dev)
     timing.update(phase_ds_timing(a, a4, w4ds, A_fem_ds, a_fem, dev))
+    single_ms = {"dia_spmv": times["dia_spmv"][0], "dia_sym_spmv": times["dia_sym_spmv"][0],
+                 "spmv_well": timing["spmv_well"]["other_shapes"][f"bench {N_WELL}"]["ms"],
+                 "dia_ds_spmv": timing["dia_ds_spmv"]["ms"],
+                 "well_ds_spmv":
+                     timing["well_ds_spmv"]["other_shapes"][f"bench {N_WELL}"]["ms"]}
+    timing.update(phase_block_timing(a, d32, a4, w4, w4ds, single_ms, dev))
     show("10.seconds", seconds=time.perf_counter() - t0,
          ds_launches_per_cg_iteration=per_iter)
 
@@ -1390,7 +1966,17 @@ def main() -> int:
             ("dia_ds_spmv", "dia_ds", "spmv_torch/csrc/spmv_dia_ds.cu",
              "spmv_tpu/ops/spmv_dia_ds_pallas.py:164"),
             ("well_ds_spmv", "well_ds", "spmv_torch/csrc/spmv_well_ds.cu",
-             "spmv_tpu/ops/spmv_well_pallas.py:407")):
+             "spmv_tpu/ops/spmv_well_pallas.py:407"),
+            ("dia_spmm", "dia_spmm", "spmv_torch/csrc/spmm_dia.cu",
+             "spmv_tpu/ops/spmm_dia_pallas.py:43"),
+            ("dia_sym_spmm", "dia_sym_spmm", "spmv_torch/csrc/spmm_dia.cu",
+             "spmv_tpu/ops/spmv_dia_pallas.py:265"),
+            ("well_spmm", "well_spmm", "spmv_torch/csrc/spmm_well.cu",
+             "spmv_tpu/ops/spmm_well_pallas.py:38"),
+            ("dia_ds_spmm", "dia_ds_spmm", "spmv_torch/csrc/spmm_dia_ds.cu",
+             "spmv_tpu/ops/spmv_dia_ds_pallas.py:377"),
+            ("well_ds_spmm", "well_ds_spmm", "spmv_torch/csrc/spmm_well.cu",
+             "spmv_tpu/ops/spmm_well_pallas.py:240")):
         row = timing[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
@@ -1398,8 +1984,8 @@ def main() -> int:
             "max_abs_err": max_abs[kname], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": "bytes", "library_ms": row["library_ms"],
-            **({"other_shapes": row["other_shapes"]} if "other_shapes" in row
-               else {}),
+            **{k: row[k] for k in ("other_shapes", "nrhs", "single_rhs_x8_ms", "nrhs1")
+               if k in row},
         })
     # DS timing rows carry their runs; the kernels line keeps the summary
     for k in kernels:

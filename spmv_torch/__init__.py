@@ -17,16 +17,24 @@ ops.spmv_well_pallas   ops.spmv_well (plain torch, CPU path) +
                        its double-single part: ops.spmv_well_ds +
                        ops.spmv_well_ds_cuda + csrc/spmv_well_ds.cu
 ops.spmv_dia_ds_pallas ops.spmv_dia_ds (plain torch, CPU path) +
-                       ops.spmv_dia_ds_cuda + csrc/spmv_dia_ds.cu
+                       ops.spmv_dia_ds_cuda + csrc/spmv_dia_ds.cu; its
+                       block part: csrc/spmm_dia_ds.cu
+ops.spmm_dia_pallas    ops.spmm_dia (SpMM lane layout, plain torch) +
+                       ops.spmm_dia_cuda + csrc/spmm_dia.cu (also the
+                       symmetric block kernel of spmv_dia_pallas)
+ops.spmm_well_pallas   ops.spmm_well (plain torch) + ops.spmm_well_cuda +
+                       csrc/spmm_well.cu (plain and double-single)
 corpus                 corpus        (numpy + scipy generators)
 reorder                reorder       (numpy RCM)
 io.matrix_market       io.matrix_market
 parallel.partition     parallel.partition
 parallel.comm_plan     parallel.comm_plan (shards stacked on one device)
 parallel.dist_matrix   parallel.dist_matrix (ell, dia, dia_ds, well,
-                       well_ds, auto; matvec_ds)
+                       well_ds, auto; matvec_ds, matmat, matmat_ds)
 solvers.cg             solvers.cg
 solvers.refine         solvers.refine (cg_refined, cg_refined_dist)
+solvers.block_cg       solvers.block_cg (block_cg, block_cg_dia,
+                       block_cg_refined, block_cg_refined_dist)
 utils.timing           utils.timing  (CUDA events)
 demos.demo_cg          demos.demo_cg
 ====================  ===================================================
@@ -51,6 +59,7 @@ from spmv_torch.gen import (
     random_csr,
 )
 from spmv_torch.io.matrix_market import read_matrix_market, write_matrix_market
+from spmv_torch.ops.spmm_dia import spmm_dia, spmm_from_layout, spmm_to_layout
 from spmv_torch.ops.spmv_dia_ds import DiaDsMatrix, csr_to_dia_ds, spmv_dia_ds
 from spmv_torch.ops.spmv_well import spmv_well, spmv_well_sym
 from spmv_torch.ops.spmv_well_ds import WellDsMatrix, csr_to_well_ds, spmv_well_ds
@@ -60,6 +69,13 @@ from spmv_torch.parallel.dist_matrix import (
     select_local_format,
 )
 from spmv_torch.reorder import rcm_reorder
+from spmv_torch.solvers.block_cg import (
+    BlockCGResult,
+    block_cg,
+    block_cg_dia,
+    block_cg_refined,
+    block_cg_refined_dist,
+)
 from spmv_torch.solvers.cg import CGResult, cg, cg_residual_history
 from spmv_torch.solvers.refine import RefineResult, cg_refined, cg_refined_dist
 
@@ -80,6 +96,9 @@ __all__ = [
     "WellDsMatrix",
     "csr_to_well_ds",
     "spmv_well_ds",
+    "spmm_dia",
+    "spmm_to_layout",
+    "spmm_from_layout",
     "read_matrix_market",
     "write_matrix_market",
     "rcm_reorder",
@@ -97,4 +116,9 @@ __all__ = [
     "RefineResult",
     "cg_refined",
     "cg_refined_dist",
+    "BlockCGResult",
+    "block_cg",
+    "block_cg_dia",
+    "block_cg_refined",
+    "block_cg_refined_dist",
 ]

@@ -34,6 +34,11 @@ _DIA_DS_ARGS = [_P, _P, _P, _P, _P, _P, _L, _I, _P, _I, _P]  # data hi, lo,
 _WELL_DS_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _P]
 #                 values hi, lo, pos, w0, x hi, lo, y hi, lo, ngroups, k,
 #                 tile_groups, col_pad, nshards, stream
+# the block (SpMM) entries take the same arguments plus nrhs before nshards
+_DIA_SPMM_ARGS = _DIA_ARGS[:6] + [_I] + _DIA_ARGS[6:]
+_WELL_SPMM_ARGS = _WELL_ARGS[:9] + [_I] + _WELL_ARGS[9:]
+_DIA_DS_SPMM_ARGS = _DIA_DS_ARGS[:9] + [_I] + _DIA_DS_ARGS[9:]
+_WELL_DS_SPMM_ARGS = _WELL_DS_ARGS[:12] + [_I] + _WELL_DS_ARGS[12:]
 KERNEL_ENTRIES = {
     **{f"{n}_{t}": _DIA_ARGS for n in ("dia_spmv", "dia_sym_spmv")
        for t in ("f32", "f64")},
@@ -41,6 +46,12 @@ KERNEL_ENTRIES = {
        for p in ("i16", "i32")},
     "dia_ds_spmv": _DIA_DS_ARGS,
     **{f"well_ds_spmv_{p}": _WELL_DS_ARGS for p in ("i16", "i32")},
+    **{f"{n}_{t}": _DIA_SPMM_ARGS for n in ("dia_spmm", "dia_sym_spmm")
+       for t in ("f32", "f64")},
+    **{f"well_spmm_{t}_{p}": _WELL_SPMM_ARGS for t in ("f32", "f64")
+       for p in ("i16", "i32")},
+    "dia_ds_spmm": _DIA_DS_SPMM_ARGS,
+    **{f"well_ds_spmm_{p}": _WELL_DS_SPMM_ARGS for p in ("i16", "i32")},
 }
 
 _lib: ctypes.CDLL | None = None

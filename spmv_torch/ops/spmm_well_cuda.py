@@ -1,0 +1,92 @@
+"""WELL block SpMM wrappers over the CUDA kernels of ``csrc/spmm_well.cu``.
+
+Counterpart of ``spmv_tpu.ops.spmm_well_pallas``: ``well_spmm`` replaces
+``_well_mrhs_kernel`` and ``well_ds_spmm`` replaces
+``_well_ds_mrhs_kernel``. D stacked shards take one launch; blocks stay in
+the SpMM lane layout (rows, nrhs*128), hi/lo float32 pairs for DS.
+
+A CPU tensor takes the plain torch version (``ops/spmm_well.py``); a CUDA
+tensor launches the kernel or raises. ``launches`` counts kernel launches
+(one per call on a CUDA tensor, none on the plain path).
+"""
+from __future__ import annotations
+
+import torch
+
+from spmv_torch.formats.well import LANES
+from spmv_torch.ops import spmv_well_cuda, spmv_well_ds_cuda
+from spmv_torch.ops.spmm_well import (
+    spmm_well_ds_stacked_plain,
+    spmm_well_stacked_plain,
+)
+
+launches = {"well_spmm": 0, "well_ds_spmm": 0}
+
+
+def reset_launches() -> None:
+    for key in launches:
+        launches[key] = 0
+
+
+def spmm_well_stacked(values: torch.Tensor, pos: torch.Tensor, w0: torch.Tensor,
+                      x2: torch.Tensor, tile_groups: int) -> torch.Tensor:
+    """Stacked-shard block apply, one launch for all D shards and columns:
+    values/pos (D, K, G, 128), w0 (D, G/tile_groups), x2 (D*col_pad/128,
+    nrhs*128) -> y2 (D*G, nrhs*128). Shard s reads only its own col_pad
+    rows of x (zero outside)."""
+    col_pad = spmv_well_cuda._check(values, pos, w0, x2, tile_groups, block=True)
+    if x2.device.type == "cpu":
+        return spmm_well_stacked_plain(values, pos, w0, x2, tile_groups)
+    if x2.device.type != "cuda":
+        raise RuntimeError(f"no WELL SpMM kernel for device {x2.device}")
+    from spmv_torch._build import load_library
+
+    lib = load_library()
+    nd, k, g, _ = values.shape
+    nrhs = x2.shape[1] // LANES
+    y2 = torch.empty((nd * g, nrhs * LANES), dtype=values.dtype, device=x2.device)
+    name = ("well_spmm_" + ("f64" if values.dtype == torch.float64 else "f32")
+            + ("_i16" if pos.dtype == torch.int16 else "_i32"))
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        rc = getattr(lib, name)(values.data_ptr(), pos.data_ptr(), w0.data_ptr(),
+                                x2.data_ptr(), y2.data_ptr(), g, k, tile_groups,
+                                col_pad, nrhs, nd, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    launches["well_spmm"] += 1
+    return y2
+
+
+def spmm_well_ds_stacked(values_hi: torch.Tensor, values_lo: torch.Tensor,
+                         pos: torch.Tensor, w0: torch.Tensor, xh2: torch.Tensor,
+                         xl2: torch.Tensor, tile_groups: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stacked-shard double-single block apply, one launch for all D shards
+    and columns: values hi/lo and pos (D, K, G, 128), w0 (D, G/tile_groups),
+    x hi/lo (D*col_pad/128, nrhs*128) -> (yh, yl) (D*G, nrhs*128)."""
+    col_pad = spmv_well_ds_cuda._check(values_hi, values_lo, pos, w0, xh2, xl2,
+                                       tile_groups, block=True)
+    if xh2.device.type == "cpu":
+        return spmm_well_ds_stacked_plain(values_hi, values_lo, pos, w0, xh2,
+                                          xl2, tile_groups)
+    if xh2.device.type != "cuda":
+        raise RuntimeError(f"no DS WELL SpMM kernel for device {xh2.device}")
+    from spmv_torch._build import load_library
+
+    lib = load_library()
+    nd, k, g, _ = values_hi.shape
+    nrhs = xh2.shape[1] // LANES
+    yh = torch.empty((nd * g, nrhs * LANES), dtype=torch.float32, device=xh2.device)
+    yl = torch.empty_like(yh)
+    name = "well_ds_spmm_" + ("i16" if pos.dtype == torch.int16 else "i32")
+    with torch.cuda.device(xh2.device):
+        stream = torch.cuda.current_stream(xh2.device).cuda_stream
+        rc = getattr(lib, name)(values_hi.data_ptr(), values_lo.data_ptr(),
+                                pos.data_ptr(), w0.data_ptr(), xh2.data_ptr(),
+                                xl2.data_ptr(), yh.data_ptr(), yl.data_ptr(),
+                                g, k, tile_groups, col_pad, nrhs, nd, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    launches["well_ds_spmm"] += 1
+    return yh, yl

@@ -28,7 +28,14 @@ def reset_launches() -> None:
         launches[key] = 0
 
 
-def _check(data: torch.Tensor, x2: torch.Tensor, offsets, symmetric: bool):
+def _lanes_ok(lanes: int, block: bool) -> bool:
+    """x's width: 128 lanes, or nrhs*128 (the SpMM lane layout) for a block
+    apply."""
+    return lanes == LANES or (block and lanes > 0 and lanes % LANES == 0)
+
+
+def _check(data: torch.Tensor, x2: torch.Tensor, offsets, symmetric: bool,
+           block: bool = False):
     if data.device != x2.device:
         raise ValueError(f"data on {data.device} but x on {x2.device}")
     if data.dtype == torch.bfloat16 or x2.dtype == torch.bfloat16:
@@ -44,9 +51,9 @@ def _check(data: torch.Tensor, x2: torch.Tensor, offsets, symmetric: bool):
     if data.dim() != 3 or data.shape[2] != k * LANES:
         raise ValueError(f"data must be (D, R, {k}*128), got {tuple(data.shape)}")
     nd, nr = data.shape[0], data.shape[1]
-    if tuple(x2.shape) != (nd * nr, LANES):
-        raise ValueError(f"x must be ({nd * nr}, 128) for data "
-                         f"{tuple(data.shape)}, got {tuple(x2.shape)}")
+    if x2.dim() != 2 or x2.shape[0] != nd * nr or not _lanes_ok(x2.shape[1], block):
+        raise ValueError(f"x must be ({nd * nr}, {'nrhs*' if block else ''}128) "
+                         f"for data {tuple(data.shape)}, got {tuple(x2.shape)}")
     if not (data.is_contiguous() and x2.is_contiguous()):
         raise ValueError("DIA apply takes contiguous data and x")
 

@@ -2,7 +2,8 @@
 plain torch apply.
 
 Counterpart of ``spmv_tpu.ops.spmv_dia_ds_pallas`` (``DiaDsMatrix``,
-``csr_to_dia_ds``, ``spmv_dia_ds_xla``, ``spmv_dia_ds``). The matrix and
+``csr_to_dia_ds``, ``spmv_dia_ds_xla``, ``spmv_dia_ds``, and the block
+``spmm_dia_ds_xla`` as ``spmm_dia_ds_stacked_plain``). The matrix and
 the vectors are hi/lo float32 pairs (``spmv_torch.ds``); every diagonal's
 term is ``ds_mul_f32`` then ``ds_add`` into the accumulator, in offset
 order, with x zero outside each shard.
@@ -22,6 +23,7 @@ import torch
 from spmv_torch.ds import ds_add, ds_from_f64, ds_mul_f32, ds_to_f64
 from spmv_torch.formats.csr import CSRHost
 from spmv_torch.formats.dia import LANES, _csr_to_dia_host, flat_to_interleaved
+from spmv_torch.ops.spmm_dia import columns, from_columns
 
 
 @dataclasses.dataclass
@@ -99,6 +101,30 @@ def spmv_dia_ds_stacked_plain(data_hi: torch.Tensor, data_lo: torch.Tensor,
                              xwh[:, sl], xwl[:, sl])
         acc_h, acc_l = ds_add(acc_h, acc_l, ph, plo)
     return acc_h.view(nd * nr, LANES), acc_l.view(nd * nr, LANES)
+
+
+def spmm_dia_ds_stacked_plain(data_hi: torch.Tensor, data_lo: torch.Tensor,
+                              xh2: torch.Tensor, xl2: torch.Tensor,
+                              offsets: tuple[int, ...]
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The DS block apply (the reference's ``spmm_dia_ds_xla``, :541): the
+    single-RHS DS apply on each column of the SpMM lane layout, data hi/lo
+    (D, R, K*128), x hi/lo (D*R, nrhs*128) -> (yh, yl) (D*R, nrhs*128). The
+    plain version of the ``dia_ds_spmm`` kernel."""
+    outs = [spmv_dia_ds_stacked_plain(data_hi, data_lo, h, lo, offsets)
+            for h, lo in zip(columns(xh2), columns(xl2))]
+    return from_columns([o[0] for o in outs]), from_columns([o[1] for o in outs])
+
+
+def spmm_dia_ds_2d(a: DiaDsMatrix, xh2: torch.Tensor, xl2: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Double-single block apply in the SpMM lane layout: (hi, lo) x blocks
+    (nrows_pad/128, nrhs*128) -> (hi, lo) y blocks, both matrix planes read
+    once for the block."""
+    from spmv_torch.ops.spmv_dia_ds_cuda import spmm_dia_ds_stacked
+
+    return spmm_dia_ds_stacked(a.data_hi.unsqueeze(0), a.data_lo.unsqueeze(0),
+                               xh2, xl2, a.offsets)
 
 
 def spmv_dia_ds_2d(a: DiaDsMatrix, xh2: torch.Tensor, xl2: torch.Tensor

@@ -2,13 +2,16 @@
 ``csrc/spmv_dia_ds.cu``.
 
 Counterpart of ``spmv_tpu.ops.spmv_dia_ds_pallas``: ``dia_ds_spmv``
-replaces ``_dia_ds_kernel``. D stacked shards take one launch; vectors stay
-in the (rows, 128) lane layout as hi/lo float32 pairs.
+replaces ``_dia_ds_kernel`` and ``dia_ds_spmm`` (``csrc/spmm_dia_ds.cu``)
+replaces ``_dia_ds_mrhs_kernel``. D stacked shards take one launch; vectors
+stay in the (rows, 128) lane layout, blocks in the SpMM lane layout
+(rows, nrhs*128), as hi/lo float32 pairs.
 
 A CPU tensor takes the plain torch version (``ops/spmv_dia_ds.py``); a CUDA
-tensor launches the kernel or raises. ``launches["dia_ds"]`` counts kernel
-launches (one per call on a CUDA tensor, none on the plain path), so a run
-can show that its path went through the kernel.
+tensor launches the kernel or raises. ``launches["dia_ds"]`` and
+``launches["dia_ds_spmm"]`` count kernel launches (one per call on a CUDA
+tensor, none on the plain path), so a run can show that its path went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -16,10 +19,13 @@ import numpy as np
 import torch
 
 from spmv_torch.formats.dia import LANES
-from spmv_torch.ops.spmv_dia_cuda import MAX_DIAGS
-from spmv_torch.ops.spmv_dia_ds import spmv_dia_ds_stacked_plain
+from spmv_torch.ops.spmv_dia_cuda import MAX_DIAGS, _lanes_ok
+from spmv_torch.ops.spmv_dia_ds import (
+    spmm_dia_ds_stacked_plain,
+    spmv_dia_ds_stacked_plain,
+)
 
-launches = {"dia_ds": 0}
+launches = {"dia_ds": 0, "dia_ds_spmm": 0}
 
 
 def reset_launches() -> None:
@@ -27,7 +33,7 @@ def reset_launches() -> None:
         launches[key] = 0
 
 
-def _check(data_hi, data_lo, xh2, xl2, offsets) -> None:
+def _check(data_hi, data_lo, xh2, xl2, offsets, block: bool = False) -> None:
     ops = (data_hi, data_lo, xh2, xl2)
     devs = {t.device for t in ops}
     if len(devs) != 1:
@@ -43,8 +49,10 @@ def _check(data_hi, data_lo, xh2, xl2, offsets) -> None:
                          f"{tuple(data_hi.shape)} and {tuple(data_lo.shape)}")
     nd, nr = data_hi.shape[0], data_hi.shape[1]
     for x in (xh2, xl2):
-        if tuple(x.shape) != (nd * nr, LANES):
-            raise ValueError(f"x hi/lo must be ({nd * nr}, 128), got {tuple(x.shape)}")
+        if (x.dim() != 2 or x.shape != xh2.shape or x.shape[0] != nd * nr
+                or not _lanes_ok(x.shape[1], block)):
+            raise ValueError(f"x hi/lo must be ({nd * nr}, "
+                             f"{'nrhs*' if block else ''}128), got {tuple(x.shape)}")
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("DS DIA apply takes contiguous operands")
 
@@ -76,4 +84,35 @@ def spmv_dia_ds_stacked(data_hi: torch.Tensor, data_lo: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"dia_ds_spmv launch failed: CUDA error {rc}")
     launches["dia_ds"] += 1
+    return yh, yl
+
+
+def spmm_dia_ds_stacked(data_hi: torch.Tensor, data_lo: torch.Tensor,
+                        xh2: torch.Tensor, xl2: torch.Tensor,
+                        offsets: tuple[int, ...]
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stacked-shard DS block apply (``dia_ds_spmm``, replacing
+    ``_dia_ds_mrhs_kernel``), one launch for all D shards and columns:
+    data hi/lo (D, R, K*128), x hi/lo (D*R, nrhs*128) in the SpMM lane
+    layout -> (yh, yl) (D*R, nrhs*128)."""
+    _check(data_hi, data_lo, xh2, xl2, offsets, block=True)
+    if xh2.device.type == "cpu":
+        return spmm_dia_ds_stacked_plain(data_hi, data_lo, xh2, xl2, offsets)
+    if xh2.device.type != "cuda":
+        raise RuntimeError(f"no DS DIA SpMM kernel for device {xh2.device}")
+    from spmv_torch._build import load_library
+
+    lib = load_library()
+    nd, nr = data_hi.shape[0], data_hi.shape[1]
+    yh, yl = torch.empty_like(xh2), torch.empty_like(xl2)
+    offs = np.ascontiguousarray(offsets, dtype=np.int64)
+    with torch.cuda.device(xh2.device):
+        stream = torch.cuda.current_stream(xh2.device).cuda_stream
+        rc = lib.dia_ds_spmm(data_hi.data_ptr(), data_lo.data_ptr(),
+                             xh2.data_ptr(), xl2.data_ptr(), yh.data_ptr(),
+                             yl.data_ptr(), nr * LANES, len(offsets),
+                             offs.ctypes.data, xh2.shape[1] // LANES, nd, stream)
+    if rc != 0:
+        raise RuntimeError(f"dia_ds_spmm launch failed: CUDA error {rc}")
+    launches["dia_ds_spmm"] += 1
     return yh, yl

@@ -68,14 +68,16 @@ def spmv_well(a: WellMatrix, x: torch.Tensor) -> torch.Tensor:
 def far_add(y: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
             vals: torch.Tensor, x: torch.Tensor) -> None:
     """y[s, rows[s]] += vals[s] * x[s, cols[s]] in place for every shard s
-    of a compact-COO far remainder: y (D, R), x (D, C), the rest (D, F).
+    of a compact-COO far remainder: y (D, R), x (D, C), the rest (D, F);
+    a block y (D, R, nrhs), x (D, C, nrhs) takes every column at once.
     ``index_add_`` sums with atomics on the card, so the order (and the
     last bits) may change from run to run."""
     nd = rows.shape[0]
+    tail = x.shape[2:]
     shard = torch.arange(nd, device=rows.device)[:, None]
-    src = vals * x.reshape(-1)[(cols + shard * x.shape[1]).reshape(-1)].reshape(nd, -1)
-    y.view(-1).index_add_(0, (rows + shard * y.shape[1]).reshape(-1),
-                          src.reshape(-1))
+    xg = x.reshape(-1, *tail)[(cols + shard * x.shape[1]).reshape(-1)]
+    src = vals.reshape(-1, *(1,) * len(tail)) * xg
+    y.view(-1, *tail).index_add_(0, (rows + shard * y.shape[1]).reshape(-1), src)
 
 
 def spmv_well_sym(a: SymWellMatrix, x: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from spmv_torch.formats.well import LANES
+from spmv_torch.ops.spmv_dia_cuda import _lanes_ok
 from spmv_torch.ops.spmv_well import spmv_well_stacked_plain
 
 launches = {"well": 0}
@@ -24,7 +25,7 @@ def reset_launches() -> None:
         launches[key] = 0
 
 
-def _check(values, pos, w0, x2, tile_groups: int) -> int:
+def _check(values, pos, w0, x2, tile_groups: int, block: bool = False) -> int:
     """Validate the stacked operands; returns col_pad (x entries per shard)."""
     devs = {t.device for t in (values, pos, w0, x2)}
     if len(devs) != 1:
@@ -46,9 +47,9 @@ def _check(values, pos, w0, x2, tile_groups: int) -> int:
     if tuple(w0.shape) != (nd, g // tile_groups):
         raise ValueError(f"w0 must be ({nd}, {g // tile_groups}), got "
                          f"{tuple(w0.shape)}")
-    if x2.dim() != 2 or x2.shape[1] != LANES or x2.shape[0] % nd:
-        raise ValueError(f"x must be (D*col_pad/128, 128) for D={nd}, got "
-                         f"{tuple(x2.shape)}")
+    if x2.dim() != 2 or not _lanes_ok(x2.shape[1], block) or x2.shape[0] % nd:
+        raise ValueError(f"x must be (D*col_pad/128, {'nrhs*' if block else ''}128) "
+                         f"for D={nd}, got {tuple(x2.shape)}")
     if not all(t.is_contiguous() for t in (values, pos, w0, x2)):
         raise ValueError("WELL apply takes contiguous operands")
     return x2.shape[0] // nd * LANES

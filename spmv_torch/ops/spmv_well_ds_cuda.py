@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from spmv_torch.formats.well import LANES
+from spmv_torch.ops.spmv_dia_cuda import _lanes_ok
 from spmv_torch.ops.spmv_well_ds import spmv_well_ds_stacked_plain
 
 launches = {"well_ds": 0}
@@ -25,7 +26,8 @@ def reset_launches() -> None:
         launches[key] = 0
 
 
-def _check(values_hi, values_lo, pos, w0, xh2, xl2, tile_groups: int) -> int:
+def _check(values_hi, values_lo, pos, w0, xh2, xl2, tile_groups: int,
+           block: bool = False) -> int:
     """Validate the stacked operands; returns col_pad (x entries per shard)."""
     ops = (values_hi, values_lo, pos, w0, xh2, xl2)
     devs = {t.device for t in ops}
@@ -52,8 +54,10 @@ def _check(values_hi, values_lo, pos, w0, xh2, xl2, tile_groups: int) -> int:
         raise ValueError(f"w0 must be ({nd}, {g // tile_groups}), got "
                          f"{tuple(w0.shape)}")
     for x in (xh2, xl2):
-        if x.dim() != 2 or x.shape[1] != LANES or x.shape[0] % nd or x.shape != xh2.shape:
-            raise ValueError(f"x hi/lo must be (D*col_pad/128, 128) for D={nd}, "
+        if (x.dim() != 2 or not _lanes_ok(x.shape[1], block) or x.shape[0] % nd
+                or x.shape != xh2.shape):
+            raise ValueError(f"x hi/lo must be (D*col_pad/128, "
+                             f"{'nrhs*' if block else ''}128) for D={nd}, "
                              f"got {tuple(xh2.shape)} and {tuple(xl2.shape)}")
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("DS WELL apply takes contiguous operands")

@@ -12,6 +12,9 @@ tensor (as the reference stores them, ``dist_matrix.py:3-8``), so a round
 is ``torch.roll(buf, d, dims=0)`` and the reverse round rolls by -d.
 torch has no drop/fill scatter mode, so padding slots are redirected to a
 spare column before each scatter or gather and dropped afterwards.
+``halo_gather`` and ``halo_scatter_add`` also move a block of nrhs columns
+(a trailing axis) in one set per round, as the reference's
+``_plan_gather`` / ``_plan_scatter_add`` do for ``matmat``.
 ``halo_scatter_add_ds`` is the error-free double-single reverse exchange
 of the symmetric "well_ds" operator.
 """
@@ -129,8 +132,18 @@ def _spare_slot(pos: torch.Tensor, nghost_pad: int) -> torch.Tensor:
     return torch.where(pos == int(OOB), nghost_pad, pos)
 
 
+def expand_index(idx: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (D, S) index broadcast over ``like``'s trailing axes (the nrhs
+    axis of a block), as torch.gather / scatter want it; unchanged for
+    (D, n) vectors."""
+    tail = like.shape[2:]
+    if not tail:
+        return idx
+    return idx.reshape(*idx.shape, *(1,) * len(tail)).expand(*idx.shape, *tail)
+
+
 def halo_gather(
-    x: torch.Tensor,         # (D, nlocal_pad) owned values, stacked shards
+    x: torch.Tensor,         # (D, nlocal_pad[, nrhs]) owned values, stacked shards
     send_idx: torch.Tensor,  # (D, R, S)
     recv_pos: torch.Tensor,  # (D, R, S)
     rounds: tuple[int, ...],
@@ -139,34 +152,39 @@ def halo_gather(
     """Forward halo exchange: build every shard's ghost buffer from the
     owners. Per round, each shard gathers its send values, the buffer rolls
     by d along the shard axis (shard src's values reach (src+d) % D), and
-    the receiver places them at its ghost positions. Returns (D, nghost_pad).
+    the receiver places them at its ghost positions. Returns (D, nghost_pad)
+    for a vector; a block x (D, nlocal_pad, nrhs) moves whole, one gather
+    per round for every column, and gives (D, nghost_pad, nrhs).
     """
     nd = x.shape[0]
-    g = torch.zeros((nd, nghost_pad + 1), dtype=x.dtype, device=x.device)
+    g = torch.zeros((nd, nghost_pad + 1, *x.shape[2:]), dtype=x.dtype,
+                    device=x.device)
     for i, d in enumerate(rounds):
-        buf = torch.gather(x, 1, send_idx[:, i])
+        buf = torch.gather(x, 1, expand_index(send_idx[:, i], x))
         buf = torch.roll(buf, d, dims=0)
-        g.scatter_(1, _spare_slot(recv_pos[:, i], nghost_pad), buf)
+        g.scatter_(1, expand_index(_spare_slot(recv_pos[:, i], nghost_pad), x), buf)
     return g[:, :nghost_pad]
 
 
 def halo_scatter_add(
-    gz: torch.Tensor,        # (D, nghost_pad) ghost-slot contributions
-    y: torch.Tensor,         # (D, nlocal_pad) owned accumulator
+    gz: torch.Tensor,        # (D, nghost_pad[, nrhs]) ghost-slot contributions
+    y: torch.Tensor,         # (D, nlocal_pad[, nrhs]) owned accumulator
     send_idx: torch.Tensor,
     recv_pos: torch.Tensor,
     rounds: tuple[int, ...],
 ) -> torch.Tensor:
     """Reverse halo exchange: route ghost-slot contributions back to their
-    owners and accumulate into the owned entries (scatter-add). Padding
-    slots read 0 and add it at index 0. On CUDA the scatter-add uses
-    atomics, so its summation order is not fixed; on the CPU it is."""
-    nd, nghost_pad = gz.shape
-    gz_ext = torch.cat([gz, gz.new_zeros((nd, 1))], dim=1)
+    owners and accumulate into the owned entries (scatter-add); a block
+    moves whole, one set per round. Padding slots read 0 and add it at
+    index 0. On CUDA the scatter-add uses atomics, so its summation order
+    is not fixed; on the CPU it is."""
+    nd, nghost_pad = gz.shape[:2]
+    gz_ext = torch.cat([gz, gz.new_zeros((nd, 1, *gz.shape[2:]))], dim=1)
     for i, d in enumerate(rounds):
-        buf = torch.gather(gz_ext, 1, _spare_slot(recv_pos[:, i], nghost_pad))
+        buf = torch.gather(gz_ext, 1, expand_index(
+            _spare_slot(recv_pos[:, i], nghost_pad), gz))
         buf = torch.roll(buf, -d, dims=0)
-        y = y.scatter_add(1, send_idx[:, i], buf)
+        y = y.scatter_add(1, expand_index(send_idx[:, i], y), buf)
     return y
 
 

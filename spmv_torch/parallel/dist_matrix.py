@@ -18,6 +18,11 @@ column contributions return to their owners through the reverse plan. The
 symmetric WELL form ("dual-WELL") also stores the local block's transpose
 as a second WELL stack, so its local apply is two gather launches plus the
 diagonal product, with no scatter.
+
+``matmat`` / ``matmat_ds`` apply a block of nrhs vectors in the SpMM lane
+layout (D*pad/128, nrhs*128): the local block runs a block kernel that
+reads the matrix once for the whole block, and the halo moves the block
+whole, one gather (and one reverse set) per round for every column.
 """
 from __future__ import annotations
 
@@ -31,14 +36,18 @@ from spmv_torch.ds import ds_add, ds_from_f64, ds_mul_f32
 from spmv_torch.formats.csr import CSRHost
 from spmv_torch.formats.dia import LANES, host_dtype
 from spmv_torch.formats.well import _build_arrays, _pack, split_window
+from spmv_torch.ops.spmm_dia import spmm_from_layout, to_lanes
+from spmv_torch.ops.spmm_dia_cuda import spmm_dia_stacked
+from spmv_torch.ops.spmm_well_cuda import spmm_well_ds_stacked, spmm_well_stacked
 from spmv_torch.ops.spmv_dia_cuda import MAX_DIAGS, spmv_dia_stacked
-from spmv_torch.ops.spmv_dia_ds_cuda import spmv_dia_ds_stacked
+from spmv_torch.ops.spmv_dia_ds_cuda import spmm_dia_ds_stacked, spmv_dia_ds_stacked
 from spmv_torch.ops.spmv_well import far_add
 from spmv_torch.ops.spmv_well_cuda import spmv_well_stacked
 from spmv_torch.ops.spmv_well_ds_cuda import spmv_well_ds_stacked
 from spmv_torch.parallel.comm_plan import (
     CommPlan,
     compile_plan,
+    expand_index,
     halo_gather,
     halo_scatter_add,
     halo_scatter_add_ds,
@@ -232,6 +241,62 @@ class DistMatrix:
                              "'well_ds'")
         return _stacked_mult_ds(self, xh, xl)
 
+    # ----- block (multi-RHS) layout and apply -----
+    def to_dist_block(self, x_global: np.ndarray) -> torch.Tensor:
+        """Scatter a host (n, nrhs) column block into the stacked SpMM lane
+        layout (D*pad/128, nrhs*128) on this matrix's device: element
+        (i, r*128 + j) is flat element i*128 + j of column r on the owning
+        shard."""
+        n, nrhs = x_global.shape
+        ranges = owner_ranges(self.nrows_global, self.n_devices)
+        out = np.zeros((self.n_devices, self.row_pad, nrhs), dtype=x_global.dtype)
+        for s in range(self.n_devices):
+            r0, r1 = int(ranges[s]), int(ranges[s + 1])
+            out[s, : r1 - r0] = x_global[r0:r1]
+        return _block_to_lanes(torch.as_tensor(out, device=self.device))
+
+    def from_dist_block(self, x: torch.Tensor) -> np.ndarray:
+        """Gather the stacked SpMM lane layout back to a host (n, nrhs)
+        block."""
+        nrhs = x.shape[1] // LANES
+        ranges = owner_ranges(self.nrows_global, self.n_devices)
+        mat = _lanes_to_block(x.detach(), self.n_devices, nrhs).cpu().numpy()
+        return np.concatenate(
+            [mat[s, : int(ranges[s + 1] - ranges[s])] for s in range(self.n_devices)]
+        )
+
+    def matmat(self, x: torch.Tensor) -> torch.Tensor:
+        """Y = A X for a block of nrhs vectors: x and y in the stacked SpMM
+        lane layout (D*pad/128, nrhs*128). The local block runs a block
+        kernel, which reads the matrix once for the whole block ("dia":
+        ``dia_spmm``, symmetric ``dia_sym_spmm``; "well": ``well_spmm``,
+        twice for the symmetric dual-WELL form); "ell" applies its local
+        ELL to every column. The halo moves the block whole (one gather per
+        round, and one reverse set for symmetric operators), and the
+        remote, far and diagonal terms take every column at once."""
+        if self.local_format.endswith("_ds"):
+            raise ValueError("double-single operators apply blocks via "
+                             "matmat_ds (hi/lo pair blocks)")
+        return _stacked_matmat(self, x)
+
+    def matmat_ds(self, xh: torch.Tensor, xl: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Double-single block apply ("dia_ds", vanilla "well_ds"): (xh, xl)
+        float32 pair blocks in the stacked SpMM lane layout -> (yh, yl).
+        The local DS block kernel reads both matrix planes once for the
+        block; the halo moves each plane as one block gather per round; the
+        far and remote chains run error-free float32 arithmetic on every
+        column."""
+        if self.local_format not in ("dia_ds", "well_ds"):
+            raise ValueError(
+                "matmat_ds requires local_format 'dia_ds' or 'well_ds'")
+        if self.local_format == "well_ds" and self.symmetric:
+            raise ValueError(
+                "matmat_ds: symmetric well_ds blocks apply per column via "
+                "matvec_ds; build the operator non-symmetric for block "
+                "refinement")
+        return _stacked_matmat_ds(self, xh, xl)
+
     def as_linear_operator(self):
         """Closure for solvers: matvec on the stacked padded layout."""
         return lambda p: self.matvec(p)
@@ -355,16 +420,120 @@ def _stacked_mult_ds(A: DistMatrix, xh2: torch.Tensor, xl2: torch.Tensor
     return tuple(t.reshape(nd * A.row_lane_rows, LANES) for t in y)
 
 
+def _lanes_to_block(x2: torch.Tensor, nd: int, nrhs: int) -> torch.Tensor:
+    """The stacked SpMM lane layout (D*n/128, nrhs*128) -> per-shard
+    columns (D, n, nrhs)."""
+    return spmm_from_layout(x2, nrhs).reshape(nd, -1, nrhs)
+
+
+def _block_to_lanes(y: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``_lanes_to_block``: (D, n, nrhs) -> (D*n/128, nrhs*128)."""
+    return to_lanes(y.reshape(-1, y.shape[2]))
+
+
+def _stacked_matmat(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
+    """All shards' Y = A_s @ X at once (the reference's ``matmat``), its
+    terms in ``_stacked_mult``'s order. Every term past the local kernel
+    works on the (D, pad, nrhs) column view; a block with no such term (one
+    shard, no far remainder, vanilla or symmetric DIA) is the kernel's
+    output as it is."""
+    nd, plan = A.n_devices, A.plan
+    nrhs = x2.shape[1] // LANES
+    have_ghosts = plan.nghost_pad > 0 and len(plan.rounds) > 0
+    if A.local_format == "dia":
+        y2 = spmm_dia_stacked(A.local_dia_data, x2, A.dia_offsets, A.symmetric)
+    elif A.local_format == "well":
+        y2 = spmm_well_stacked(A.local_well_values, A.local_well_pos,
+                               A.local_well_w0, x2, A.well_meta[2])
+    else:
+        y2 = None
+    if y2 is not None and not (have_ghosts or A.far_rows is not None
+                               or (A.symmetric and A.local_format == "well")):
+        return y2
+    x = _lanes_to_block(x2, nd, nrhs)
+    if y2 is None:
+        y = _ell_apply(A.local_colind, A.local_values, x)
+    else:
+        y = _lanes_to_block(y2, nd, nrhs)
+    if A.far_rows is not None:
+        far_add(y, A.far_rows, A.far_cols, A.far_vals, x)
+    if have_ghosts:
+        # the block halo: one gather per round for every column
+        ghosts = halo_gather(x, plan.send_idx, plan.recv_pos, plan.rounds,
+                             plan.nghost_pad)
+        y = y + _ell_apply(A.remote_colind, A.remote_values, ghosts)
+    if A.symmetric:
+        if A.local_format == "well":
+            # dual-WELL: a second block launch over the transpose stack
+            y = y + _lanes_to_block(spmm_well_stacked(
+                A.local_wellT_values, A.local_wellT_pos, A.local_wellT_w0, x2,
+                A.wellT_meta[2]), nd, nrhs)
+            y = y + A.diagonal[:, :, None] * x
+            if A.farT_rows is not None:
+                far_add(y, A.farT_rows, A.farT_cols, A.farT_vals, x)
+        elif A.local_format != "dia":
+            y = y + A.diagonal[:, :, None] * x
+            contrib = A.local_values[..., None] * x[:, :, None, :]
+            y = y.scatter_add(1, expand_index(A.local_colind.reshape(nd, -1), y),
+                              contrib.reshape(nd, -1, nrhs))
+        if have_ghosts:
+            # ghost-column contributions of every column, one reverse set
+            gcontrib = (A.remote_values[..., None] * x[:, :, None, :]).reshape(
+                nd, -1, nrhs)
+            gz = x.new_zeros((nd, plan.nghost_pad, nrhs)).scatter_add(
+                1, expand_index(A.remote_colind.reshape(nd, -1), gcontrib), gcontrib)
+            y = halo_scatter_add(gz, y, plan.send_idx, plan.recv_pos, plan.rounds)
+    return _block_to_lanes(y)
+
+
+def _stacked_matmat_ds(A: DistMatrix, xh2: torch.Tensor, xl2: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """All shards' (Yh, Yl) = A_s @ (Xh, Xl) at once (the reference's
+    ``matmat_ds``): the DS block kernel, then (well_ds) the far chain and
+    the remote chain, each error-free on every column, in
+    ``_stacked_mult_ds``'s order, so column r equals ``matvec_ds`` of
+    column r bit for bit."""
+    nd, plan = A.n_devices, A.plan
+    nrhs = xh2.shape[1] // LANES
+    have_ghosts = plan.nghost_pad > 0 and len(plan.rounds) > 0
+    if A.local_format == "well_ds":
+        y = spmm_well_ds_stacked(A.local_well_values, A.local_well_values_lo,
+                                 A.local_well_pos, A.local_well_w0, xh2, xl2,
+                                 A.well_meta[2])
+    else:
+        y = spmm_dia_ds_stacked(A.local_dia_data, A.local_dia_data_lo, xh2, xl2,
+                                A.dia_offsets)
+    has_far = A.local_format == "well_ds" and A.well_far_nnz > 0
+    if not (have_ghosts or has_far):
+        return y
+    xh, xl = (_lanes_to_block(t, nd, nrhs) for t in (xh2, xl2))
+    y = tuple(_lanes_to_block(t, nd, nrhs) for t in y)
+    if has_far:
+        y = ds_add(*y, *_ell_ds_term(A.local_colind, A.local_values,
+                                     A.local_values_lo, xh, xl))
+    if have_ghosts:
+        # the block halo per plane: one gather per round for every column
+        gh, gl = (halo_gather(t, plan.send_idx, plan.recv_pos, plan.rounds,
+                              plan.nghost_pad) for t in (xh, xl))
+        y = ds_add(*y, *_ell_ds_term(A.remote_colind, A.remote_values,
+                                     A.remote_values_lo, gh, gl))
+    return tuple(_block_to_lanes(t) for t in y)
+
+
 def _ell_ds_term(colind: torch.Tensor, vh: torch.Tensor, vl: torch.Tensor,
                  src_h: torch.Tensor, src_l: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-shard ELL product in DS arithmetic: colind/values (D, R, K),
-    src (D, n) -> (D, R) pair, accumulated slot by slot from (0, 0)."""
+    src (D, n) -> (D, R) pair, accumulated slot by slot from (0, 0); a
+    block src (D, n, nrhs) gives (D, R, nrhs), each column the same chain."""
     nd, r, k = colind.shape
-    idx = colind.reshape(nd, r * k)
-    gh = torch.gather(src_h, 1, idx).reshape(nd, r, k)
-    gl = torch.gather(src_l, 1, idx).reshape(nd, r, k)
-    acc = (src_h.new_zeros((nd, r)), src_h.new_zeros((nd, r)))
+    tail = src_h.shape[2:]
+    idx = expand_index(colind.reshape(nd, r * k), src_h)
+    gh = torch.gather(src_h, 1, idx).reshape(nd, r, k, *tail)
+    gl = torch.gather(src_l, 1, idx).reshape(nd, r, k, *tail)
+    if tail:
+        vh, vl = vh[..., None], vl[..., None]
+    acc = (src_h.new_zeros((nd, r, *tail)), src_h.new_zeros((nd, r, *tail)))
     for kk in range(k):
         acc = ds_add(*acc, *ds_mul_f32(vh[:, :, kk], vl[:, :, kk],
                                        gh[:, :, kk], gl[:, :, kk]))
@@ -373,9 +542,14 @@ def _ell_ds_term(colind: torch.Tensor, vh: torch.Tensor, vl: torch.Tensor,
 
 def _ell_apply(colind: torch.Tensor, values: torch.Tensor,
                src: torch.Tensor) -> torch.Tensor:
-    """Per-shard ELL product: colind/values (D, R, K), src (D, n) -> (D, R)."""
+    """Per-shard ELL product: colind/values (D, R, K), src (D, n) -> (D, R);
+    a block src (D, n, nrhs) gives (D, R, nrhs)."""
     nd, r, k = colind.shape
-    g = torch.gather(src, 1, colind.reshape(nd, r * k)).reshape(nd, r, k)
+    tail = src.shape[2:]
+    g = torch.gather(src, 1, expand_index(colind.reshape(nd, r * k), src))
+    g = g.reshape(nd, r, k, *tail)
+    if tail:
+        return (values[..., None] * g).sum(2)
     return (values * g).sum(-1)
 
 

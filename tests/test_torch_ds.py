@@ -319,7 +319,7 @@ def test_wrappers_take_plain_path_on_cpu():
         w.values_hi.unsqueeze(0), w.values_lo.unsqueeze(0), w.pos.unsqueeze(0),
         w.w0.unsqueeze(0), xh2, xl2, w.tile_groups)
     assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
-    assert spmv_dia_ds_cuda.launches == {"dia_ds": 0}
+    assert spmv_dia_ds_cuda.launches == {"dia_ds": 0, "dia_ds_spmm": 0}
     assert spmv_well_ds_cuda.launches == {"well_ds": 0}
 
 

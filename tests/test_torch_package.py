@@ -24,17 +24,28 @@ from spmv_torch import _build
 from spmv_torch.formats.dia import csr_to_dia
 from spmv_torch.gen import create_laplace_2d
 from spmv_torch.ops import (
+    spmm_dia_cuda,
+    spmm_well_cuda,
     spmv_dia_cuda,
     spmv_dia_ds_cuda,
     spmv_well_cuda,
     spmv_well_ds_cuda,
 )
+from spmv_torch.ops.spmm_dia import columns, spmm_dia_stacked_plain
+from spmv_torch.ops.spmm_well import (
+    spmm_well_ds_stacked_plain,
+    spmm_well_stacked_plain,
+)
 from spmv_torch.ops.spmv_dia import spmv_dia_stacked_plain
-from spmv_torch.ops.spmv_dia_ds import spmv_dia_ds_stacked_plain
+from spmv_torch.ops.spmv_dia_ds import (
+    spmm_dia_ds_stacked_plain,
+    spmv_dia_ds_stacked_plain,
+)
 from spmv_torch.ops.spmv_well import spmv_well_stacked_plain
 from spmv_torch.ops.spmv_well_ds import csr_to_well_ds, spmv_well_ds_stacked_plain
 
-COUNTERS = (spmv_dia_cuda, spmv_well_cuda, spmv_dia_ds_cuda, spmv_well_ds_cuda)
+COUNTERS = (spmv_dia_cuda, spmv_well_cuda, spmv_dia_ds_cuda, spmv_well_ds_cuda,
+            spmm_dia_cuda, spmm_well_cuda)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "spmv_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -182,7 +193,8 @@ def test_library_path_tracks_sources():
     assert p.parent == _build.BUILD_DIR and p.name.startswith("lib")
     assert p == _build.library_path()
     for src in ("spmv_dia.cu", "spmv_well.cu", "spmv_dia_ds.cu",
-                "spmv_well_ds.cu", "ds.cuh"):
+                "spmv_well_ds.cu", "ds.cuh", "spmm_dia.cu", "spmm_dia_ds.cu",
+                "spmm_well.cu"):
         assert (_build.CSRC / src).exists()
 
 
@@ -222,14 +234,23 @@ def test_ds_chain_cannot_be_contracted():
     for body in bodies:
         assert "+" not in body and "*" not in body, body
         assert body.replace("fmaf(a.hi, b.hi, -p)", "").count("-") == 0, body
-    for src in ("spmv_dia_ds.cu", "spmv_well_ds.cu"):
+    # the single-RHS DS kernels and the block ones (an accumulator per column)
+    allowed = (r"Ds acc = \{0\.0f, 0\.0f\};", r"Ds acc\[NR\];",
+               r"for \(int c = 0; c < NR; \+\+c\) acc\[c\] = \{0\.0f, 0\.0f\};",
+               r"acc = ds_add\(acc, ds_mul_f32\(.*", r"acc\[c\] = ds_add\(acc\[c\], ds_mul_f32\(.*",
+               r"y[hl]\[.*\] = acc(\[c\])?\.(hi|lo);")
+    for src, kernel in (("spmv_dia_ds.cu", "dia_ds_spmv_kernel"),
+                        ("spmv_well_ds.cu", "well_ds_spmv_kernel"),
+                        ("spmm_dia_ds.cu", "dia_ds_spmm_kernel"),
+                        ("spmm_well.cu", "well_ds_spmm_kernel")):
         code = _code(_build.CSRC / src)
         assert '#include "ds.cuh"' in code
-        acc_lines = [ln.strip() for ln in code.splitlines() if "acc" in ln]
-        assert "acc = ds_add(acc, ds_mul_f32(" in "\n".join(acc_lines)
+        body = re.search(rf"__global__ void {kernel}\(.*?\n\}}\n", code, flags=re.S)
+        assert body is not None, (src, kernel)
+        acc_lines = [ln.strip() for ln in body.group(0).splitlines() if "acc" in ln]
+        assert any("ds_add(acc" in ln for ln in acc_lines), (src, acc_lines)
         for ln in acc_lines:
-            assert ("ds_add(acc, ds_mul_f32(" in ln or ln.startswith("Ds acc =")
-                    or re.fullmatch(r"y[hl]\[.*\] = acc\.(hi|lo);", ln)), ln
+            assert any(re.fullmatch(p, ln) for p in allowed), (src, ln)
     flags = " ".join(_build.NVCC_FLAGS)
     assert "fast_math" not in flags and "fast-math" not in flags
 
@@ -461,3 +482,199 @@ def test_dist_matrix_ds_runs_through_kernels_on_cuda(cuda):
         assert np.linalg.norm(got - want) < 1e-13 * np.linalg.norm(want)
     assert spmv_dia_ds_cuda.launches["dia_ds"] == 1
     assert spmv_well_ds_cuda.launches["well_ds"] == 2  # L and L^T
+
+
+# ----- the block (SpMM) kernels -----
+
+def _spmm_dia_args(rng, dtype, symmetric, nrhs, device, nd=3, nr=40):
+    offs = (-301, -37, -5, -1, 0) if symmetric else (-301, -37, -1, 0, 1, 37, 301)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    data = torch.as_tensor(rng.standard_normal((nd, nr, len(offs) * 128)).astype(npdt),
+                           device=device)
+    x2 = torch.as_tensor(rng.standard_normal((nd * nr, nrhs * 128)).astype(npdt),
+                         device=device)
+    return data, x2, offs
+
+
+def _spmm_well_args(rng, dtype, pos_dtype, nrhs, device, planes=1):
+    nd, k, g, tg, col_pad = 3, 5, 32, 8, 64 * 128
+    values = [torch.as_tensor(rng.standard_normal((nd, k, g, 128)), dtype=dtype,
+                              device=device) for _ in range(planes)]
+    pos = torch.as_tensor(rng.integers(0, 24 * 128, (nd, k, g, 128)),
+                          dtype=pos_dtype, device=device)
+    w0 = torch.as_tensor(rng.integers(0, 5, (nd, g // tg)) * 8, dtype=torch.int32,
+                         device=device)
+    xs = [torch.as_tensor(rng.standard_normal((nd * col_pad // 128, nrhs * 128)),
+                          dtype=dtype, device=device) for _ in range(planes)]
+    if planes == 2:  # DS: small lo planes
+        values[1] = values[1] * 1e-8
+        xs[1] = xs[1] * 1e-8
+    return values, pos, w0, xs, tg
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_spmm_wrappers_take_plain_path_on_cpu(symmetric):
+    """On CPU tensors every block wrapper returns its plain version's
+    result, column r equal to the single-RHS plain apply of column r, and
+    launches nothing."""
+    rng = np.random.default_rng(31)
+    data, x2, offs = _spmm_dia_args(rng, torch.float64, symmetric, 3, "cpu", nr=8)
+    y = spmm_dia_cuda.spmm_dia_stacked(data, x2, offs, symmetric)
+    assert torch.equal(y, spmm_dia_stacked_plain(data, x2, offs, symmetric))
+    for c, yc in zip(columns(x2), columns(y)):
+        assert torch.equal(yc, spmv_dia_stacked_plain(data, c, offs, symmetric))
+    (v,), pos, w0, (x,), tg = _spmm_well_args(rng, torch.float32, torch.int16, 3, "cpu")
+    assert torch.equal(spmm_well_cuda.spmm_well_stacked(v, pos, w0, x, tg),
+                       spmm_well_stacked_plain(v, pos, w0, x, tg))
+    vs, pos, w0, xs, tg = _spmm_well_args(rng, torch.float32, torch.int32, 2, "cpu", 2)
+    got = spmm_well_cuda.spmm_well_ds_stacked(*vs, pos, w0, *xs, tg)
+    assert _bits_equal(got, spmm_well_ds_stacked_plain(*vs, pos, w0, *xs, tg))
+    for r, (h, lo) in enumerate(zip(columns(xs[0]), columns(xs[1]))):
+        one = spmv_well_ds_stacked_plain(*vs, pos, w0, h, lo, tg)
+        assert _bits_equal([columns(g)[r] for g in got], one)
+    dh, xh, offs = _spmm_dia_args(rng, torch.float32, False, 2, "cpu", nr=8)
+    planes = (dh, dh * 1e-8, xh, xh * 1e-8)
+    got = spmv_dia_ds_cuda.spmm_dia_ds_stacked(*planes, offs)
+    assert _bits_equal(got, spmm_dia_ds_stacked_plain(*planes, offs))
+    assert spmm_dia_cuda.launches == {"dia_spmm": 0, "dia_sym_spmm": 0}
+    assert spmm_well_cuda.launches == {"well_spmm": 0, "well_ds_spmm": 0}
+    assert spmv_dia_ds_cuda.launches == {"dia_ds": 0, "dia_ds_spmm": 0}
+
+
+@pytest.mark.parametrize("case,exc", [
+    ("dia_lanes", ValueError), ("dia_rows", ValueError), ("dia_dtype", TypeError),
+    ("dia_positive_sym", ValueError), ("dia_noncontiguous", ValueError),
+    ("well_lanes", ValueError), ("well_dtype", TypeError), ("well_pos", TypeError),
+    ("well_ds_f64", TypeError), ("well_ds_planes", ValueError),
+    ("dia_ds_lanes", ValueError), ("dia_ds_f64", TypeError),
+])
+def test_spmm_wrappers_reject_bad_input(case, exc):
+    rng = np.random.default_rng(32)
+    data, x2, offs = _spmm_dia_args(rng, torch.float32, True, 2, "cpu", nr=4)
+    (v,), pos, w0, (x,), tg = _spmm_well_args(rng, torch.float32, torch.int16, 2, "cpu")
+    vs, _, _, xs, _ = _spmm_well_args(rng, torch.float32, torch.int16, 2, "cpu", 2)
+    calls = {
+        "dia_lanes": lambda: spmm_dia_cuda.spmm_dia_stacked(data, x2[:, :200].contiguous(),
+                                                            offs, True),
+        "dia_rows": lambda: spmm_dia_cuda.spmm_dia_stacked(data, x2[:-1], offs, True),
+        "dia_dtype": lambda: spmm_dia_cuda.spmm_dia_stacked(data, x2.double(), offs, True),
+        "dia_positive_sym": lambda: spmm_dia_cuda.spmm_dia_stacked(
+            data[:, :, :640].contiguous(), x2, (-1, 0, 1, 2, 3), True),
+        "dia_noncontiguous": lambda: spmm_dia_cuda.spmm_dia_stacked(
+            data, torch.zeros((256, 120)).t(), offs, True),
+        "well_lanes": lambda: spmm_well_cuda.spmm_well_stacked(
+            v, pos, w0, x[:, :100].contiguous(), tg),
+        "well_dtype": lambda: spmm_well_cuda.spmm_well_stacked(v, pos, w0, x.double(), tg),
+        "well_pos": lambda: spmm_well_cuda.spmm_well_stacked(v, pos.long(), w0, x, tg),
+        "well_ds_f64": lambda: spmm_well_cuda.spmm_well_ds_stacked(
+            vs[0].double(), vs[1].double(), pos, w0, xs[0].double(), xs[1].double(), tg),
+        "well_ds_planes": lambda: spmm_well_cuda.spmm_well_ds_stacked(
+            *vs, pos, w0, xs[0], xs[1][:, :128].contiguous(), tg),
+        "dia_ds_lanes": lambda: spmv_dia_ds_cuda.spmm_dia_ds_stacked(
+            data, data, x2[:, :200].contiguous(), x2[:, :200].contiguous(), offs),
+        "dia_ds_f64": lambda: spmv_dia_ds_cuda.spmm_dia_ds_stacked(
+            data.double(), data.double(), x2.double(), x2.double(), offs),
+    }
+    with pytest.raises(exc):
+        calls[case]()
+    assert spmm_dia_cuda.launches == {"dia_spmm": 0, "dia_sym_spmm": 0}
+    assert spmm_well_cuda.launches == {"well_spmm": 0, "well_ds_spmm": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrhs", [1, 3, 8, 11])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.float64, 1e-13)])
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_dia_spmm_kernels_match_plain_on_cuda(cuda, symmetric, dtype, tol, nrhs):
+    """dia_spmm / dia_sym_spmm vs the plain version on stacked shards with
+    odd offsets, and column r bit-equal to the single-RHS kernel on column
+    r (nrhs 11 runs two chunks of columns)."""
+    rng = np.random.default_rng(33)
+    data, x2, offs = _spmm_dia_args(rng, dtype, symmetric, nrhs, cuda)
+    y = spmm_dia_cuda.spmm_dia_stacked(data, x2, offs, symmetric)
+    torch.cuda.synchronize()
+    want = spmm_dia_stacked_plain(data, x2, offs, symmetric)
+    err = float(torch.linalg.vector_norm(y - want) / torch.linalg.vector_norm(want))
+    assert err <= tol
+    assert spmm_dia_cuda.launches["dia_sym_spmm" if symmetric else "dia_spmm"] == 1
+    for c, yc in zip(columns(x2), columns(y)):
+        assert torch.equal(yc, spmv_dia_cuda.spmv_dia_stacked(data, c, offs, symmetric))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrhs", [1, 3, 8, 11])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.float64, 1e-13)])
+@pytest.mark.parametrize("pos_dtype", [torch.int16, torch.int32])
+def test_well_spmm_kernel_matches_plain_on_cuda(cuda, pos_dtype, dtype, tol, nrhs):
+    rng = np.random.default_rng(34)
+    (v,), pos, w0, (x,), tg = _spmm_well_args(rng, dtype, pos_dtype, nrhs, cuda)
+    y = spmm_well_cuda.spmm_well_stacked(v, pos, w0, x, tg)
+    torch.cuda.synchronize()
+    want = spmm_well_stacked_plain(v, pos, w0, x, tg)
+    err = float(torch.linalg.vector_norm(y - want) / torch.linalg.vector_norm(want))
+    assert err <= tol
+    assert spmm_well_cuda.launches["well_spmm"] == 1
+    for c, yc in zip(columns(x), columns(y)):
+        assert torch.equal(yc, spmv_well_cuda.spmv_well_stacked(v, pos, w0, c, tg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrhs", [1, 3, 8, 11])
+def test_ds_spmm_kernels_match_plain_on_cuda(cuda, nrhs):
+    """dia_ds_spmm and well_ds_spmm (int16 and int32 pos) vs their plain
+    versions, both planes bit for bit, and each column bit-equal to the
+    single-RHS DS kernel on that column."""
+    rng = np.random.default_rng(35)
+    dh, xh, offs = _spmm_dia_args(rng, torch.float32, False, nrhs, cuda)
+    planes = (dh, dh * 1e-8, xh, xh * 1e-8)
+    got = spmv_dia_ds_cuda.spmm_dia_ds_stacked(*planes, offs)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, spmm_dia_ds_stacked_plain(*planes, offs))
+    for r, (h, lo) in enumerate(zip(columns(planes[2]), columns(planes[3]))):
+        one = spmv_dia_ds_cuda.spmv_dia_ds_stacked(dh, planes[1], h, lo, offs)
+        assert _bits_equal([columns(g)[r] for g in got], one)
+    for pos_dtype in (torch.int16, torch.int32):
+        vs, pos, w0, xs, tg = _spmm_well_args(rng, torch.float32, pos_dtype, nrhs,
+                                              cuda, planes=2)
+        got = spmm_well_cuda.spmm_well_ds_stacked(*vs, pos, w0, *xs, tg)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, spmm_well_ds_stacked_plain(*vs, pos, w0, *xs, tg))
+        for r, (h, lo) in enumerate(zip(columns(xs[0]), columns(xs[1]))):
+            one = spmv_well_ds_cuda.spmv_well_ds_stacked(*vs, pos, w0, h, lo, tg)
+            assert _bits_equal([columns(g)[r] for g in got], one)
+    assert spmv_dia_ds_cuda.launches["dia_ds_spmm"] == 1
+    assert spmm_well_cuda.launches["well_ds_spmm"] == 2
+
+
+@pytest.mark.cuda
+def test_matmat_runs_through_block_kernels_on_cuda(cuda):
+    """DistMatrix.matmat / matmat_ds on D=4 shards launch the block kernels
+    once per apply and match the host oracle per column."""
+    from spmv_torch.ds import ds_from_f64, ds_to_f64
+    from spmv_torch.gen import random_csr
+    from spmv_torch.parallel.dist_matrix import build_dist_matrix
+
+    rng = np.random.default_rng(36)
+    lap = create_laplace_2d(64, 64)
+    gen = random_csr(900, 900, 6, seed=63)
+    X = {m.nrows: rng.standard_normal((m.nrows, 3)) for m in (lap, gen)}
+    for mat, fmt, sym, key in ((lap, "dia", True, "dia_sym_spmm"),
+                               (lap, "dia", False, "dia_spmm"),
+                               (gen, "well", False, "well_spmm")):
+        A = build_dist_matrix(mat, n_devices=4, symmetric=sym, dtype=np.float64,
+                              local_format=fmt, device=cuda)
+        before = dict(spmm_dia_cuda.launches, **spmm_well_cuda.launches)
+        Y = A.from_dist_block(A.matmat(A.to_dist_block(X[mat.nrows])))
+        after = dict(spmm_dia_cuda.launches, **spmm_well_cuda.launches)
+        assert after[key] - before[key] == 1
+        want = np.stack([mat.matvec(c) for c in X[mat.nrows].T], axis=1)
+        assert np.linalg.norm(Y - want) <= 1e-12 * np.linalg.norm(want)
+    for mat, fmt in ((lap, "dia_ds"), (gen, "well_ds")):
+        A = build_dist_matrix(mat, n_devices=4, local_format=fmt, device=cuda)
+        xh, xl = ds_from_f64(X[mat.nrows])
+        yh, yl = A.matmat_ds(A.to_dist_block(xh), A.to_dist_block(xl))
+        got = ds_to_f64(A.from_dist_block(yh), A.from_dist_block(yl))
+        want = np.stack([mat.matvec(c) for c in X[mat.nrows].T], axis=1)
+        assert np.linalg.norm(got - want) <= 1e-13 * np.linalg.norm(want)
+    assert spmv_dia_ds_cuda.launches["dia_ds_spmm"] == 1
+    assert spmm_well_cuda.launches["well_ds_spmm"] == 1
