@@ -26,20 +26,24 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   6. ms per apply of each kernel and its plain version at 3200^2 fp32
      (CUDA events, chained applies), each as a fraction of a device copy
      measured in the same run, and CG iterations/s;
-  7. the WELL kernel vs its plain torch version, fp32 and fp64: the 4M-row
-     banded-random bench matrix (bench.py:114, tile_groups 64, int16 pos),
-     a pair=True packing and an int32-pos packing (tile_groups 8) of 200k
-     rows of the same generator, D=3 stacked shards of a DistMatrix, and
-     spmv_well_sym on a matrix whose window split leaves a far remainder
-     (relative L2 <= 1e-6 fp32, <= 1e-13 fp64; fp32 also <= 2e-5 vs the
-     host f64 CSR oracle);
+  7. the WELL kernel, which reads each stack's warp-sliced row lists, vs
+     their plain torch version, fp32 and fp64 (and that plain version vs
+     the WELL formula's, bit for bit, here and wherever a single-RHS WELL
+     kernel is checked): the 4M-row banded-random bench matrix (bench.py:114,
+     tile_groups 64), a pair=True packing and a tile_groups 8 packing of
+     200k rows of the same generator, D=3 stacked shards of a DistMatrix,
+     and spmv_well_sym on a matrix whose window split leaves a far
+     remainder (relative L2 <= 1e-6 fp32, <= 1e-13 fp64; fp32 also <= 2e-5
+     vs the host f64 CSR oracle);
   8. the general-sparsity main path at full size: fem_p1_2d(800_000) ->
      rcm_reorder(keep_best=True) -> build_dist_matrix, symmetric fp32 via
      local_format="auto" (must select "well"), symmetric fp64 via "well"
      and vanilla fp32 via "well", each -> Jacobi-PCG (kmax=20000,
      rtol=1e-6); before the solves, the kernel vs its plain version on
      every stack they launch (L K=48 and L^T K=32 of both symmetric
-     operators, the vanilla stack; tolerances as in phase 7); the WELL
+     operators, the vanilla stack; tolerances as in phase 7), each also bit
+     for bit against the block kernel's column at nrhs 1, with the row
+     lists' geometry and the packer's seconds printed; the WELL
      launch counter, zeroed just before the solves, must show every apply
      went through the kernel (2 launches per symmetric apply, 1 per
      vanilla one); A x at each solution, through the kernel, must agree
@@ -57,8 +61,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      and a 30-iteration Jacobi-PCG;
  11. the double-single kernels vs their plain versions, both planes bit for
      bit: dia_ds_spmv on the 3200^2 Laplacian and a random banded D=3 stack,
-     well_ds_spmv on the 4M bench matrix (tile_groups 64, int16 pos), a
-     pair=True and an int32-pos packing of 200k rows and a D=3 stack; on
+     well_ds_spmv on the 4M bench matrix (tile_groups 64), a pair=True and
+     a tile_groups 8 packing of 200k rows and a D=3 stack; on
      values x (1 + 1e-9 N(0,1)) each also vs the host f64 CSR (<= 1e-13),
      and the fp32 kernel on the same input must miss that by 100x or more
      (the lo planes are read);
@@ -67,14 +71,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      must pick dia_ds, CG to 1e-6 (every apply a dia_ds launch, the host
      residual within 1e-8 of the reported, iterations within 1% and the
      solution within 1e-8 of a native-f64 vanilla dia solve); (b) the
-     RCM'd 800k FEM, symmetric, auto must pick well_ds, Jacobi-PCG (2
+     RCM'd 800k FEM, symmetric, auto must pick well_ds, its L and L^T
+     stacks' kernel bit for bit against plain and against the block
+     kernel's column at nrhs 1, Jacobi-PCG (2
      well_ds launches per apply, A x at the solution within 1e-12 of
      || |A| |x| ||, iterations within 2% and the solution within 1e-8 of
      phase 8's native-f64 solve);
  13. mixed-precision refinement: cg_refined_dist(dia) at 1024^2 to rtol
      1e-12 (8 outer passes at most, inner rtol 1e-6, inner kmax 20000): the
      true float64 residual <= 1e-8 and 100x below a plain fp32 CG's; then,
-     printed, cg_refined at 1024^2 and cg_refined_dist at 2048^2;
+     printed, cg_refined at 1024^2;
  14. the DS halo path on D=4 stacked shards: one matvec_ds vs the host
      oracle (<= 1e-13) for the 512^2 Laplacian (dia_ds) and the RCM'd 50k
      FEM (well_ds, vanilla and symmetric); a Jacobi cg_refined_dist(well)
@@ -110,7 +116,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      float64 for the DS kernels; the port never calls it) and the bytes
      bound at 3.35 TB/s (the H100 SXM's published HBM rate): the DIA
      kernels and dia_ds_spmv at 3200^2, spmv_well and well_ds_spmv on the
-     4M bench matrix and on the 800k FEM's lower-triangle stack; the block
+     4M bench matrix and on the 800k FEM's lower-triangle stack (with the
+     row lists' occupancy and stored bytes beside the WELL stack's); the block
      kernels at nrhs 8 (DIA and DS DIA at 3200^2, WELL and DS WELL on the
      4M matrix; the yardstick the faster of one torch CSR @ X on a
      row-major and on a column-major (n, 8) block) beside 8 x the
@@ -129,13 +136,14 @@ import warnings
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from spmv_torch import _build
 from spmv_torch.corpus import circuit_network, fem_p1_2d
 from spmv_torch.formats.csr import CSRHost
 from spmv_torch.formats.dia import csr_to_dia
 from spmv_torch.ds import ds_from_f64, ds_to_f64
-from spmv_torch.formats.well import csr_to_well, csr_to_well_sym
+from spmv_torch.formats.well import csr_to_well, csr_to_well_sym, pack_rows
 from spmv_torch.gen import create_laplace_2d, gaussian_bump
 from spmv_torch.ops import (
     spmm_dia_cuda,
@@ -158,10 +166,15 @@ from spmv_torch.ops.spmv_dia_ds import (
 )
 from spmv_torch.ops.spmv_well import (
     far_add,
+    spmv_well_rows_plain,
     spmv_well_stacked_plain,
     spmv_well_sym,
 )
-from spmv_torch.ops.spmv_well_ds import csr_to_well_ds, spmv_well_ds_stacked_plain
+from spmv_torch.ops.spmv_well_ds import (
+    csr_to_well_ds,
+    spmv_well_ds_rows_plain,
+    spmv_well_ds_stacked_plain,
+)
 from spmv_torch.parallel.dist_matrix import build_dist_matrix
 from spmv_torch.reorder import rcm_reorder
 from spmv_torch.solvers.block_cg import block_cg, block_cg_dia, block_cg_refined_dist
@@ -189,7 +202,6 @@ DS_CONTROL_MISS = 100  # the fp32 kernel on the same input misses by this x
 FEM_DS_ITER_TOL = 0.02  # DS vs native f64 FEM Jacobi-PCG iterations
 REFINE_NX = 1024     # the reference's refinement record size (BENCH_NOTES.md)
 REFINE_TOL = 1e-8    # refined true relative residual at REFINE_NX^2
-REFINE_RECORD_NX = 2048  # phase 13's printed record; below NX for run time
 NRHS_KERNEL = (1, 3, 8, 11)  # phase 15; 11 = a chunk of 8 columns and one of 3
 NRHS_WELL = (1, 8, 11)
 NRHS = 8             # the block path's width (BENCH_NOTES.md:451-455)
@@ -505,15 +517,87 @@ def scale_rows(a: CSRHost) -> None:
 
 def as_dtype(w, dt):
     """The same WellMatrix with values cast to ``dt`` (exact from fp32)."""
-    return dataclasses.replace(w, values=w.values.to(dt))
+    return dataclasses.replace(w, values=w.values.to(dt),
+                               rows_values=w.rows_values.to(dt))
 
 
-def well_compare(name, values, pos, w0, x2, tg, tol):
-    """One WELL kernel launch vs the plain version on the same inputs."""
-    y_k = spmv_well_cuda.spmv_well_stacked(values, pos, w0, x2, tg)
+def rows_args(w):
+    """A WellMatrix's (or WellDsMatrix's) row-list operands as a D=1 stack:
+    (values [hi, lo], pos, slice_ptr, w0)."""
+    planes = ((w.rows_values_hi, w.rows_values_lo) if hasattr(w, "rows_values_hi")
+              else (w.rows_values,))
+    return tuple(t.unsqueeze(0) for t in (*planes, w.rows_pos, w.slice_ptr, w.w0))
+
+
+def well_args(w):
+    """Its WELL operands as a D=1 stack: (values [hi, lo], pos, w0)."""
+    planes = ((w.values_hi, w.values_lo) if hasattr(w, "values_hi") else (w.values,))
+    return tuple(t.unsqueeze(0) for t in (*planes, w.pos, w.w0))
+
+
+def dist_rows(A, tag=""):
+    """A DistMatrix's row-list operands of its L (tag "") or L^T ("T")
+    stack: (values [hi, lo], pos, slice_ptr, w0)."""
+    lo = getattr(A, f"local_rows{tag}_values_lo")
+    return (getattr(A, f"local_rows{tag}_values"), *([] if lo is None else [lo]),
+            getattr(A, f"local_rows{tag}_pos"), getattr(A, f"local_rows{tag}_ptr"),
+            getattr(A, f"local_well{tag}_w0"))
+
+
+def dist_well(A, tag=""):
+    """Its WELL operands of the same stack: (values [hi, lo], pos, w0)."""
+    lo = getattr(A, f"local_well{tag}_values_lo")
+    return (getattr(A, f"local_well{tag}_values"), *([] if lo is None else [lo]),
+            getattr(A, f"local_well{tag}_pos"), getattr(A, f"local_well{tag}_w0"))
+
+
+def well_compare(name, rows, well, x2, tg, tol):
+    """One WELL kernel launch on a stack's row lists vs their plain version
+    on the same inputs; the row-list plain version must equal the WELL
+    formula's (``well``: the same stack's WELL operands) bit for bit."""
+    y_k = spmv_well_cuda.spmv_well_stacked(*rows, x2, tg)
     torch.cuda.synchronize()
-    y_p = spmv_well_stacked_plain(values, pos, w0, x2, tg)
+    y_p = spmv_well_rows_plain(*rows, x2, tg)
+    if not torch.equal(y_p, spmv_well_stacked_plain(*well, x2, tg)):
+        fail(f"{name}: the row-list plain version differs from the WELL formula")
     return check_close(name, y_k, y_p, tol)
+
+
+def well_ds_compare(name, rows, well, xs, tg) -> np.ndarray:
+    """``ds_compare`` of well_ds_spmv on a stack's row lists; their plain
+    version must equal the WELL formula's bit for bit."""
+    def plain(*args):
+        y = spmv_well_ds_rows_plain(*args)
+        want = spmv_well_ds_stacked_plain(*well, *xs, tg)
+        if not all(torch.equal(a, b) for a, b in zip(y, want)):
+            fail(f"{name}: the row-list plain version differs from the WELL formula")
+        return y
+
+    return ds_compare(name, spmv_well_ds_cuda.spmv_well_ds_stacked, plain,
+                      (*rows, *xs, tg))
+
+
+def block_column_check(name, rows, well, xs, tg) -> None:
+    """The block kernel at nrhs 1 on a stack's WELL arrays vs the single-RHS
+    kernel on its row lists: bit for bit (both planes for DS)."""
+    if len(xs) == 1:
+        one = (spmm_well_cuda.spmm_well_stacked(*well, *xs, tg),)
+        got = (spmv_well_cuda.spmv_well_stacked(*rows, *xs, tg),)
+    else:
+        one = spmm_well_cuda.spmm_well_ds_stacked(*well, *xs, tg)
+        got = spmv_well_ds_cuda.spmv_well_ds_stacked(*rows, *xs, tg)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, one)):
+        fail(f"{name}: the single-RHS kernel differs from the block kernel's "
+             "column at nrhs 1")
+
+
+def rows_stats(ptr, nnz: int) -> dict:
+    """Geometry of a stack's row lists (slice_ptr (D, S+1)) beside its
+    nonzeros."""
+    entries = int(ptr[:, -1].sum())
+    return dict(rows_entries=entries, rows_occupancy=nnz / max(entries, 1),
+                rows_widest_slice=int((ptr[:, 1:] - ptr[:, :-1]).max()) // 32)
 
 
 def phase_well_kernel(dev):
@@ -529,6 +613,7 @@ def phase_well_kernel(dev):
     show("7.well_pack", matrix=f"bench banded-random {N_WELL}", nnz=a4.nnz,
          k_slots=w4.k_slots, wseg=w4.wseg, tile_groups=64,
          pos_dtype=str(w4.pos.dtype), occupancy=w4.occupancy,
+         **rows_stats(w4.slice_ptr.unsqueeze(0), a4.nnz),
          generate_s=t_gen, pack_s=time.perf_counter() - t0)
     small = build_well_matrix(N_WELL_SMALL, np.random.default_rng(1))
     cases = [(f"bench {N_WELL} tg64", a4, w4)]
@@ -548,13 +633,12 @@ def phase_well_kernel(dev):
             x[: a.ncols] = rng.standard_normal(a.ncols)
             x2 = torch.as_tensor(x, dtype=dt, device=dev).view(-1, 128)
             y, err, mabs = well_compare(
-                f"spmv_well {tag} {dname}", wd.values.unsqueeze(0),
-                wd.pos.unsqueeze(0), wd.w0.unsqueeze(0), x2, wd.tile_groups,
-                TOL_KERNEL[dname])
+                f"spmv_well {tag} {dname}", rows_args(wd), well_args(wd), x2,
+                wd.tile_groups, TOL_KERNEL[dname])
             max_abs = max(max_abs, mabs)
             fields = dict(kernel="spmv_well", dtype=dname, matrix=tag,
                           k_slots=wd.k_slots, paired=wd.paired,
-                          pos_dtype=str(wd.pos.dtype), rel_l2_vs_plain=err,
+                          pos_dtype=str(wd.rows_pos.dtype), rel_l2_vs_plain=err,
                           max_abs_vs_plain=mabs)
             if dt == torch.float32:
                 oerr = rel_l2(y.ravel()[: a.nrows], a.matvec(x[: a.ncols]))
@@ -573,8 +657,8 @@ def phase_well_kernel(dev):
         x = rng.standard_normal(small.nrows).astype(dt)
         x2 = A.to_dist(x)
         _, err, mabs = well_compare(
-            f"spmv_well D=3 {dname}", A.local_well_values, A.local_well_pos,
-            A.local_well_w0, x2, A.well_meta[2], TOL_KERNEL[dname])
+            f"spmv_well D=3 {dname}", dist_rows(A), dist_well(A), x2,
+            A.well_meta[2], TOL_KERNEL[dname])
         max_abs = max(max_abs, mabs)
         merr = rel_l2(A.from_dist(A.matvec(x2)), small.matvec(x.astype(np.float64)))
         if merr > TOL_ORACLE[dname]:
@@ -636,11 +720,17 @@ def well_stats(A, a):
     if A.symmetric:
         stored += int((A.local_wellT_values != 0).sum())
         slots += A.local_wellT_values.numel()
-    return dict(rows=a.nrows, nnz=a.nnz, k_slots=k,
-                k_slots_T=A.wellT_meta[0] if A.symmetric else None,
-                wseg=wseg, tile_groups=tg, paired=paired,
-                occupancy=stored / slots,
-                far_nnz=A.well_far_nnz + A.well_farT_nnz)
+    out = dict(rows=a.nrows, nnz=a.nnz, k_slots=k,
+               k_slots_T=A.wellT_meta[0] if A.symmetric else None,
+               wseg=wseg, tile_groups=tg, paired=paired,
+               occupancy=stored / slots,
+               far_nnz=A.well_far_nnz + A.well_farT_nnz,
+               rows_pos_dtype=str(A.local_rows_pos.dtype))
+    entries = int(A.local_rows_ptr[:, -1].sum())
+    if A.symmetric:
+        entries += int(A.local_rowsT_ptr[:, -1].sum())
+    out.update(rows_entries=entries, rows_occupancy=stored / entries)
+    return out
 
 
 def phase_fem_main_path(dev):
@@ -669,26 +759,37 @@ def phase_fem_main_path(dev):
         runs.append((dt, sym, fmt, A, b, b_host, time.perf_counter() - t0))
 
     # the kernel vs its plain version at the main path's own shapes: every
-    # stack the solves below launch (L and L^T, or the vanilla stack)
+    # stack the solves below launch (L and L^T, or the vanilla stack); each
+    # also bit for bit against the block kernel's column at nrhs 1, and the
+    # row-list packer timed again on the stack's WELL arrays
     rng = np.random.default_rng(8)
     max_abs = 0.0
     for dt, sym, fmt, A, _, _, _ in runs:
         dname = np.dtype(dt).name
         x2 = A.to_dist(rng.standard_normal(a.nrows).astype(dt))
-        stacks = [("L" if sym else "A", A.local_well_values, A.local_well_pos,
-                   A.local_well_w0, A.well_meta)]
-        if sym:
-            stacks.append(("L^T", A.local_wellT_values, A.local_wellT_pos,
-                           A.local_wellT_w0, A.wellT_meta))
-        for part, values, pos, w0, meta in stacks:
-            _, err, mabs = well_compare(
-                f"spmv_well FEM {part} {dname} ({fmt})", values, pos, w0, x2,
-                meta[2], TOL_KERNEL[dname])
+        for part, tag in (("L", ""), ("L^T", "T")) if sym else (("A", ""),):
+            meta = getattr(A, f"well{tag}_meta")
+            rows, well = dist_rows(A, tag), dist_well(A, tag)
+            name = f"spmv_well FEM {part} {dname} ({fmt})"
+            _, err, mabs = well_compare(name, rows, well, x2, meta[2],
+                                        TOL_KERNEL[dname])
+            block_column_check(name, rows, well, (x2,), meta[2])
             max_abs = max(max_abs, mabs)
+            host = [t.cpu().numpy() for t in well[:2]]
+            t0 = time.perf_counter()
+            packed = pack_rows(*host, meta[1])
+            pack_s = time.perf_counter() - t0
+            if not np.array_equal(packed.slice_ptr, rows[2].cpu().numpy()):
+                fail(f"{name}: the operator's row lists are not pack_rows' own")
+            nnz = int((well[0] != 0).sum())
             show("8.kernel", kernel="spmv_well", dtype=dname,
                  matrix=f"fem_p1_2d {N_FEM} RCM, {part} stack ({fmt})",
-                 k_slots=meta[0], tile_groups=meta[2], pos_dtype=str(pos.dtype),
-                 rel_l2_vs_plain=err, max_abs_vs_plain=mabs)
+                 k_slots=meta[0], tile_groups=meta[2], well_pos_dtype=str(well[1].dtype),
+                 well_slots=well[0].numel(), well_occupancy=nnz / well[0].numel(),
+                 **rows_stats(rows[2], nnz), rows_pos_dtype=str(rows[1].dtype),
+                 rows_pack_s=pack_s, rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
+                 bit_equal_to_block_kernel_nrhs1=True)
+            del host, packed
         del x2
 
     reset_counters()
@@ -880,11 +981,61 @@ def time_in_turns(kernel, plain, x0, iters_k=100, iters_p=25):
             [1e3 * t_k1, 1e3 * t_k2], [1e3 * t_p1, 1e3 * t_p2])
 
 
+def device_ms(step, x0, iters: int = 50) -> float:
+    """Device ms per call of a chained x -> step(x) loop: the time of every
+    CUDA kernel it launches, from torch.profiler's CUPTI records. A chained
+    loop timed with events is bound by the host once a call's kernels take
+    less than its Python and launch time (36-83 us a WELL wrapper call on
+    the H100 machines)."""
+    x = step(x0)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            x = step(x)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if not us > 0:
+        fail("device_ms: the profiler recorded no device time")
+    return us / iters / 1e3
+
+
+def cold_l2_ms(step, x0, dev) -> float:
+    """Device ms of one apply that finds the L2 cold: ``device_ms`` of a
+    chain of (write a 128 MB buffer, apply) minus that of the writes alone.
+    A stack that fits the 50 MB L2 stays there between chained applies; on
+    the main path the other stack and the vectors pass through L2 between
+    two applies of one stack."""
+    buf = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+
+    def flushed(v):
+        buf.zero_()
+        return step(v)
+
+    def flush_only(v):
+        buf.zero_()
+        return v
+
+    ms = device_ms(flushed, x0) - device_ms(flush_only, x0)
+    del buf
+    return ms
+
+
 def library_ms(a: CSRHost, dev, scale: float, dtype=np.float32) -> float:
     """ms of one torch CSR @ x (cuSPARSE) on the same matrix, chained."""
     m = csr_tensor(a, dev, scale, dtype)
     x0 = torch.as_tensor(gaussian_bump(a.ncols, dtype=dtype), device=dev)
     ms = 1e3 * bench_chained(lambda v: m @ v, x0, iters=50)
+    del m
+    return ms
+
+
+def library_device_ms(a: CSRHost, dev, scale: float, dtype=np.float32) -> float:
+    """``device_ms`` of the same torch CSR @ x."""
+    m = csr_tensor(a, dev, scale, dtype)
+    x0 = torch.as_tensor(gaussian_bump(a.ncols, dtype=dtype), device=dev)
+    ms = device_ms(lambda v: m @ v, x0)
     del m
     return ms
 
@@ -934,36 +1085,45 @@ def phase_timing_all(a_lap, dia_times, a4, w4, a_fem, A_fem, dev):
              **out[kname], library="torch CSR @ x (cuSPARSE), full matrix",
              copy_gbs=copy_gbs)
 
-    def well_timing(tag, values, pos, w0, tg, a_lib, lib_scale, nnz, nrows,
-                    ncols):
-        x = np.zeros(values.shape[2] * 128, np.float32)
+    def well_timing(tag, rows, well, tg, a_lib, lib_scale, nnz, nrows, ncols):
+        values, pos, ptr, w0 = rows
+        x = np.zeros(w0.shape[1] * tg * 128, np.float32)
         x[:ncols] = gaussian_bump(ncols, dtype=np.float32)
         x2 = torch.as_tensor(x, device=dev).view(-1, 128)
-        args = (values, pos, w0)
 
         def kernel(v):
-            return spmv_well_cuda.spmv_well_stacked(*args, v, tg)
+            return spmv_well_cuda.spmv_well_stacked(*rows, v, tg)
 
         def plain(v):
-            return spmv_well_stacked_plain(*args, v, tg)
+            return spmv_well_rows_plain(*rows, v, tg)
 
-        ms_k, ms_p, runs_k, runs_p = time_in_turns(kernel, plain, x2)
+        # device times (the chained loop of a kernel this short is bound by
+        # the host), the chained event times beside them
+        chained_k, chained_p, runs_k, runs_p = time_in_turns(kernel, plain, x2)
+        ms_k, ms_p = device_ms(kernel, x2), device_ms(plain, x2, iters=10)
         nbytes = (nnz * (values.element_size() + pos.element_size())
-                  + w0.numel() * 4 + (ncols + nrows) * 4)
-        stored = (values.numel() * (values.element_size() + pos.element_size())
-                  + w0.numel() * 4 + 2 * values.shape[2] * 128 * 4)
+                  + w0.numel() * 4 + ptr.numel() * 8 + (ncols + nrows) * 4)
+        vec_bytes = 2 * x.size * 4
+        stored = (int(ptr[:, -1].sum()) * (values.element_size() + pos.element_size())
+                  + ptr.numel() * 8 + w0.numel() * 4 + vec_bytes)
+        well_stored = (well[0].numel() * (values.element_size() + well[1].element_size())
+                       + w0.numel() * 4 + vec_bytes)
         row = dict(ms=ms_k, plain_ms=ms_p,
-                   library_ms=library_ms(a_lib, dev, lib_scale),
-                   bound_ms=bound_ms(nbytes), bytes=nbytes)
+                   library_ms=library_device_ms(a_lib, dev, lib_scale),
+                   bound_ms=bound_ms(nbytes), bytes=nbytes, timing="device",
+                   chained_ms=chained_k, plain_chained_ms=chained_p,
+                   library_chained_ms=library_ms(a_lib, dev, lib_scale))
         show("10.timing", kernel="spmv_well", matrix=tag, dtype="float32",
-             k_slots=values.shape[1], tile_groups=tg, pos_dtype=str(pos.dtype),
+             well_k_slots=well[0].shape[1], tile_groups=tg, pos_dtype=str(pos.dtype),
              **row, ms_runs=runs_k, plain_ms_runs=runs_p,
-             stored_bytes=stored, stored_copy_fraction=stored / (ms_k / 1e3) / 1e9 / copy_gbs,
+             cold_l2_ms=cold_l2_ms(kernel, x2, dev), **rows_stats(ptr, nnz),
+             stored_bytes=stored, well_stored_bytes=well_stored,
+             well_occupancy=nnz / well[0].numel(),
+             stored_copy_fraction=stored / (ms_k / 1e3) / 1e9 / copy_gbs,
              library="torch CSR @ x (cuSPARSE), same matrix", copy_gbs=copy_gbs)
         return row
 
-    bench = well_timing(f"bench {N_WELL}", w4.values.unsqueeze(0),
-                        w4.pos.unsqueeze(0), w4.w0.unsqueeze(0), 64, a4, 1.0,
+    bench = well_timing(f"bench {N_WELL}", rows_args(w4), well_args(w4), 64, a4, 1.0,
                         a4.nnz, a4.nrows, a4.ncols)
     # the symmetric main path's L stack (D=1, empty far remainder, so the
     # stack is the RCM'd FEM's strict lower triangle), scaled by one factor
@@ -974,10 +1134,10 @@ def phase_timing_all(a_lap, dia_times, a4, w4, a_fem, A_fem, dev):
     row_sums = np.bincount(np.repeat(np.arange(lower.nrows), lower.row_nnz()),
                            weights=np.abs(lower.values), minlength=lower.nrows)
     scale = float(0.9 / row_sums.max())
+    rows = dist_rows(A_fem)
     fem = well_timing(f"fem_p1_2d {N_FEM} RCM lower stack",
-                      A_fem.local_well_values * scale, A_fem.local_well_pos,
-                      A_fem.local_well_w0, A_fem.well_meta[2], lower, scale,
-                      lower.nnz, lower.nrows, lower.ncols)
+                      (rows[0] * scale, *rows[1:]), dist_well(A_fem), A_fem.well_meta[2],
+                      lower, scale, lower.nnz, lower.nrows, lower.ncols)
     out["spmv_well"] = dict(fem, other_shapes={f"bench {N_WELL}": bench})
     return out
 
@@ -1013,11 +1173,6 @@ def ds_compare(name, kernel, plain, args) -> np.ndarray:
     return ds_to_f64(y_k[0].cpu().numpy(), y_k[1].cpu().numpy()).ravel()
 
 
-def well_ds_args(w, xs):
-    return (w.values_hi.unsqueeze(0), w.values_lo.unsqueeze(0),
-            w.pos.unsqueeze(0), w.w0.unsqueeze(0), *xs, w.tile_groups)
-
-
 def phase_ds_kernels(a_lap, a4, w4, dev):
     """Phase 11: both DS kernels vs their plain versions (bit for bit), vs
     the host float64 CSR oracle (DS_ORACLE_TOL) on values perturbed below
@@ -1026,7 +1181,6 @@ def phase_ds_kernels(a_lap, a4, w4, dev):
     Returns the 4M bench matrix's DS packing (phase 10 times it)."""
     rng = np.random.default_rng(11)
     dia_args = (spmv_dia_ds_cuda.spmv_dia_ds_stacked, spmv_dia_ds_stacked_plain)
-    well_fns = (spmv_well_ds_cuda.spmv_well_ds_stacked, spmv_well_ds_stacked_plain)
 
     def gate(name, err, err32=None):
         if not err <= DS_ORACLE_TOL:
@@ -1089,27 +1243,26 @@ def phase_ds_kernels(a_lap, a4, w4, dev):
             fail(f"{tag}: pair=True packed no paired slot")
         x = np.zeros(w.ncols_pad)
         x[: a.ncols] = rng.standard_normal(a.ncols)
-        y = ds_compare(f"well_ds_spmv {tag}", *well_fns, well_ds_args(w, ds_pair(x, dev)))
+        y = well_ds_compare(f"well_ds_spmv {tag}", rows_args(w), well_args(w),
+                            ds_pair(x, dev), w.tile_groups)
         want = a.matvec(x[: a.ncols])
         err = rel_l2(y[: a.nrows], want)
         err32 = None
         if w32 is not None:
             x32 = torch.as_tensor(x.astype(np.float32), device=dev).view(-1, 128)
-            y32 = spmv_well_cuda.spmv_well_stacked(
-                w32.values.unsqueeze(0), w32.pos.unsqueeze(0), w32.w0.unsqueeze(0),
-                x32, w32.tile_groups)
+            y32 = spmv_well_cuda.spmv_well_stacked(*rows_args(w32), x32,
+                                                   w32.tile_groups)
             err32 = rel_l2(y32.cpu().numpy().ravel()[: a.nrows], want)
         gate(f"well_ds_spmv {tag}", err, err32)
         show("11.kernel", kernel="well_ds_spmv", matrix=tag + ", values x (1 + "
              "1e-9 N(0,1))", k_slots=w.k_slots, paired=w.paired,
-             pos_dtype=str(w.pos.dtype), bit_equal_to_plain=True,
+             pos_dtype=str(w.rows_pos.dtype), bit_equal_to_plain=True,
              rel_l2_vs_host_csr=err, fp32_kernel_rel_l2_vs_host_csr=err32)
     A = build_dist_matrix(small, n_devices=3, local_format="well_ds", device=dev)
     x = rng.standard_normal(small.nrows)
     xs = (A.to_dist(ds_from_f64(x)[0]), A.to_dist(ds_from_f64(x)[1]))
-    ds_compare("well_ds_spmv D=3", *well_fns,
-               (A.local_well_values, A.local_well_values_lo, A.local_well_pos,
-                A.local_well_w0, *xs, A.well_meta[2]))
+    well_ds_compare("well_ds_spmv D=3", dist_rows(A), dist_well(A), xs,
+                    A.well_meta[2])
     err = rel_l2(ds_to_f64(*(A.from_dist(t) for t in A.matvec_ds(*xs))),
                  small.matvec(x))
     gate("well_ds D=3 matvec_ds", err)
@@ -1191,15 +1344,15 @@ def phase_ds_main_path(a_lap, a_fem, fem_fp64, dev):
     xs = (A.to_dist(ds_from_f64(x)[0]), A.to_dist(ds_from_f64(x)[1]))
     for part, tag in (("L", ""), ("L^T", "T")):
         meta = getattr(A, f"well{tag}_meta")
-        ds_compare(f"well_ds_spmv FEM {part}", spmv_well_ds_cuda.spmv_well_ds_stacked,
-                   spmv_well_ds_stacked_plain,
-                   (getattr(A, f"local_well{tag}_values"),
-                    getattr(A, f"local_well{tag}_values_lo"),
-                    getattr(A, f"local_well{tag}_pos"),
-                    getattr(A, f"local_well{tag}_w0"), *xs, meta[2]))
+        rows, well = dist_rows(A, tag), dist_well(A, tag)
+        name = f"well_ds_spmv FEM {part}"
+        well_ds_compare(name, rows, well, xs, meta[2])
+        block_column_check(name, rows, well, xs, meta[2])
         show("12.kernel", kernel="well_ds_spmv", bit_equal_to_plain=True,
+             bit_equal_to_block_kernel_nrhs1=True,
              matrix=f"fem_p1_2d {N_FEM} RCM, {part} stack (auto, float64)",
-             k_slots=meta[0], tile_groups=meta[2])
+             k_slots=meta[0], tile_groups=meta[2], pos_dtype=str(rows[2].dtype),
+             **rows_stats(rows[3], int(((well[0] != 0) | (well[1] != 0)).sum())))
     del xs
 
     reset_counters()
@@ -1253,8 +1406,7 @@ def phase_refine(dev):
     kmax 20000 each) with DS residuals, to rtol 1e-12 in at most 8 outer
     passes. Gated at REFINE_NX^2: the true float64 residual of
     cg_refined_dist <= REFINE_TOL and 100x below a plain fp32 CG's on the
-    same system. cg_refined there and cg_refined_dist at REFINE_RECORD_NX^2
-    are printed, not gated."""
+    same system. cg_refined there is printed, not gated."""
     kw = dict(rtol=1e-12, max_outer=8, inner_rtol=1e-6, inner_kmax=20000,
               device=dev)
     a = create_laplace_2d(REFINE_NX, REFINE_NX)
@@ -1286,9 +1438,6 @@ def phase_refine(dev):
         fail(f"13: refined true residual {rel:.3e} not 100x below fp32 CG's {rel32:.3e}")
     del A32
     run(f"cg_refined (one device), laplace2d {REFINE_NX}^2", cg_refined, a, b)
-    big = create_laplace_2d(REFINE_RECORD_NX, REFINE_RECORD_NX)
-    run(f"cg_refined_dist dia, laplace2d {REFINE_RECORD_NX}^2 (not gated)",
-        cg_refined_dist, big, gaussian_bump(big.nrows))
 
 
 def phase_ds_halo(dev):
@@ -1356,29 +1505,47 @@ def phase_ds_timing(a_lap, a4, w4ds, A_fem_ds, a_fem, dev):
          **out["dia_ds_spmv"], library="float64 torch CSR @ x (cuSPARSE), full matrix")
     del d, planes
 
-    def well_row(tag, vh, vl, pos, w0, tg, a_lib, lib_scale):
-        x = np.zeros(vh.shape[2] * 128)
+    def well_row(tag, rows, well, tg, a_lib, lib_scale):
+        vh, vl, pos, ptr, w0 = rows
+        x = np.zeros(w0.shape[1] * tg * 128)
         x[: a_lib.ncols] = gaussian_bump(a_lib.ncols)
-        args = (vh, vl, pos, w0)
         nbytes = (a_lib.nnz * (8 + pos.element_size()) + w0.numel() * 4
-                  + (a_lib.ncols + a_lib.nrows) * 8)
-        r = row(lambda v: spmv_well_ds_cuda.spmv_well_ds_stacked(*args, *v, tg),
-                lambda v: spmv_well_ds_stacked_plain(*args, *v, tg),
-                ds_pair(x, dev), nbytes, a_lib, lib_scale)
-        show("10.timing", kernel="well_ds_spmv", matrix=tag, k_slots=vh.shape[1],
+                  + ptr.numel() * 8 + (a_lib.ncols + a_lib.nrows) * 8)
+        def kernel(v):
+            return spmv_well_ds_cuda.spmv_well_ds_stacked(*rows, *v, tg)
+
+        def plain(v):
+            return spmv_well_ds_rows_plain(*rows, *v, tg)
+
+        # device times, as for spmv_well; the chained event times beside
+        x0 = ds_pair(x, dev)
+        r = row(kernel, plain, x0, nbytes, a_lib, lib_scale)
+        r = dict(r, ms=device_ms(kernel, x0), plain_ms=device_ms(plain, x0, iters=5),
+                 library_ms=library_device_ms(a_lib, dev, lib_scale, np.float64),
+                 timing="device", chained_ms=r["ms"], plain_chained_ms=r["plain_ms"],
+                 library_chained_ms=r["library_ms"])
+        vec_bytes = 4 * x.size * 4
+        stored = int(ptr[:, -1].sum()) * (8 + pos.element_size()) + ptr.numel() * 8
+        well_stored = well[0].numel() * (8 + well[2].element_size())
+        show("10.timing", kernel="well_ds_spmv", matrix=tag, well_k_slots=well[0].shape[1],
              tile_groups=tg, pos_dtype=str(pos.dtype), **r,
+             cold_l2_ms=cold_l2_ms(kernel, x0, dev),
+             **rows_stats(ptr, a_lib.nnz),
+             stored_bytes=stored + w0.numel() * 4 + vec_bytes,
+             well_stored_bytes=well_stored + w0.numel() * 4 + vec_bytes,
+             well_occupancy=a_lib.nnz / well[0].numel(),
              library="float64 torch CSR @ x (cuSPARSE), same matrix")
         return r
 
-    bench = well_row(f"bench {N_WELL}", *well_ds_args(w4ds, ())[:4], 64, a4, 1.0)
+    bench = well_row(f"bench {N_WELL}", rows_args(w4ds), well_args(w4ds), 64, a4, 1.0)
     lower, _ = a_fem.split_lower_diag()
     row_sums = np.bincount(np.repeat(np.arange(lower.nrows), lower.row_nnz()),
                            weights=np.abs(lower.values), minlength=lower.nrows)
     scale = float(0.9 / row_sums.max())
-    A = A_fem_ds
-    fem = well_row(f"fem_p1_2d {N_FEM} RCM DS lower stack", A.local_well_values * scale,
-                   A.local_well_values_lo * scale, A.local_well_pos,
-                   A.local_well_w0, A.well_meta[2], lower, scale)
+    rows = dist_rows(A_fem_ds)
+    fem = well_row(f"fem_p1_2d {N_FEM} RCM DS lower stack",
+                   (rows[0] * scale, rows[1] * scale, *rows[2:]), dist_well(A_fem_ds),
+                   A_fem_ds.well_meta[2], lower, scale)
     out["well_ds_spmv"] = dict(fem, other_shapes={f"bench {N_WELL}": bench})
     return out
 
@@ -1541,42 +1708,43 @@ def phase_block_kernels(a, w4, w4ds, dev):
     for dt in (np.float32, np.float64):
         A = build_dist_matrix(small, n_devices=3, dtype=dt, local_format="well",
                               device=dev)
-        stacks.append((A.local_well_values, A.local_well_pos, A.local_well_w0,
-                       A.well_meta[2], A.n_devices * A.col_pad // 128))
+        stacks.append((dist_well(A), dist_rows(A), A.well_meta[2],
+                       A.n_devices * A.col_pad // 128))
     Ads = build_dist_matrix(small64, n_devices=3, local_format="well_ds", device=dev)
-    ds_stack = (Ads.local_well_values, Ads.local_well_values_lo, Ads.local_well_pos,
-                Ads.local_well_w0, Ads.well_meta[2], Ads.n_devices * Ads.col_pad // 128)
+    ds_stack = (dist_well(Ads), dist_rows(Ads), Ads.well_meta[2],
+                Ads.n_devices * Ads.col_pad // 128)
 
-    def well_run(matrix, v, pos, w0, tg, rows, nrhs):
+    # the single-RHS side reads the row lists of the same stack
+    def well_run(matrix, well, rows_, tg, rows, nrhs):
+        v = well[0]
         dname = str(v.dtype).split(".")[1]
-        args = (v, pos, w0)
         run("well_spmm", matrix, dname, nrhs,
-            lambda x: spmm_well_cuda.spmm_well_stacked(*args, x, tg),
-            lambda x: spmm_well_stacked_plain(*args, x, tg),
-            lambda x: spmv_well_cuda.spmv_well_stacked(*args, x, tg),
+            lambda x: spmm_well_cuda.spmm_well_stacked(*well, x, tg),
+            lambda x: spmm_well_stacked_plain(*well, x, tg),
+            lambda x: spmv_well_cuda.spmv_well_stacked(*rows_, x, tg),
             (lanes_block(gen, rows, nrhs, v.dtype, dev),), TOL_KERNEL[dname],
-            k_slots=v.shape[1], pos_dtype=str(pos.dtype))
+            k_slots=v.shape[1], pos_dtype=str(well[1].dtype))
 
-    def well_ds_run(matrix, vh, vl, pos, w0, tg, rows, nrhs):
-        args = (vh, vl, pos, w0)
+    def well_ds_run(matrix, well, rows_, tg, rows, nrhs):
         xh = lanes_block(gen, rows, nrhs, torch.float32, dev)
         run("well_ds_spmm", matrix, "double-single", nrhs,
-            lambda h, lo: spmm_well_cuda.spmm_well_ds_stacked(*args, h, lo, tg),
-            lambda h, lo: spmm_well_ds_stacked_plain(*args, h, lo, tg),
-            lambda h, lo: spmv_well_ds_cuda.spmv_well_ds_stacked(*args, h, lo, tg),
-            (xh, xh * 1e-8), None, k_slots=vh.shape[1], pos_dtype=str(pos.dtype))
+            lambda h, lo: spmm_well_cuda.spmm_well_ds_stacked(*well, h, lo, tg),
+            lambda h, lo: spmm_well_ds_stacked_plain(*well, h, lo, tg),
+            lambda h, lo: spmv_well_ds_cuda.spmv_well_ds_stacked(*rows_, h, lo, tg),
+            (xh, xh * 1e-8), None, k_slots=well[0].shape[1],
+            pos_dtype=str(well[2].dtype))
 
     for nrhs in NRHS_WELL:
         for matrix, w, wds in cases:
             for dt in (torch.float32, torch.float64):
                 wd = as_dtype(w, dt)
-                well_run(matrix, wd.values.unsqueeze(0), wd.pos.unsqueeze(0),
-                         wd.w0.unsqueeze(0), wd.tile_groups, wd.ncols_pad // 128, nrhs)
+                well_run(matrix, well_args(wd), rows_args(wd), wd.tile_groups,
+                         wd.ncols_pad // 128, nrhs)
                 del wd
-            well_ds_run(matrix, *well_ds_args(wds, ())[:4], wds.tile_groups,
+            well_ds_run(matrix, well_args(wds), rows_args(wds), wds.tile_groups,
                         wds.ncols_pad // 128, nrhs)
-        for v, pos, w0, tg, rows in stacks:
-            well_run(f"bench {N_WELL_SMALL}, D=3 stacked", v, pos, w0, tg, rows, nrhs)
+        for stack in stacks:
+            well_run(f"bench {N_WELL_SMALL}, D=3 stacked", *stack, nrhs)
         well_ds_run(f"bench {N_WELL_SMALL}, D=3 stacked", *ds_stack, nrhs)
     return max_abs, d32
 
@@ -1615,20 +1783,18 @@ def path_stack_checks(a, fmt, matrix, gen, dev, max_abs):
                     lambda h, lo: spmv_dia_ds_cuda.spmv_dia_ds_stacked(*planes, h, lo, offs),
                     xds, None, ndiags=len(offs))
     else:
-        args, tg = (a32.local_well_values, a32.local_well_pos,
-                    a32.local_well_w0), a32.well_meta[2]
+        args, rows, tg = dist_well(a32), dist_rows(a32), a32.well_meta[2]
         block_check(max_abs, "16", "well_spmm", tag, "float32", NRHS,
                     lambda v: spmm_well_cuda.spmm_well_stacked(*args, v, tg),
                     lambda v: spmm_well_stacked_plain(*args, v, tg),
-                    lambda v: spmv_well_cuda.spmv_well_stacked(*args, v, tg),
+                    lambda v: spmv_well_cuda.spmv_well_stacked(*rows, v, tg),
                     x, TOL_KERNEL["float32"], k_slots=args[0].shape[1],
                     far_nnz=a32.well_far_nnz)
-        dargs, tg = (ads.local_well_values, ads.local_well_values_lo, ads.local_well_pos,
-                     ads.local_well_w0), ads.well_meta[2]
+        dargs, drows, tg = dist_well(ads), dist_rows(ads), ads.well_meta[2]
         block_check(max_abs, "16", "well_ds_spmm", tag, "double-single", NRHS,
                     lambda h, lo: spmm_well_cuda.spmm_well_ds_stacked(*dargs, h, lo, tg),
                     lambda h, lo: spmm_well_ds_stacked_plain(*dargs, h, lo, tg),
-                    lambda h, lo: spmv_well_ds_cuda.spmv_well_ds_stacked(*dargs, h, lo, tg),
+                    lambda h, lo: spmv_well_ds_cuda.spmv_well_ds_stacked(*drows, h, lo, tg),
                     xds, None, k_slots=dargs[0].shape[1], far_nnz=ads.well_far_nnz)
     del a32, ads
 
@@ -1843,20 +2009,20 @@ def phase_block_timing(a_lap, d32, a4, w4, w4ds, single_ms, dev):
         single_ms["dia_ds_spmv"], rows=a_lap.nrows, ndiags=d32.ndiags)
     del planes
     # the 4M bench matrix (rows scaled to ||A||_inf = 0.9 in phase 7)
-    args = (w4.values.unsqueeze(0), w4.pos.unsqueeze(0), w4.w0.unsqueeze(0))
+    args, rows4 = well_args(w4), rows_args(w4)
     rows = w4.ncols_pad // 128
     row("well_spmm", lambda v: spmm_well_cuda.spmm_well_stacked(*args, v, 64),
         lambda v: spmm_well_stacked_plain(*args, v, 64),
-        lambda v: spmv_well_cuda.spmv_well_stacked(*args, v, 64),
+        lambda v: spmv_well_cuda.spmv_well_stacked(*rows4, v, 64),
         lanes_block(gen, rows, NRHS, torch.float32, dev),
         lanes_block(gen, rows, 1, torch.float32, dev),
         a4.nnz * (4 + w4.pos.element_size()) + w4.w0.numel() * 4
         + NRHS * (a4.ncols + a4.nrows) * 4, a4, 1.0, np.float32,
         single_ms["spmv_well"], matrix=f"bench {N_WELL}", k_slots=w4.k_slots)
-    dargs = well_ds_args(w4ds, ())[:4]
+    dargs, drows4 = well_args(w4ds), rows_args(w4ds)
     row("well_ds_spmm", lambda v: spmm_well_cuda.spmm_well_ds_stacked(*dargs, *v, 64),
         lambda v: spmm_well_ds_stacked_plain(*dargs, *v, 64),
-        lambda v: spmv_well_ds_cuda.spmv_well_ds_stacked(*dargs, *v, 64),
+        lambda v: spmv_well_ds_cuda.spmv_well_ds_stacked(*drows4, *v, 64),
         ds_block(gen, rows, NRHS, dev), ds_block(gen, rows, 1, dev),
         a4.nnz * (8 + w4ds.pos.element_size()) + w4ds.w0.numel() * 4
         + NRHS * (a4.ncols + a4.nrows) * 8, a4, 1.0, np.float64,
@@ -1984,7 +2150,8 @@ def main() -> int:
             "max_abs_err": max_abs[kname], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": "bytes", "library_ms": row["library_ms"],
-            **{k: row[k] for k in ("other_shapes", "nrhs", "single_rhs_x8_ms", "nrhs1")
+            **{k: row[k] for k in ("other_shapes", "nrhs", "single_rhs_x8_ms", "nrhs1",
+                                   "timing", "chained_ms", "library_chained_ms")
                if k in row},
         })
     # DS timing rows carry their runs; the kernels line keeps the summary

@@ -27,18 +27,21 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points -> argument types; each returns a CUDA error code (int)
 _DIA_ARGS = [_P, _P, _P, _L, _I, _P, _I, _P]  # data, x, y, npad, ndiags,
 #                                               offsets, nshards, stream
-_WELL_ARGS = [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _P]  # values, pos, w0,
-#                 x, y, ngroups, k, tile_groups, col_pad, nshards, stream
+_WELL_ARGS = [_P] * 6 + [_L, _L, _I, _L, _I, _P]  # values, pos, slice_ptr,
+#                 w0, x, y, nslices, entries, tile_groups, col_pad, nshards,
+#                 stream (the row lists)
 _DIA_DS_ARGS = [_P, _P, _P, _P, _P, _P, _L, _I, _P, _I, _P]  # data hi, lo,
 #                 x hi, lo, y hi, lo, npad, ndiags, offsets, nshards, stream
-_WELL_DS_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _P]
-#                 values hi, lo, pos, w0, x hi, lo, y hi, lo, ngroups, k,
+_WELL_DS_ARGS = [_P] * 9 + [_L, _L, _I, _L, _I, _P]  # values hi, lo, pos,
+#                 slice_ptr, w0, x hi, lo, y hi, lo, nslices, entries,
 #                 tile_groups, col_pad, nshards, stream
-# the block (SpMM) entries take the same arguments plus nrhs before nshards
+# the block (SpMM) entries: the DIA arguments plus nrhs before nshards;
+# WELL (values [hi, lo], pos, w0, x [hi, lo], y [hi, lo], ngroups, k,
+# tile_groups, col_pad, nrhs, nshards, stream) on the WELL arrays
 _DIA_SPMM_ARGS = _DIA_ARGS[:6] + [_I] + _DIA_ARGS[6:]
-_WELL_SPMM_ARGS = _WELL_ARGS[:9] + [_I] + _WELL_ARGS[9:]
+_WELL_SPMM_ARGS = [_P] * 5 + [_L, _I, _I, _L, _I, _I, _P]
 _DIA_DS_SPMM_ARGS = _DIA_DS_ARGS[:9] + [_I] + _DIA_DS_ARGS[9:]
-_WELL_DS_SPMM_ARGS = _WELL_DS_ARGS[:12] + [_I] + _WELL_DS_ARGS[12:]
+_WELL_DS_SPMM_ARGS = [_P] * 8 + [_L, _I, _I, _L, _I, _I, _P]
 KERNEL_ENTRIES = {
     **{f"{n}_{t}": _DIA_ARGS for n in ("dia_spmv", "dia_sym_spmv")
        for t in ("f32", "f64")},

@@ -9,8 +9,9 @@ import numpy as np
 import torch
 
 from spmv_torch.formats.dia import DiaMatrix
+from spmv_torch.formats.well import pack_rows
 from spmv_torch.parallel.comm_plan import CommPlan
-from spmv_torch.parallel.dist_matrix import DistMatrix
+from spmv_torch.parallel.dist_matrix import DistMatrix, _rows_fields
 
 
 def _put(arr, device, dtype=None):
@@ -46,7 +47,8 @@ def dist_matrix_from_numpy(arrays: dict[str, np.ndarray], meta: dict, *,
     ``meta``: nrows_global, ncols_global, row_pad, symmetric, nnz_global,
     local_format, dia_offsets, rounds, n_devices, nlocal_pad, nghost_pad;
     for "well"/"well_ds" well_meta, well_far_nnz (and wellT_meta,
-    well_farT_nnz).
+    well_farT_nnz). The row lists the single-RHS WELL kernels read are
+    derived here from the WELL arrays (``formats/well.pack_rows``).
     """
     fmt = meta["local_format"]
     if fmt not in ("ell", "dia", "dia_ds", "well", "well_ds"):
@@ -79,6 +81,13 @@ def dist_matrix_from_numpy(arrays: dict[str, np.ndarray], meta: dict, *,
                 f"far{tag}_cols": _put(arrays.get(f"far{tag}_cols"), device, torch.int64),
                 f"far{tag}_vals": _put(arrays.get(f"far{tag}_vals"), device),
             })
+            lo = arrays.get(f"local_well{tag}_values_lo")
+            rows = pack_rows(np.asarray(arrays[f"local_well{tag}_values"]),
+                             np.asarray(arrays[f"local_well{tag}_pos"]),
+                             int(meta[f"well{tag}_meta"][1]),
+                             None if lo is None else np.asarray(lo))
+            extra.update({name: _put(arr, device)
+                          for name, arr in _rows_fields(tag, rows).items()})
     if fmt.endswith("_ds"):
         extra.update({name: _put(arrays.get(name), device) for name in (
             "local_dia_data_lo", "remote_values_lo", "local_well_values_lo",

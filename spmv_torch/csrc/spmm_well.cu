@@ -25,8 +25,9 @@
 //   y[s, r, c] = sum_k values[s, k, g, j] * x[s, w0[s, g/tg]*128 + pos[s, k, g, j], c]
 // with NR accumulators in registers (NR (hi, lo) pairs for DS); a block of
 // more than 8 columns re-reads the matrix once per chunk. A read outside
-// [0, col_pad) contributes 0. Column c takes exactly well_spmv's (or
-// well_ds_spmv's) operations on it in the same order, so it equals the
+// [0, col_pad) contributes 0. Column c takes the same terms in the same
+// order as well_spmv (or well_ds_spmv) does on the stack's row lists, and
+// the padding either one adds is an exact zero, so it equals the
 // single-RHS kernel's result bit for bit.
 //
 // Bound: bytes. One apply must move the stored values + pos + w0 once and X

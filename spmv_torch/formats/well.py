@@ -23,12 +23,26 @@ Every entry of one slot reads one 128-aligned x segment; with
 reads two segments (the endpoint lanes 0 and 127 carry the two legs'
 segments). Both forms obey the formula above, because every real entry's
 ``pos`` carries its own segment and padding slots hold value 0 at a
-position inside the window. The formula is what the CUDA kernel and the
-plain torch version (``ops/spmv_well.py``) compute.
+position inside the window. The formula is what the block (SpMM) kernels
+and the WELL plain version (``ops/spmv_well.py``) compute.
+
+The single-RHS kernels read the same stack as warp-sliced row lists
+(``pack_rows``), derived from the WELL arrays: rows cut into slices of 32
+consecutive rows (one warp), each slice as wide as its longest row, and
+only each row's occupied slots stored, in ascending slot order:
+
+  rows.values[slice_ptr[s] + 32*j + l]  the j-th occupied slot of row 32s+l
+  rows.pos[...]                         its window-relative position
+
+A short row is padded to its slice's width with value 0 at one of its own
+positions (0 for an empty row), so every read stays inside the window and
+every padded term adds an exact zero. ``w0`` is the WELL stack's own: a
+32-row slice lies inside one 128-row group.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,15 +51,74 @@ from spmv_torch.formats.csr import CSRHost
 from spmv_torch.formats.dia import host_dtype
 
 LANES = 128
+SLICE = 32  # rows per row-list slice: one warp
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+class WellRows(NamedTuple):
+    """Warp-sliced row lists of D stacked WELL blocks (module doc), host
+    numpy. Shard d's entries fill ``values[d, :slice_ptr[d, -1]]``; the
+    rest, up to the longest shard's count, is never read."""
+
+    values: np.ndarray     # (D, E)
+    pos: np.ndarray        # (D, E) int16/int32, window-relative
+    slice_ptr: np.ndarray  # (D, G*4 + 1) int64, first entry of each slice
+    values_lo: np.ndarray | None = None  # (D, E) double-single lo plane
+
+
+def pack_rows(values: np.ndarray, pos: np.ndarray, wseg: int,
+              values_lo: np.ndarray | None = None) -> WellRows:
+    """The row-list layout of D stacked WELL blocks ``values``/``pos``
+    (D, K, G, 128) whose windows span ``wseg`` segments; a double-single
+    stack passes its lo plane too. A slot is occupied where a value plane
+    is nonzero. Each row keeps its slots in the WELL order, so it sums the
+    same terms in the same order as the WELL formula; the padding dropped
+    and the padding added both add exact zeros. ``pos`` is int16 when
+    every window-relative position fits (wseg*128 <= 32767), else int32."""
+    nd, k, g, _ = values.shape
+    nrows = g * LANES
+    ns = nrows // SLICE
+    occ = values.reshape(nd, k, nrows) != 0
+    if values_lo is not None:
+        occ |= values_lo.reshape(nd, k, nrows) != 0
+    count = occ.sum(axis=1)                                 # (D, R)
+    width = count.reshape(nd, ns, SLICE).max(axis=2)        # (D, S)
+    slice_ptr = np.zeros((nd, ns + 1), dtype=np.int64)
+    np.cumsum(width * SLICE, axis=1, out=slice_ptr[:, 1:])
+    nent = max(int(slice_ptr[:, -1].max()), 1)
+    pos_dtype = np.int16 if wseg * LANES <= np.iinfo(np.int16).max else np.int32
+    # occupied slots in (shard, slot, row) order; rank = slot's place in
+    # its row (K <= 64 fits int8)
+    d_i, k_i, r_i = np.nonzero(occ)
+    rank = (np.cumsum(occ, axis=1, dtype=np.int8) - 1)[d_i, k_i, r_i]
+    dest = slice_ptr[d_i, r_i // SLICE] + SLICE * rank.astype(np.int64) + r_i % SLICE
+    pos_r = pos.reshape(nd, k, nrows)
+    real_pos = pos_r[d_i, k_i, r_i]
+    # padding reads one of the row's own positions (0 for an empty row)
+    own = np.zeros((nd, nrows), dtype=pos_dtype)
+    own[d_i, r_i] = real_pos
+    out_pos = np.zeros((nd, nent), dtype=pos_dtype)
+    for d in range(nd):
+        row = (np.repeat(np.arange(ns, dtype=np.int64) * SLICE, width[d] * SLICE)
+               + np.arange(int(slice_ptr[d, -1]), dtype=np.int64) % SLICE)
+        out_pos[d, : len(row)] = own[d, row]
+    out_pos[d_i, dest] = real_pos
+
+    def take(plane):
+        out = np.zeros((nd, nent), dtype=plane.dtype)
+        out[d_i, dest] = plane.reshape(nd, k, nrows)[d_i, k_i, r_i]
+        return out
+
+    return WellRows(take(values), out_pos, slice_ptr,
+                    None if values_lo is None else take(values_lo))
+
+
 @dataclasses.dataclass
 class WellMatrix:
-    """Windowed sliced-ELL matrix on a torch device."""
+    """Windowed sliced-ELL matrix on a torch device, with its row lists."""
 
     values: torch.Tensor  # (K, G, 128), slot-major
     pos: torch.Tensor     # (K, G, 128) int16/int32, window-relative
@@ -57,6 +130,10 @@ class WellMatrix:
     nseg: int = 0         # x segments incl. window-overrun padding
     _nnz: int = 0
     paired: bool = False  # any slot carries two segments
+    # the row lists (pack_rows) the single-RHS kernel reads
+    rows_values: torch.Tensor | None = None  # (E,)
+    rows_pos: torch.Tensor | None = None     # (E,) int16/int32
+    slice_ptr: torch.Tensor | None = None    # (G*4 + 1,) int64
 
     @property
     def ngroups(self) -> int:
@@ -105,6 +182,8 @@ class WellMatrix:
         return self._nnz / max(self.k_slots * self.ngroups_data * LANES, 1)
 
     def format_size_bytes(self) -> int:
+        """Bytes of the WELL arrays, as the reference counts them (the row
+        lists come on top)."""
         return sum(t.numel() * t.element_size()
                    for t in (self.values, self.pos, self.w0))
 
@@ -397,12 +476,15 @@ def _pad_well_to(w: WellMatrix, target_groups: int) -> WellMatrix:
         raise ValueError(f"target_groups={target_groups} must be a multiple "
                          f"of tile_groups={w.tile_groups}")
     padg = target_groups - w.ngroups
+    # the appended groups are empty: their slices have width 0
+    ptr = w.slice_ptr
     return dataclasses.replace(
         w,
         values=_pad_groups(w.values, padg, 1),
         pos=_pad_groups(w.pos, padg, 1),
         w0=_pad_groups(w.w0, padg // w.tile_groups, 0),
         nseg=target_groups,
+        slice_ptr=torch.cat([ptr, ptr[-1:].expand(padg * LANES // SLICE)]),
     )
 
 
@@ -429,6 +511,7 @@ def csr_to_well(
     if a.nrows == a.ncols:
         values, pos, w0, nseg_x = _equalize_square_pads(
             values, pos, w0, nseg_x, tile_groups)
+    rows = pack_rows(values[None], pos[None], wseg)
     return WellMatrix(
         values=torch.as_tensor(values, device=device),
         pos=torch.as_tensor(pos, device=device),
@@ -440,6 +523,9 @@ def csr_to_well(
         nseg=nseg_x,
         _nnz=a.nnz,
         paired=paired,
+        rows_values=torch.as_tensor(rows.values[0], device=device),
+        rows_pos=torch.as_tensor(rows.pos[0], device=device),
+        slice_ptr=torch.as_tensor(rows.slice_ptr[0], device=device),
     )
 
 

@@ -17,7 +17,9 @@ The symmetric path stores the strict lower triangle plus diagonal; ghost
 column contributions return to their owners through the reverse plan. The
 symmetric WELL form ("dual-WELL") also stores the local block's transpose
 as a second WELL stack, so its local apply is two gather launches plus the
-diagonal product, with no scatter.
+diagonal product, with no scatter. The single-RHS WELL kernels read each
+stack's warp-sliced row lists (``formats/well.pack_rows``), held beside the
+WELL arrays, which the block kernels read.
 
 ``matmat`` / ``matmat_ds`` apply a block of nrhs vectors in the SpMM lane
 layout (D*pad/128, nrhs*128): the local block runs a block kernel that
@@ -35,7 +37,7 @@ import torch
 from spmv_torch.ds import ds_add, ds_from_f64, ds_mul_f32
 from spmv_torch.formats.csr import CSRHost
 from spmv_torch.formats.dia import LANES, host_dtype
-from spmv_torch.formats.well import _build_arrays, _pack, split_window
+from spmv_torch.formats.well import _build_arrays, _pack, pack_rows, split_window
 from spmv_torch.ops.spmm_dia import spmm_from_layout, to_lanes
 from spmv_torch.ops.spmm_dia_cuda import spmm_dia_stacked
 from spmv_torch.ops.spmm_well_cuda import spmm_well_ds_stacked, spmm_well_stacked
@@ -105,6 +107,9 @@ class DistMatrix:
         is empty
     local_wellT_*, wellT_meta, farT_*: the same for the transpose of the
         local strict lower triangle (symmetric "well")
+    local_rows_values/pos/ptr, local_rowsT_*: the row lists of the two WELL
+        stacks (formats/well.pack_rows), (D, E) values and int16/int32 pos,
+        (D, G*4 + 1) int64 slice pointers; the single-RHS kernels read them
 
     Double-single ("dia_ds", "well_ds"): every value array above holds the
     float32 hi plane and ``<name>_lo`` the lo plane. "well_ds" keeps its
@@ -145,6 +150,12 @@ class DistMatrix:
     farT_cols: torch.Tensor | None = None
     farT_vals: torch.Tensor | None = None
     well_farT_nnz: int = 0
+    local_rows_values: torch.Tensor | None = None
+    local_rows_pos: torch.Tensor | None = None
+    local_rows_ptr: torch.Tensor | None = None
+    local_rowsT_values: torch.Tensor | None = None
+    local_rowsT_pos: torch.Tensor | None = None
+    local_rowsT_ptr: torch.Tensor | None = None
     # double-single lo planes ("dia_ds", "well_ds"; the fields above hold
     # the hi planes), and the symmetric "well_ds" transposed-remote ELL
     local_dia_data_lo: torch.Tensor | None = None
@@ -152,6 +163,8 @@ class DistMatrix:
     local_well_values_lo: torch.Tensor | None = None
     local_values_lo: torch.Tensor | None = None
     local_wellT_values_lo: torch.Tensor | None = None
+    local_rows_values_lo: torch.Tensor | None = None
+    local_rowsT_values_lo: torch.Tensor | None = None
     farT_vals_lo: torch.Tensor | None = None
     diagonal_lo: torch.Tensor | None = None
     remoteT_colind: torch.Tensor | None = None
@@ -329,8 +342,8 @@ def _stacked_mult(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
         y = spmv_dia_stacked(A.local_dia_data, x2, A.dia_offsets,
                              A.symmetric).reshape(nd, A.row_pad)
     elif A.local_format == "well":
-        y = spmv_well_stacked(A.local_well_values, A.local_well_pos,
-                              A.local_well_w0, x2,
+        y = spmv_well_stacked(A.local_rows_values, A.local_rows_pos,
+                              A.local_rows_ptr, A.local_well_w0, x2,
                               A.well_meta[2]).reshape(nd, A.row_pad)
         if A.far_rows is not None:
             far_add(y, A.far_rows, A.far_cols, A.far_vals, x)
@@ -342,8 +355,8 @@ def _stacked_mult(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
         if A.local_format == "well":
             # dual-WELL: the local transpose term L^T x is a second gather
             # launch over the pre-built transpose stack
-            y = y + spmv_well_stacked(A.local_wellT_values, A.local_wellT_pos,
-                                      A.local_wellT_w0, x2,
+            y = y + spmv_well_stacked(A.local_rowsT_values, A.local_rowsT_pos,
+                                      A.local_rowsT_ptr, A.local_wellT_w0, x2,
                                       A.wellT_meta[2]).reshape(nd, A.row_pad)
             y = y + A.diagonal * x
             if A.farT_rows is not None:
@@ -383,9 +396,9 @@ def _stacked_mult_ds(A: DistMatrix, xh2: torch.Tensor, xl2: torch.Tensor
         return ds_add(*acc, *(t.reshape(nd, rp) for t in term))
 
     if A.local_format == "well_ds":
-        y = spmv_well_ds_stacked(A.local_well_values, A.local_well_values_lo,
-                                 A.local_well_pos, A.local_well_w0, xh2, xl2,
-                                 A.well_meta[2])
+        y = spmv_well_ds_stacked(A.local_rows_values, A.local_rows_values_lo,
+                                 A.local_rows_pos, A.local_rows_ptr,
+                                 A.local_well_w0, xh2, xl2, A.well_meta[2])
         y = tuple(t.reshape(nd, rp) for t in y)
         if A.well_far_nnz > 0:
             y = add(y, _ell_ds_term(A.local_colind, A.local_values,
@@ -394,9 +407,9 @@ def _stacked_mult_ds(A: DistMatrix, xh2: torch.Tensor, xl2: torch.Tensor
             # dual-WELL in DS: the local L^T term is a second DS gather
             # launch, then the DS diagonal product and the farT chain
             y = add(y, spmv_well_ds_stacked(
-                A.local_wellT_values, A.local_wellT_values_lo,
-                A.local_wellT_pos, A.local_wellT_w0, xh2, xl2,
-                A.wellT_meta[2]))
+                A.local_rowsT_values, A.local_rowsT_values_lo,
+                A.local_rowsT_pos, A.local_rowsT_ptr, A.local_wellT_w0, xh2,
+                xl2, A.wellT_meta[2]))
             y = add(y, ds_mul_f32(A.diagonal, A.diagonal_lo, xh, xl))
             if A.farT_cols is not None:
                 y = add(y, _ell_ds_term(A.farT_cols, A.farT_vals,
@@ -624,6 +637,9 @@ def _assemble(
             planes(f"local_well{tag}_values", v)
             host.update({f"local_well{tag}_pos": p, f"local_well{tag}_w0": w0,
                          f"well{tag}_meta": meta})
+            host.update(_rows_fields(tag, pack_rows(
+                host[f"local_well{tag}_values"], p, meta[1],
+                host.get(f"local_well{tag}_values_lo"))))
             fars = well[f"far{tag}"]
             host[f"well_far{tag}_nnz"] = max((b.nnz for b in fars), default=0)
             if not ds:
@@ -691,6 +707,16 @@ def _assemble(
                       ncols_global=ncols_global, row_pad=row_pad,
                       symmetric=symmetric, nnz_global=nnz_global,
                       local_format=local_format, **fields)
+
+
+def _rows_fields(tag: str, rows) -> dict:
+    """DistMatrix fields of one stack's row lists (``pack_rows``); the lo
+    plane only for a double-single stack."""
+    out = {f"local_rows{tag}_values": rows.values, f"local_rows{tag}_pos": rows.pos,
+           f"local_rows{tag}_ptr": rows.slice_ptr}
+    if rows.values_lo is not None:
+        out[f"local_rows{tag}_values_lo"] = rows.values_lo
+    return out
 
 
 # index arrays, int64 on the device (torch.gather and scatter take int64)

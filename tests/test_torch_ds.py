@@ -355,12 +355,15 @@ def test_dia_ds_wrapper_rejects_bad_input(case, exc):
 @pytest.mark.parametrize("case,exc", [
     ("f64", TypeError), ("pos_dtype", TypeError), ("w0_dtype", TypeError),
     ("lo_shape", ValueError), ("groups", ValueError), ("w0_shape", ValueError),
-    ("x_shape", ValueError),
+    ("x_shape", ValueError), ("ptr_dtype", TypeError), ("ptr_length", ValueError),
 ])
 def test_well_ds_wrapper_rejects_bad_input(case, exc):
-    nd, k, g, tg = 2, 3, 8, 4
-    vh, vl = torch.zeros((nd, k, g, 128)), torch.zeros((nd, k, g, 128))
-    pos = torch.zeros((nd, k, g, 128), dtype=torch.int32)
+    """The row-list operands: values hi/lo and pos (D, E), slice_ptr
+    (D, 4G + 1), w0 (D, G/tg)."""
+    nd, e, g, tg = 2, 96, 8, 4
+    vh, vl = torch.zeros((nd, e)), torch.zeros((nd, e))
+    pos = torch.zeros((nd, e), dtype=torch.int32)
+    ptr = torch.zeros((nd, 4 * g + 1), dtype=torch.int64)
     w0 = torch.zeros((nd, g // tg), dtype=torch.int32)
     xh, xl = torch.zeros((nd * g, 128)), torch.zeros((nd * g, 128))
     if case == "f64":
@@ -370,12 +373,17 @@ def test_well_ds_wrapper_rejects_bad_input(case, exc):
     elif case == "w0_dtype":
         w0 = w0.long()
     elif case == "lo_shape":
-        vl = vl[:, :2].contiguous()
+        vl = vl[:, :64].contiguous()
     elif case == "groups":
         tg = 3
     elif case == "w0_shape":
         w0 = w0[:, :1].contiguous()
     elif case == "x_shape":
         xl = xl[:-1]
+    elif case == "ptr_dtype":
+        ptr = ptr.int()
+    elif case == "ptr_length":
+        ptr = ptr[:, :-2].contiguous()
     with pytest.raises(exc):
-        spmv_well_ds_cuda.spmv_well_ds_stacked(vh, vl, pos, w0, xh, xl, tg)
+        spmv_well_ds_cuda.spmv_well_ds_stacked(vh, vl, pos, ptr, w0, xh, xl, tg)
+    assert spmv_well_ds_cuda.launches["well_ds"] == 0

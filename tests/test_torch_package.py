@@ -41,8 +41,13 @@ from spmv_torch.ops.spmv_dia_ds import (
     spmm_dia_ds_stacked_plain,
     spmv_dia_ds_stacked_plain,
 )
-from spmv_torch.ops.spmv_well import spmv_well_stacked_plain
-from spmv_torch.ops.spmv_well_ds import csr_to_well_ds, spmv_well_ds_stacked_plain
+from spmv_torch.formats.well import pack_rows
+from spmv_torch.ops.spmv_well import spmv_well_rows_plain
+from spmv_torch.ops.spmv_well_ds import (
+    csr_to_well_ds,
+    spmv_well_ds_rows_plain,
+    spmv_well_ds_stacked_plain,
+)
 
 COUNTERS = (spmv_dia_cuda, spmv_well_cuda, spmv_dia_ds_cuda, spmv_well_ds_cuda,
             spmm_dia_cuda, spmm_well_cuda)
@@ -336,25 +341,42 @@ def test_dist_matrix_runs_through_kernel_on_cuda(cuda):
     assert spmv_dia_cuda.launches == {"dia": 0, "dia_sym": 1}
 
 
+def _rows_args(rng, dtype, pos_dtype, device, planes=1):
+    """Random stacked row lists: D=3 shards of 32 groups (128 slices) with
+    slice widths 0 to 6 (so the shards' entry counts differ), random window
+    starts and positions; x (D*col_pad/128, 128). Returns (value planes,
+    pos, slice_ptr, w0, x planes, tile_groups); DS planes get small lo
+    planes."""
+    nd, g, tg, col_pad = 3, 32, 8, 64 * 128
+    width = rng.integers(0, 7, (nd, g * 4))
+    ptr = np.zeros((nd, g * 4 + 1), dtype=np.int64)
+    ptr[:, 1:] = np.cumsum(width * 32, axis=1)
+    e = int(ptr[:, -1].max())
+    values = [torch.as_tensor(rng.standard_normal((nd, e)), dtype=dtype, device=device)
+              for _ in range(planes)]
+    pos = torch.as_tensor(rng.integers(0, 24 * 128, (nd, e)), dtype=pos_dtype,
+                          device=device)
+    w0 = torch.as_tensor(rng.integers(0, 5, (nd, g // tg)) * 8, dtype=torch.int32,
+                         device=device)
+    xs = [torch.as_tensor(rng.standard_normal((nd * col_pad // 128, 128)), dtype=dtype,
+                          device=device) for _ in range(planes)]
+    if planes == 2:
+        values[1], xs[1] = values[1] * 1e-8, xs[1] * 1e-8
+    return values, pos, torch.as_tensor(ptr, device=device), w0, xs, tg
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.float64, 1e-13)])
 @pytest.mark.parametrize("pos_dtype", [torch.int16, torch.int32])
 def test_well_kernel_matches_plain_on_cuda(cuda, pos_dtype, dtype, tol):
-    """Stacked shards, random window starts and positions: kernel vs plain
-    on the card."""
-    rng = np.random.default_rng(11)
-    nd, k, g, tg, col_pad = 3, 5, 32, 8, 64 * 128
-    values = torch.as_tensor(rng.standard_normal((nd, k, g, 128)), dtype=dtype,
-                             device=cuda)
-    pos = torch.as_tensor(rng.integers(0, 24 * 128, (nd, k, g, 128)),
-                          dtype=pos_dtype, device=cuda)
-    w0 = torch.as_tensor(rng.integers(0, 5, (nd, g // tg)) * 8,
-                         dtype=torch.int32, device=cuda)
-    x2 = torch.as_tensor(rng.standard_normal((nd * col_pad // 128, 128)),
-                         dtype=dtype, device=cuda)
-    y = spmv_well_cuda.spmv_well_stacked(values, pos, w0, x2, tg)
+    """Stacked shards of unequal entry counts, empty slices, random window
+    starts and positions: the row-list kernel vs its plain version on the
+    card."""
+    (values,), pos, ptr, w0, (x2,), tg = _rows_args(np.random.default_rng(11), dtype,
+                                                    pos_dtype, cuda)
+    y = spmv_well_cuda.spmv_well_stacked(values, pos, ptr, w0, x2, tg)
     torch.cuda.synchronize()
-    want = spmv_well_stacked_plain(values, pos, w0, x2, tg)
+    want = spmv_well_rows_plain(values, pos, ptr, w0, x2, tg)
     err = float(torch.linalg.vector_norm(y - want) / torch.linalg.vector_norm(want))
     assert err <= tol
     assert spmv_well_cuda.launches["well"] == 1
@@ -402,25 +424,15 @@ def test_dia_ds_kernel_matches_plain_on_cuda(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("pos_dtype", [torch.int16, torch.int32])
 def test_well_ds_kernel_matches_plain_on_cuda(cuda, pos_dtype):
-    """Stacked shards, random window starts and positions: kernel vs plain
-    on the card, both planes bit for bit."""
-    rng = np.random.default_rng(22)
-    nd, k, g, tg, col_pad = 3, 5, 32, 8, 64 * 128
-    vh = rng.standard_normal((nd, k, g, 128))
-    xh = rng.standard_normal((nd * col_pad // 128, 128))
-
-    def f32(v):
-        return torch.as_tensor(v, dtype=torch.float32, device=cuda)
-
-    args = (f32(vh), f32(vh * 1e-8 * rng.standard_normal(vh.shape)),
-            torch.as_tensor(rng.integers(0, 24 * 128, (nd, k, g, 128)),
-                            dtype=pos_dtype, device=cuda),
-            torch.as_tensor(rng.integers(0, 5, (nd, g // tg)) * 8,
-                            dtype=torch.int32, device=cuda),
-            f32(xh), f32(xh * 1e-8 * rng.standard_normal(xh.shape)), tg)
+    """Stacked shards of unequal entry counts, empty slices, random window
+    starts and positions: the row-list kernel vs its plain version on the
+    card, both planes bit for bit."""
+    vs, pos, ptr, w0, xs, tg = _rows_args(np.random.default_rng(22), torch.float32,
+                                          pos_dtype, cuda, planes=2)
+    args = (*vs, pos, ptr, w0, *xs, tg)
     got = spmv_well_ds_cuda.spmv_well_ds_stacked(*args)
     torch.cuda.synchronize()
-    assert _bits_equal(got, spmv_well_ds_stacked_plain(*args))
+    assert _bits_equal(got, spmv_well_ds_rows_plain(*args))
     assert spmv_well_ds_cuda.launches["well_ds"] == 1
 
 
@@ -510,6 +522,16 @@ def _spmm_well_args(rng, dtype, pos_dtype, nrhs, device, planes=1):
         values[1] = values[1] * 1e-8
         xs[1] = xs[1] * 1e-8
     return values, pos, w0, xs, tg
+
+
+def _rows_of(pos, w0, *planes):
+    """The row-list operands (value planes, pos, slice_ptr, w0) of a stacked
+    WELL stack whose positions lie in a 24-segment window, on its device."""
+    rows = pack_rows(planes[0].cpu().numpy(), pos.cpu().numpy(), 24,
+                     values_lo=planes[1].cpu().numpy() if len(planes) == 2 else None)
+    out = [rows.values] + ([rows.values_lo] if len(planes) == 2 else [])
+    return (*(torch.as_tensor(a, device=pos.device)
+              for a in (*out, rows.pos, rows.slice_ptr)), w0)
 
 
 @pytest.mark.parametrize("symmetric", [False, True])
@@ -614,8 +636,9 @@ def test_well_spmm_kernel_matches_plain_on_cuda(cuda, pos_dtype, dtype, tol, nrh
     err = float(torch.linalg.vector_norm(y - want) / torch.linalg.vector_norm(want))
     assert err <= tol
     assert spmm_well_cuda.launches["well_spmm"] == 1
+    rows = _rows_of(pos, w0, v)
     for c, yc in zip(columns(x), columns(y)):
-        assert torch.equal(yc, spmv_well_cuda.spmv_well_stacked(v, pos, w0, c, tg))
+        assert torch.equal(yc, spmv_well_cuda.spmv_well_stacked(*rows, c, tg))
 
 
 @pytest.mark.cuda
@@ -639,8 +662,9 @@ def test_ds_spmm_kernels_match_plain_on_cuda(cuda, nrhs):
         got = spmm_well_cuda.spmm_well_ds_stacked(*vs, pos, w0, *xs, tg)
         torch.cuda.synchronize()
         assert _bits_equal(got, spmm_well_ds_stacked_plain(*vs, pos, w0, *xs, tg))
+        rows = _rows_of(pos, w0, *vs)
         for r, (h, lo) in enumerate(zip(columns(xs[0]), columns(xs[1]))):
-            one = spmv_well_ds_cuda.spmv_well_ds_stacked(*vs, pos, w0, h, lo, tg)
+            one = spmv_well_ds_cuda.spmv_well_ds_stacked(*rows, h, lo, tg)
             assert _bits_equal([columns(g)[r] for g in got], one)
     assert spmv_dia_ds_cuda.launches["dia_ds_spmm"] == 1
     assert spmm_well_cuda.launches["well_ds_spmm"] == 2

@@ -32,7 +32,7 @@ from spmv_torch.formats.well import (
 from spmv_torch.ops import spmv_well_cuda
 from spmv_torch.ops.spmv_well import (
     spmv_well,
-    spmv_well_stacked_plain,
+    spmv_well_rows_plain,
     spmv_well_sym,
     spmv_well_sym_2d,
     well_to_2d,
@@ -200,34 +200,44 @@ def test_sym_matches_reference(wseg_cap, dtype):
 
 
 def test_stacked_plain_reads_each_shard_window():
-    """D=3 stacked blocks, tile_groups 2: shard s reads x[s*col_pad + w0*128
-    + pos] and nothing of its neighbours."""
+    """D=3 stacked row lists of random widths (some 0) and entry counts,
+    tile_groups 2: row r of shard s sums values * x[s*col_pad + w0*128 +
+    pos] over its slice's entries, and reads nothing of its neighbours."""
     rng = np.random.default_rng(9)
-    nd, k, g, tg, col_pad = 3, 4, 6, 2, 8 * 128
-    values = torch.from_numpy(rng.standard_normal((nd, k, g, 128)))
-    pos = torch.from_numpy(rng.integers(0, 4 * 128, (nd, k, g, 128)).astype(np.int32))
+    nd, g, tg, col_pad = 3, 6, 2, 8 * 128
+    ns = g * 128 // 32
+    width = rng.integers(0, 4, (nd, ns))
+    ptr = np.zeros((nd, ns + 1), dtype=np.int64)
+    ptr[:, 1:] = np.cumsum(width * 32, axis=1)
+    e = int(ptr[:, -1].max())
+    values = torch.from_numpy(rng.standard_normal((nd, e)))
+    pos = torch.from_numpy(rng.integers(0, 4 * 128, (nd, e)).astype(np.int16))
     w0 = torch.from_numpy(rng.integers(0, 5, (nd, g // tg)).astype(np.int32))
     x2 = torch.from_numpy(rng.standard_normal((nd * col_pad // 128, 128)))
-    got = spmv_well_cuda.spmv_well_stacked(values, pos, w0, x2, tg)
+    got = spmv_well_cuda.spmv_well_stacked(values, pos, torch.from_numpy(ptr), w0,
+                                           x2, tg)
     xs = x2.reshape(nd, col_pad).numpy()
     want = np.zeros((nd, g * 128))
     for s in range(nd):
         for r in range(g * 128):
             base = int(w0[s, r // 128 // tg]) * 128
-            for kk in range(k):
-                want[s, r] += (values[s, kk].reshape(-1)[r].item()
-                               * xs[s, base + int(pos[s, kk].reshape(-1)[r])])
+            for j in range(width[s, r // 32]):
+                at = ptr[s, r // 32] + 32 * j + r % 32
+                want[s, r] += values[s, at].item() * xs[s, base + int(pos[s, at])]
     assert np.allclose(got.numpy().reshape(nd, -1), want, rtol=1e-13, atol=1e-13)
-    assert torch.equal(got, spmv_well_stacked_plain(values, pos, w0, x2, tg))
+    assert torch.equal(got, spmv_well_rows_plain(values, pos, torch.from_numpy(ptr),
+                                                 w0, x2, tg))
     assert spmv_well_cuda.launches["well"] == 0
 
 
 def _wrapper_inputs(dtype=torch.float32):
-    values = torch.zeros((2, 3, 4, 128), dtype=dtype)
-    pos = torch.zeros((2, 3, 4, 128), dtype=torch.int16)
+    """Row-list operands: D=2, G=4 groups (16 slices), E=64 entries."""
+    values = torch.zeros((2, 64), dtype=dtype)
+    pos = torch.zeros((2, 64), dtype=torch.int16)
+    ptr = torch.zeros((2, 17), dtype=torch.int64)
     w0 = torch.zeros((2, 2), dtype=torch.int32)
     x2 = torch.zeros((2 * 4, 128), dtype=dtype)
-    return values, pos, w0, x2
+    return values, pos, ptr, w0, x2
 
 
 @pytest.mark.parametrize("case,exc", [
@@ -241,9 +251,11 @@ def _wrapper_inputs(dtype=torch.float32):
     ("w0_shape", ValueError),
     ("x_shape", ValueError),
     ("noncontiguous", ValueError),
+    ("ptr_int32", TypeError),
+    ("ptr_length", ValueError),
 ])
 def test_wrapper_rejects_bad_input(case, exc):
-    values, pos, w0, x2 = _wrapper_inputs()
+    values, pos, ptr, w0, x2 = _wrapper_inputs()
     tg = 2
     if case == "bf16":
         values, x2 = values.bfloat16(), x2.bfloat16()
@@ -254,9 +266,9 @@ def test_wrapper_rejects_bad_input(case, exc):
     elif case == "w0_int64":
         w0 = w0.long()
     elif case == "values_shape":
-        values, pos = values[..., :64], pos[..., :64]
+        values = values[None]
     elif case == "pos_shape":
-        pos = pos[:, :2]
+        pos = pos[:, :32]
     elif case == "tile_groups":
         tg = 3
     elif case == "w0_shape":
@@ -265,8 +277,12 @@ def test_wrapper_rejects_bad_input(case, exc):
         x2 = x2[:-1]
     elif case == "noncontiguous":
         x2 = torch.zeros((128, 8), dtype=values.dtype).t()
+    elif case == "ptr_int32":
+        ptr = ptr.int()
+    elif case == "ptr_length":
+        ptr = ptr[:, :-1]
     with pytest.raises(exc):
-        spmv_well_cuda.spmv_well_stacked(values, pos, w0, x2, tg)
+        spmv_well_cuda.spmv_well_stacked(values, pos, ptr, w0, x2, tg)
     assert spmv_well_cuda.launches["well"] == 0
 
 
