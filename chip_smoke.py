@@ -42,7 +42,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      rtol=1e-6); before the solves, the kernel vs its plain version on
      every stack they launch (L K=48 and L^T K=32 of both symmetric
      operators, the vanilla stack; tolerances as in phase 7), each also bit
-     for bit against the block kernel's column at nrhs 1, with the row
+     for bit against the block kernel's column at nrhs 1 (both kernels read
+     the row lists), with the row
      lists' geometry and the packer's seconds printed; the WELL
      launch counter, zeroed just before the solves, must show every apply
      went through the kernel (2 launches per symmetric apply, 1 per
@@ -58,7 +59,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      iterations (the reason the path is Jacobi-PCG; not gated);
   9. the WELL halo path: an RCM'd 50k-node FEM on D=4 stacked shards,
      vanilla and symmetric, fp32 and fp64 — one matvec vs the host oracle
-     and a 30-iteration Jacobi-PCG;
+     (applied twice: the same bits, the determinism gate of phases 9, 14,
+     16 and 17) and a 30-iteration Jacobi-PCG;
  11. the double-single kernels vs their plain versions, both planes bit for
      bit: dia_ds_spmv on the 3200^2 Laplacian and a random banded D=3 stack,
      well_ds_spmv on the 4M bench matrix (tile_groups 64), a pair=True and
@@ -82,15 +84,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      true float64 residual <= 1e-8 and 100x below a plain fp32 CG's; then,
      printed, cg_refined at 1024^2;
  14. the DS halo path on D=4 stacked shards: one matvec_ds vs the host
-     oracle (<= 1e-13) for the 512^2 Laplacian (dia_ds) and the RCM'd 50k
-     FEM (well_ds, vanilla and symmetric); a Jacobi cg_refined_dist(well)
-     on that FEM, printed;
+     oracle (<= 1e-13; applied twice, the same bits) for the 512^2
+     Laplacian (dia_ds) and the RCM'd 50k FEM (well_ds, vanilla and
+     symmetric); a Jacobi cg_refined_dist(well) on that FEM, printed;
  15. the five block (SpMM) kernels vs their plain versions on the card
      (fp32/fp64 within TOL_KERNEL, double-single both planes bit for bit),
      every column bit-equal to the single-RHS kernel on that column:
      dia_spmm and dia_sym_spmm at 3200^2 fp32 and fp64 and dia_ds_spmm at
      3200^2, nrhs 1, 3, 8 and 11 (11 = a chunk of 8 columns and one of 3),
-     and on a random banded D=3 stack; well_spmm and well_ds_spmm on the
+     and on a random banded D=3 stack; well_spmm and well_ds_spmm, which
+     read the stacks' row lists as the single-RHS WELL kernels do, on the
      4M bench matrix, a paired and an int32-pos packing of 200k rows and a
      D=3 stack, nrhs 1, 8 and 11;
  16. the block path at full size, nrhs 8; before each solve, its block
@@ -103,11 +106,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      block_cg_refined_dist(well) on circuit_network(800) (640k nodes,
      RCM'd, a far remainder; <= 1e-9), each inner iteration exactly one
      dia_spmm / well_spmm launch plus one per pass, each residual one
-     dia_ds_spmm / well_ds_spmm launch, no single-RHS launch; then
-     block_cg_dia on symmetric float64 storage at 1024^2 (rtol 1e-10, every
-     column <= 1e-9, one dia_sym_spmm launch per block apply);
+     dia_ds_spmm / well_ds_spmm launch, no single-RHS launch; on the
+     circuit's fp32 operator (58196 far entries) three matvec and three
+     matmat applies give the same bits, its WELL slots, row-list entries
+     and device bytes are printed, and the circuit solve runs twice: the
+     same outer and inner counts and the same bits; then block_cg_dia on
+     symmetric float64 storage at 1024^2 (rtol 1e-10, every column <=
+     1e-9, one dia_sym_spmm launch per block apply);
  17. the block halo on D=4 stacked shards, nrhs 3: matmat per column vs the
-     host oracle (512^2 Laplacian: dia vanilla and symmetric, ell
+     host oracle, each apply twice with the same bits (512^2 Laplacian:
+     dia vanilla and symmetric, ell
      symmetric; RCM'd 50k FEM: well vanilla and symmetric; fp32 and fp64)
      and matmat_ds (dia_ds, well_ds; <= 1e-13), and a 20-iteration block_cg
      on the fp64 dia operator (host residuals within 1e-9 of the reported);
@@ -122,7 +130,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      4M matrix; the yardstick the faster of one torch CSR @ X on a
      row-major and on a column-major (n, 8) block) beside 8 x the
      single-RHS kernel's ms from this run, and each block kernel at nrhs 1
-     beside its single-RHS kernel, in turns.
+     beside its single-RHS kernel, in turns; the two WELL block kernels
+     also on the local stacks of phase 16c's circuit operators at nrhs 8,
+     by device time from torch.profiler (kernel, plain and cuSPARSE), the
+     chained time beside it.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -143,7 +154,7 @@ from spmv_torch.corpus import circuit_network, fem_p1_2d
 from spmv_torch.formats.csr import CSRHost
 from spmv_torch.formats.dia import csr_to_dia
 from spmv_torch.ds import ds_from_f64, ds_to_f64
-from spmv_torch.formats.well import csr_to_well, csr_to_well_sym, pack_rows
+from spmv_torch.formats.well import csr_to_well, csr_to_well_sym, pack_rows, split_window
 from spmv_torch.gen import create_laplace_2d, gaussian_bump
 from spmv_torch.ops import (
     spmm_dia_cuda,
@@ -165,7 +176,6 @@ from spmv_torch.ops.spmv_dia_ds import (
     spmv_dia_ds_stacked_plain,
 )
 from spmv_torch.ops.spmv_well import (
-    far_add,
     spmv_well_rows_plain,
     spmv_well_stacked_plain,
     spmv_well_sym,
@@ -175,7 +185,7 @@ from spmv_torch.ops.spmv_well_ds import (
     spmv_well_ds_rows_plain,
     spmv_well_ds_stacked_plain,
 )
-from spmv_torch.parallel.dist_matrix import build_dist_matrix
+from spmv_torch.parallel.dist_matrix import HOST_FIELDS, WELL_WSEG_CAP, build_dist_matrix
 from spmv_torch.reorder import rcm_reorder
 from spmv_torch.solvers.block_cg import block_cg, block_cg_dia, block_cg_refined_dist
 from spmv_torch.solvers.cg import cg
@@ -545,10 +555,13 @@ def dist_rows(A, tag=""):
 
 
 def dist_well(A, tag=""):
-    """Its WELL operands of the same stack: (values [hi, lo], pos, w0)."""
+    """Its WELL operands of the same stack, (values [hi, lo], pos, w0), on
+    the operator's device: the oracles read them there, the operator keeps
+    values and pos on the host."""
     lo = getattr(A, f"local_well{tag}_values_lo")
-    return (getattr(A, f"local_well{tag}_values"), *([] if lo is None else [lo]),
-            getattr(A, f"local_well{tag}_pos"), getattr(A, f"local_well{tag}_w0"))
+    return tuple(t.to(A.device) for t in (
+        getattr(A, f"local_well{tag}_values"), *([] if lo is None else [lo]),
+        getattr(A, f"local_well{tag}_pos"), getattr(A, f"local_well{tag}_w0")))
 
 
 def well_compare(name, rows, well, x2, tg, tol):
@@ -577,19 +590,33 @@ def well_ds_compare(name, rows, well, xs, tg) -> np.ndarray:
                       (*rows, *xs, tg))
 
 
-def block_column_check(name, rows, well, xs, tg) -> None:
-    """The block kernel at nrhs 1 on a stack's WELL arrays vs the single-RHS
-    kernel on its row lists: bit for bit (both planes for DS)."""
+def block_column_check(name, rows, xs, tg) -> None:
+    """The block kernel at nrhs 1 vs the single-RHS kernel, both on the
+    stack's row lists: bit for bit (both planes for DS)."""
     if len(xs) == 1:
-        one = (spmm_well_cuda.spmm_well_stacked(*well, *xs, tg),)
+        one = (spmm_well_cuda.spmm_well_stacked(*rows, *xs, tg),)
         got = (spmv_well_cuda.spmv_well_stacked(*rows, *xs, tg),)
     else:
-        one = spmm_well_cuda.spmm_well_ds_stacked(*well, *xs, tg)
+        one = spmm_well_cuda.spmm_well_ds_stacked(*rows, *xs, tg)
         got = spmv_well_ds_cuda.spmv_well_ds_stacked(*rows, *xs, tg)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, one)):
         fail(f"{name}: the single-RHS kernel differs from the block kernel's "
              "column at nrhs 1")
+
+
+def same_bits(tag: str, apply, runs: int = 2):
+    """The determinism gate: ``apply()`` ``runs`` times on the same inputs
+    must give the same bits (no term of an apply sums with atomics).
+    Returns the first run's result."""
+    first = apply()
+    first = first if isinstance(first, tuple) else (first,)
+    for _ in range(runs - 1):
+        again = apply()
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            fail(f"{tag}: a repeated apply on the same inputs gave other bits")
+    return first if len(first) > 1 else first[0]
 
 
 def rows_stats(ptr, nnz: int) -> dict:
@@ -706,26 +733,32 @@ def sym_plain(sw, xp):
             xp.view(-1, 128), w.tile_groups).view(-1)
 
     y = plain(sw.lower) + plain(sw.upper) + sw.diag * xp
-    for far in (sw.farl, sw.faru):
+    for far in (sw.farl_ell, sw.faru_ell):
         if far is not None:
-            far_add(y.view(1, -1), *(t.view(1, -1) for t in far), xp.view(1, -1))
+            cols, vals = far
+            y = y + (vals * xp[cols]).sum(-1)
     return y
 
 
 def well_stats(A, a):
-    """Geometry of a DistMatrix's WELL stacks, for the phase lines."""
+    """Geometry of a DistMatrix's WELL stacks, for the phase lines: WELL
+    slots and row-list entries beside the stored nonzeros, the bytes the
+    card holds and those of the WELL arrays kept on the host."""
     k, wseg, tg, paired = A.well_meta
     stored = int((A.local_well_values != 0).sum())
     slots = A.local_well_values.numel()
     if A.symmetric:
         stored += int((A.local_wellT_values != 0).sum())
         slots += A.local_wellT_values.numel()
+    host_bytes = sum(t.numel() * t.element_size() for t in
+                     (getattr(A, name) for name in HOST_FIELDS) if t is not None)
     out = dict(rows=a.nrows, nnz=a.nnz, k_slots=k,
                k_slots_T=A.wellT_meta[0] if A.symmetric else None,
-               wseg=wseg, tile_groups=tg, paired=paired,
+               wseg=wseg, tile_groups=tg, paired=paired, well_slots=slots,
                occupancy=stored / slots,
                far_nnz=A.well_far_nnz + A.well_farT_nnz,
-               rows_pos_dtype=str(A.local_rows_pos.dtype))
+               rows_pos_dtype=str(A.local_rows_pos.dtype),
+               device_bytes=A.format_size_bytes(), well_host_bytes=host_bytes)
     entries = int(A.local_rows_ptr[:, -1].sum())
     if A.symmetric:
         entries += int(A.local_rowsT_ptr[:, -1].sum())
@@ -773,9 +806,9 @@ def phase_fem_main_path(dev):
             name = f"spmv_well FEM {part} {dname} ({fmt})"
             _, err, mabs = well_compare(name, rows, well, x2, meta[2],
                                         TOL_KERNEL[dname])
-            block_column_check(name, rows, well, (x2,), meta[2])
+            block_column_check(name, rows, (x2,), meta[2])
             max_abs = max(max_abs, mabs)
-            host = [t.cpu().numpy() for t in well[:2]]
+            host = [getattr(A, f"local_well{tag}_{f}").numpy() for f in ("values", "pos")]
             t0 = time.perf_counter()
             packed = pack_rows(*host, meta[1])
             pack_s = time.perf_counter() - t0
@@ -887,12 +920,11 @@ def phase_fem_plain_witness(a, A, b, res_kernel):
     if A.n_devices != 1 or A.well_far_nnz or A.well_farT_nnz:
         fail("the FEM plain witness needs D=1 and an empty far remainder")
     d2 = A.diagonal.view(-1, 128)
+    lower, upper = dist_well(A), dist_well(A, "T")
 
     def plain_op(p):
-        y = spmv_well_stacked_plain(A.local_well_values, A.local_well_pos,
-                                    A.local_well_w0, p, A.well_meta[2])
-        y = y + spmv_well_stacked_plain(A.local_wellT_values, A.local_wellT_pos,
-                                        A.local_wellT_w0, p, A.wellT_meta[2])
+        y = spmv_well_stacked_plain(*lower, p, A.well_meta[2])
+        y = y + spmv_well_stacked_plain(*upper, p, A.wellT_meta[2])
         return y + d2 * p
 
     torch.cuda.synchronize()
@@ -935,7 +967,8 @@ def phase_well_halo(dev):
             A = build_dist_matrix(a, n_devices=HALO_D, symmetric=sym, dtype=dt,
                                   local_format="well", device=dev)
             x = rng.standard_normal(a.nrows).astype(dt)
-            y = A.from_dist(A.matvec(A.to_dist(x)))
+            x2 = A.to_dist(x)
+            y = A.from_dist(same_bits(f"9: halo matvec {tag}", lambda: A.matvec(x2)))
             merr = rel_l2(y, a.matvec(x.astype(np.float64)))
             if merr > TOL_ORACLE[dname]:
                 fail(f"halo matvec {tag}: rel err {merr:.3e}")
@@ -955,7 +988,8 @@ def phase_well_halo(dev):
             show("9.halo", run=tag, rows=a.nrows, shards=HALO_D,
                  rounds=list(A.plan.rounds), **{k: v for k, v in well_stats(A, a).items()
                                                if k not in ("rows", "nnz")},
-                 matvec_rel_l2_vs_host=merr, cg_iterations=res.iterations,
+                 matvec_rel_l2_vs_host=merr, matvec_same_bits_twice=True,
+                 cg_iterations=res.iterations,
                  cg_host_rel_residual=host_rel, cg_reported_rel_residual=rep_rel)
 
 
@@ -1040,16 +1074,19 @@ def library_device_ms(a: CSRHost, dev, scale: float, dtype=np.float32) -> float:
     return ms
 
 
-def library_block_ms(a: CSRHost, dev, scale: float, dtype, nrhs: int) -> dict:
+def library_block_ms(a: CSRHost, dev, scale: float, dtype, nrhs: int,
+                     timer=None) -> dict:
     """ms of one torch CSR @ X (cuSPARSE SpMM) on a random (n, nrhs) block
-    of the square matrix ``a``, chained: with X and the product row-major
+    of the square matrix ``a``, chained (``timer(step, x0)``, by default
+    CUDA events over 50 calls): with X and the product row-major
     (``m @ X``), and with both column-major (``torch.mm(m, X, out=)`` into
     two column-major buffers in turn). ``column_major_kept`` says the
     buffers kept their column-major strides."""
+    timer = timer or (lambda step, x0: 1e3 * bench_chained(step, x0, iters=50))
     m = csr_tensor(a, dev, scale, dtype)
     x0 = torch.as_tensor(np.random.default_rng(10).standard_normal((a.ncols, nrhs))
                          .astype(dtype), device=dev)
-    row_major = 1e3 * bench_chained(lambda v: m @ v, x0, iters=50)
+    row_major = timer(lambda v: m @ v, x0)
     bufs = [torch.empty((nrhs, a.nrows), dtype=x0.dtype, device=dev).t()
             for _ in range(2)]
     turn = [0]
@@ -1058,7 +1095,7 @@ def library_block_ms(a: CSRHost, dev, scale: float, dtype, nrhs: int) -> dict:
         turn[0] ^= 1
         return torch.mm(m, v, out=bufs[turn[0]])
 
-    column_major = 1e3 * bench_chained(col_step, x0.t().contiguous().t(), iters=50)
+    column_major = timer(col_step, x0.t().contiguous().t())
     kept = all(b.stride() == (1, a.nrows) for b in bufs)
     del m, bufs
     return dict(row_major=row_major, column_major=column_major, column_major_kept=kept)
@@ -1347,7 +1384,7 @@ def phase_ds_main_path(a_lap, a_fem, fem_fp64, dev):
         rows, well = dist_rows(A, tag), dist_well(A, tag)
         name = f"well_ds_spmv FEM {part}"
         well_ds_compare(name, rows, well, xs, meta[2])
-        block_column_check(name, rows, well, xs, meta[2])
+        block_column_check(name, rows, xs, meta[2])
         show("12.kernel", kernel="well_ds_spmv", bit_equal_to_plain=True,
              bit_equal_to_block_kernel_nrhs1=True,
              matrix=f"fem_p1_2d {N_FEM} RCM, {part} stack (auto, float64)",
@@ -1455,14 +1492,14 @@ def phase_ds_halo(dev):
         A = build_dist_matrix(a, n_devices=HALO_D, symmetric=sym, local_format=fmt,
                               device=dev)
         x = rng.standard_normal(a.nrows) * 1e3
-        xh, xl = ds_from_f64(x)
-        yh, yl = A.matvec_ds(A.to_dist(xh), A.to_dist(xl))
-        err = rel_l2(ds_to_f64(A.from_dist(yh), A.from_dist(yl)), a.matvec(x))
+        xs = [A.to_dist(p) for p in ds_from_f64(x)]
         tag = f"{fmt} {'symmetric' if sym else 'vanilla'}"
+        yh, yl = same_bits(f"14: {tag} matvec_ds", lambda: A.matvec_ds(*xs))
+        err = rel_l2(ds_to_f64(A.from_dist(yh), A.from_dist(yl)), a.matvec(x))
         show("14.halo", run=tag, rows=a.nrows, shards=HALO_D,
              rounds=list(A.plan.rounds), nghost_pad=A.plan.nghost_pad,
              reverse_exchange=A.remoteT_colind is not None,
-             matvec_ds_rel_l2_vs_host=err)
+             matvec_ds_rel_l2_vs_host=err, matvec_ds_same_bits_twice=True)
         if not err <= DS_ORACLE_TOL:
             fail(f"14: {tag} matvec_ds {err:.3e} from the host CSR")
     b = gaussian_bump(fem.nrows)
@@ -1708,41 +1745,39 @@ def phase_block_kernels(a, w4, w4ds, dev):
     for dt in (np.float32, np.float64):
         A = build_dist_matrix(small, n_devices=3, dtype=dt, local_format="well",
                               device=dev)
-        stacks.append((dist_well(A), dist_rows(A), A.well_meta[2],
-                       A.n_devices * A.col_pad // 128))
+        stacks.append((dist_rows(A), A.well_meta[2], A.n_devices * A.col_pad // 128))
     Ads = build_dist_matrix(small64, n_devices=3, local_format="well_ds", device=dev)
-    ds_stack = (dist_well(Ads), dist_rows(Ads), Ads.well_meta[2],
-                Ads.n_devices * Ads.col_pad // 128)
+    ds_stack = (dist_rows(Ads), Ads.well_meta[2], Ads.n_devices * Ads.col_pad // 128)
 
-    # the single-RHS side reads the row lists of the same stack
-    def well_run(matrix, well, rows_, tg, rows, nrhs):
-        v = well[0]
+    # both kernels read the stack's row lists
+    def well_run(matrix, rows_, tg, rows, nrhs):
+        v = rows_[0]
         dname = str(v.dtype).split(".")[1]
         run("well_spmm", matrix, dname, nrhs,
-            lambda x: spmm_well_cuda.spmm_well_stacked(*well, x, tg),
-            lambda x: spmm_well_stacked_plain(*well, x, tg),
+            lambda x: spmm_well_cuda.spmm_well_stacked(*rows_, x, tg),
+            lambda x: spmm_well_stacked_plain(*rows_, x, tg),
             lambda x: spmv_well_cuda.spmv_well_stacked(*rows_, x, tg),
             (lanes_block(gen, rows, nrhs, v.dtype, dev),), TOL_KERNEL[dname],
-            k_slots=v.shape[1], pos_dtype=str(well[1].dtype))
+            rows_entries=v.shape[1], pos_dtype=str(rows_[-3].dtype))
 
-    def well_ds_run(matrix, well, rows_, tg, rows, nrhs):
+    def well_ds_run(matrix, rows_, tg, rows, nrhs):
         xh = lanes_block(gen, rows, nrhs, torch.float32, dev)
         run("well_ds_spmm", matrix, "double-single", nrhs,
-            lambda h, lo: spmm_well_cuda.spmm_well_ds_stacked(*well, h, lo, tg),
-            lambda h, lo: spmm_well_ds_stacked_plain(*well, h, lo, tg),
+            lambda h, lo: spmm_well_cuda.spmm_well_ds_stacked(*rows_, h, lo, tg),
+            lambda h, lo: spmm_well_ds_stacked_plain(*rows_, h, lo, tg),
             lambda h, lo: spmv_well_ds_cuda.spmv_well_ds_stacked(*rows_, h, lo, tg),
-            (xh, xh * 1e-8), None, k_slots=well[0].shape[1],
-            pos_dtype=str(well[2].dtype))
+            (xh, xh * 1e-8), None, rows_entries=rows_[0].shape[1],
+            pos_dtype=str(rows_[-3].dtype))
 
     for nrhs in NRHS_WELL:
         for matrix, w, wds in cases:
             for dt in (torch.float32, torch.float64):
                 wd = as_dtype(w, dt)
-                well_run(matrix, well_args(wd), rows_args(wd), wd.tile_groups,
-                         wd.ncols_pad // 128, nrhs)
+                well_run(matrix, rows_args(wd), wd.tile_groups, wd.ncols_pad // 128,
+                         nrhs)
                 del wd
-            well_ds_run(matrix, well_args(wds), rows_args(wds), wds.tile_groups,
-                        wds.ncols_pad // 128, nrhs)
+            well_ds_run(matrix, rows_args(wds), wds.tile_groups, wds.ncols_pad // 128,
+                        nrhs)
         for stack in stacks:
             well_run(f"bench {N_WELL_SMALL}, D=3 stacked", *stack, nrhs)
         well_ds_run(f"bench {N_WELL_SMALL}, D=3 stacked", *ds_stack, nrhs)
@@ -1760,8 +1795,11 @@ def path_stack_checks(a, fmt, matrix, gen, dev, max_abs):
     versions at nrhs NRHS on the local stacks of the fp32 operator and its
     double-single twin, built by the same ``build_dist_matrix`` calls that
     ``block_cg_refined_dist`` makes (fp32 within TOL_KERNEL, DS both planes
-    bit for bit, every column bit-equal to the single-RHS kernel). These
-    launches come before the counters are zeroed."""
+    bit for bit, every column bit-equal to the single-RHS kernel). On a
+    WELL operator, its stack's geometry and the determinism gate: three
+    matvec and three matmat applies of the fp32 operator (far remainder
+    included) give the same bits. These launches come before the counters
+    are zeroed. Returns the two operators."""
     a32 = build_dist_matrix(a, n_devices=1, dtype=np.float32, local_format=fmt,
                             device=dev)
     ads = build_dist_matrix(a, n_devices=1, local_format=fmt + "_ds", device=dev)
@@ -1783,20 +1821,27 @@ def path_stack_checks(a, fmt, matrix, gen, dev, max_abs):
                     lambda h, lo: spmv_dia_ds_cuda.spmv_dia_ds_stacked(*planes, h, lo, offs),
                     xds, None, ndiags=len(offs))
     else:
-        args, rows, tg = dist_well(a32), dist_rows(a32), a32.well_meta[2]
+        rows, tg = dist_rows(a32), a32.well_meta[2]
         block_check(max_abs, "16", "well_spmm", tag, "float32", NRHS,
-                    lambda v: spmm_well_cuda.spmm_well_stacked(*args, v, tg),
-                    lambda v: spmm_well_stacked_plain(*args, v, tg),
+                    lambda v: spmm_well_cuda.spmm_well_stacked(*rows, v, tg),
+                    lambda v: spmm_well_stacked_plain(*rows, v, tg),
                     lambda v: spmv_well_cuda.spmv_well_stacked(*rows, v, tg),
-                    x, TOL_KERNEL["float32"], k_slots=args[0].shape[1],
+                    x, TOL_KERNEL["float32"], rows_entries=rows[0].shape[1],
                     far_nnz=a32.well_far_nnz)
-        dargs, drows, tg = dist_well(ads), dist_rows(ads), ads.well_meta[2]
+        drows, tg = dist_rows(ads), ads.well_meta[2]
         block_check(max_abs, "16", "well_ds_spmm", tag, "double-single", NRHS,
-                    lambda h, lo: spmm_well_cuda.spmm_well_ds_stacked(*dargs, h, lo, tg),
-                    lambda h, lo: spmm_well_ds_stacked_plain(*dargs, h, lo, tg),
+                    lambda h, lo: spmm_well_cuda.spmm_well_ds_stacked(*drows, h, lo, tg),
+                    lambda h, lo: spmm_well_ds_stacked_plain(*drows, h, lo, tg),
                     lambda h, lo: spmv_well_ds_cuda.spmv_well_ds_stacked(*drows, h, lo, tg),
-                    xds, None, k_slots=dargs[0].shape[1], far_nnz=ads.well_far_nnz)
-    del a32, ads
+                    xds, None, rows_entries=drows[0].shape[1], far_nnz=ads.well_far_nnz)
+        v1 = x[0][:, :128].contiguous()
+        same_bits(f"16 {matrix}: matvec", lambda: a32.matvec(v1), runs=3)
+        same_bits(f"16 {matrix}: matmat", lambda: a32.matmat(x[0]), runs=3)
+        show("16.well_stats", matrix=matrix, operator="float32 (block_cg_refined_dist's)",
+             **well_stats(a32, a), ds_device_bytes=ads.format_size_bytes(),
+             ds_well_host_bytes=well_stats(ads, a)["well_host_bytes"],
+             matvec_same_bits_3x=True, matmat_same_bits_3x=True)
+    return a32, ads
 
 
 def phase_block_path(dev, max_abs):
@@ -1830,12 +1875,16 @@ def phase_block_path(dev, max_abs):
         ("c", f"circuit_network({CIRCUIT_BLOCK_NX}) RCM", circuit, "well",
          dict(inner_rtol=1e-4, inner_kmax=4000, max_outer=10), BLOCK_TOL["c"]),
     )
+    circuit_ops = None
     for tag, matrix, make, fmt, kw, tol in runs:
         t0 = time.perf_counter()
         a = make()
         B = np.random.default_rng(160).standard_normal((a.nrows, NRHS))
         t_make = time.perf_counter() - t0
-        path_stack_checks(a, fmt, matrix, gen, dev, max_abs)
+        ops = path_stack_checks(a, fmt, matrix, gen, dev, max_abs)
+        if fmt == "well":
+            circuit_ops = (a, *ops)
+        del ops
         reset_counters()
         t0 = time.perf_counter()
         X, outer, inner, rnorms = block_cg_refined_dist(a, B, local_format=fmt,
@@ -1864,6 +1913,17 @@ def phase_block_path(dev, max_abs):
             fail(f"16{tag}: the block path launched {singles} single-RHS kernels")
         for key in totals:
             totals[key] += got[key]
+        if fmt == "well":
+            # the determinism gate, end to end: the same solve again
+            X2, outer2, inner2, _ = block_cg_refined_dist(a, B, local_format=fmt,
+                                                          device=dev, **kw)
+            show("16.block_path", run=f"block_cg_refined_dist {fmt}, {matrix}, again",
+                 outer_passes=outer2, inner_iterations=inner2,
+                 same_bits_as_first=bool(np.array_equal(X, X2)))
+            if (outer2, inner2) != (outer, inner) or not np.array_equal(X, X2):
+                fail(f"16{tag}: a second solve took {outer2} outer passes and "
+                     f"{inner2} inner iterations (first {outer}, {inner}) or "
+                     "ended on other bits")
         del X, a
 
     d = csr_to_dia(lap_refine, row_align=ROW_ALIGN, dtype=np.float64, symmetric=True,
@@ -1899,7 +1959,7 @@ def phase_block_path(dev, max_abs):
     for key in totals:
         totals[key] += got[key]
     show("16.block_path", launches=totals)
-    return totals
+    return totals, circuit_ops
 
 
 def phase_block_halo(dev):
@@ -1921,22 +1981,25 @@ def phase_block_halo(dev):
             A = build_dist_matrix(a, n_devices=HALO_D, symmetric=sym, dtype=dt,
                                   local_format=fmt, device=dev)
             X = rng.standard_normal((a.nrows, 3)).astype(dt)
-            Y = A.from_dist_block(A.matmat(A.to_dist_block(X)))
+            xb = A.to_dist_block(X)
+            Y = A.from_dist_block(same_bits(f"17: matmat {tag}", lambda: A.matmat(xb)))
             errs = [rel_l2(Y[:, c], a.matvec(X[:, c].astype(np.float64)))
                     for c in range(3)]
             show("17.halo", run=tag, rows=a.nrows, shards=HALO_D,
-                 rounds=list(A.plan.rounds), nrhs=3, matmat_rel_l2_vs_host=errs)
+                 rounds=list(A.plan.rounds), nrhs=3, matmat_rel_l2_vs_host=errs,
+                 matmat_same_bits_twice=True)
             if not max(errs) <= TOL_ORACLE[dname]:
                 fail(f"17: matmat {tag} rel err {max(errs):.3e}")
     for a, fmt in ((perturbed(lap, 170), "dia_ds"), (fem, "well_ds")):
         A = build_dist_matrix(a, n_devices=HALO_D, local_format=fmt, device=dev)
         X = rng.standard_normal((a.nrows, 3)) * 1e3
         xs = [A.to_dist_block(p) for p in ds_from_f64(X)]
-        yh, yl = A.matmat_ds(*xs)
+        yh, yl = same_bits(f"17: matmat_ds {fmt}", lambda: A.matmat_ds(*xs))
         Y = ds_to_f64(A.from_dist_block(yh), A.from_dist_block(yl))
         errs = [rel_l2(Y[:, c], a.matvec(X[:, c])) for c in range(3)]
         show("17.halo", run=f"{fmt} vanilla", rows=a.nrows, shards=HALO_D,
-             rounds=list(A.plan.rounds), nrhs=3, matmat_ds_rel_l2_vs_host=errs)
+             rounds=list(A.plan.rounds), nrhs=3, matmat_ds_rel_l2_vs_host=errs,
+             matmat_ds_same_bits_twice=True)
         if not max(errs) <= DS_ORACLE_TOL:
             fail(f"17: matmat_ds {fmt} rel err {max(errs):.3e}")
     A = build_dist_matrix(lap, n_devices=HALO_D, dtype=np.float64, local_format="dia",
@@ -1953,7 +2016,7 @@ def phase_block_halo(dev):
              f"{res.iterations}")
 
 
-def phase_block_timing(a_lap, d32, a4, w4, w4ds, single_ms, dev):
+def phase_block_timing(a_lap, d32, a4, w4, w4ds, single_ms, circuit_ops, dev):
     """Phase 10, block kernels at nrhs = NRHS: kernel and plain ms in
     turns (CUDA events, chained), the bytes bound, the library yardstick
     (one torch CSR @ X on an (n, NRHS) block, cuSPARSE SpMM, row-major and
@@ -1961,8 +2024,10 @@ def phase_block_timing(a_lap, d32, a4, w4, w4ds, single_ms, dev):
     kernels; the port never calls it) and NRHS x the single-RHS kernel's
     ms at the same shape from this run. Then each block kernel at nrhs 1
     and its single-RHS kernel on the same column, in turns. DIA on the
-    NX^2 Laplacian scaled by 1/9, WELL and DS WELL on the 4M bench
-    matrix."""
+    NX^2 Laplacian scaled by 1/9, WELL and DS WELL on the 4M bench matrix,
+    and, as another shape of the two WELL rows, on the local stacks of
+    phase 16c's circuit operators: device time (torch.profiler) for
+    kernel, plain version and cuSPARSE, the chained time beside it."""
     gen = torch.Generator(device=dev).manual_seed(100)
     out = {}
 
@@ -2008,25 +2073,74 @@ def phase_block_timing(a_lap, d32, a4, w4, w4ds, single_ms, dev):
         (2 * d32.ndiags + 4 * NRHS) * npad * 4, a_lap, 1.0 / 9.0, np.float64,
         single_ms["dia_ds_spmv"], rows=a_lap.nrows, ndiags=d32.ndiags)
     del planes
+    def lists_bytes(rows_, nnz, value_bytes, nrows, ncols, planes):
+        """The bound's bytes of a row-list block apply: the stored
+        nonzeros' values and pos, w0 and slice_ptr once, X and Y (``planes``
+        float32 planes of NRHS columns, or float64 ones) once."""
+        pos, ptr, w0 = rows_[-3:]
+        return (nnz * (value_bytes + pos.element_size()) + w0.numel() * 4
+                + ptr.numel() * 8 + NRHS * (ncols + nrows) * planes)
+
     # the 4M bench matrix (rows scaled to ||A||_inf = 0.9 in phase 7)
-    args, rows4 = well_args(w4), rows_args(w4)
+    rows4, drows4 = rows_args(w4), rows_args(w4ds)
     rows = w4.ncols_pad // 128
-    row("well_spmm", lambda v: spmm_well_cuda.spmm_well_stacked(*args, v, 64),
-        lambda v: spmm_well_stacked_plain(*args, v, 64),
+    row("well_spmm", lambda v: spmm_well_cuda.spmm_well_stacked(*rows4, v, 64),
+        lambda v: spmm_well_stacked_plain(*rows4, v, 64),
         lambda v: spmv_well_cuda.spmv_well_stacked(*rows4, v, 64),
         lanes_block(gen, rows, NRHS, torch.float32, dev),
         lanes_block(gen, rows, 1, torch.float32, dev),
-        a4.nnz * (4 + w4.pos.element_size()) + w4.w0.numel() * 4
-        + NRHS * (a4.ncols + a4.nrows) * 4, a4, 1.0, np.float32,
-        single_ms["spmv_well"], matrix=f"bench {N_WELL}", k_slots=w4.k_slots)
-    dargs, drows4 = well_args(w4ds), rows_args(w4ds)
-    row("well_ds_spmm", lambda v: spmm_well_cuda.spmm_well_ds_stacked(*dargs, *v, 64),
-        lambda v: spmm_well_ds_stacked_plain(*dargs, *v, 64),
+        lists_bytes(rows4, a4.nnz, 4, a4.nrows, a4.ncols, 4), a4, 1.0, np.float32,
+        single_ms["spmv_well"], matrix=f"bench {N_WELL}", **rows_stats(rows4[-2], a4.nnz))
+    row("well_ds_spmm", lambda v: spmm_well_cuda.spmm_well_ds_stacked(*drows4, *v, 64),
+        lambda v: spmm_well_ds_stacked_plain(*drows4, *v, 64),
         lambda v: spmv_well_ds_cuda.spmv_well_ds_stacked(*drows4, *v, 64),
         ds_block(gen, rows, NRHS, dev), ds_block(gen, rows, 1, dev),
-        a4.nnz * (8 + w4ds.pos.element_size()) + w4ds.w0.numel() * 4
-        + NRHS * (a4.ncols + a4.nrows) * 8, a4, 1.0, np.float64,
-        single_ms["well_ds_spmv"], matrix=f"bench {N_WELL}", k_slots=w4ds.k_slots)
+        lists_bytes(drows4, a4.nnz, 8, a4.nrows, a4.ncols, 8), a4, 1.0, np.float64,
+        single_ms["well_ds_spmv"], matrix=f"bench {N_WELL}",
+        **rows_stats(drows4[-2], a4.nnz))
+
+    # phase 16c's circuit operators: their local stacks (the near block of
+    # the window split; the far remainder is a separate gather), scaled so
+    # ||near||_inf = 0.9 and chained applies stay bounded
+    a_c, a32, ads = circuit_ops
+    tg = a32.well_meta[2]
+    near, _ = split_window(a_c, tile_groups=tg, wseg_cap=WELL_WSEG_CAP)
+    row_sums = np.bincount(np.repeat(np.arange(near.nrows), near.row_nnz()),
+                           weights=np.abs(near.values), minlength=near.nrows)
+    scale = float(0.9 / row_sums.max())
+    crows, cdrows = dist_rows(a32), dist_rows(ads)
+    crows = (crows[0] * scale, *crows[1:])
+    cdrows = (cdrows[0] * scale, cdrows[1] * scale, *cdrows[2:])
+    nrows_c = a32.n_devices * a32.row_lane_rows
+    tag = f"circuit_network({CIRCUIT_BLOCK_NX}) RCM, block_cg_refined_dist's stack"
+    for kname, kernel, plain, x0, nbytes, lib_dtype in (
+            ("well_spmm", lambda v: spmm_well_cuda.spmm_well_stacked(*crows, v, tg),
+             lambda v: spmm_well_stacked_plain(*crows, v, tg),
+             lanes_block(gen, nrows_c, NRHS, torch.float32, dev),
+             lists_bytes(crows, near.nnz, 4, near.nrows, near.ncols, 4), np.float32),
+            ("well_ds_spmm",
+             lambda v: spmm_well_cuda.spmm_well_ds_stacked(*cdrows, *v, tg),
+             lambda v: spmm_well_ds_stacked_plain(*cdrows, *v, tg),
+             ds_block(gen, nrows_c, NRHS, dev),
+             lists_bytes(cdrows, near.nnz, 8, near.nrows, near.ncols, 8), np.float64)):
+        chained_k, chained_p, runs_k, runs_p = time_in_turns(kernel, plain, x0, iters_p=5)
+        lib = library_block_ms(near, dev, scale, lib_dtype, NRHS, timer=device_ms)
+        lib_chained = library_block_ms(near, dev, scale, lib_dtype, NRHS)
+        shape = dict(ms=device_ms(kernel, x0), plain_ms=device_ms(plain, x0, iters=5),
+                     library_ms=min(lib["row_major"], lib["column_major"]),
+                     bound_ms=bound_ms(nbytes), bytes=nbytes, nrhs=NRHS,
+                     timing="device", chained_ms=chained_k, plain_chained_ms=chained_p,
+                     library_chained_ms=min(lib_chained["row_major"],
+                                            lib_chained["column_major"]))
+        cptr = (a32 if kname == "well_spmm" else ads).local_rows_ptr
+        show("10.timing", kernel=kname, matrix=tag, **shape, ms_runs=runs_k,
+             plain_ms_runs=runs_p, rows=near.nrows, near_nnz=near.nnz,
+             **rows_stats(cptr, near.nnz),
+             well_slots=(a32 if kname == "well_spmm" else ads).local_well_values.numel(),
+             library=f"torch CSR @ X, ({near.ncols}, {NRHS}) block (cuSPARSE SpMM), "
+                     "device time", library_block_ms=lib,
+             library_block_chained_ms=lib_chained)
+        out[kname]["other_shapes"] = {tag: shape}
     return out
 
 
@@ -2103,7 +2217,8 @@ def main() -> int:
     max_abs.update(block_abs)
     show("15.seconds", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    counts.update(phase_block_path(dev, max_abs))
+    block_counts, circuit_ops = phase_block_path(dev, max_abs)
+    counts.update(block_counts)
     show("16.seconds", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     phase_block_halo(dev)
@@ -2117,7 +2232,7 @@ def main() -> int:
                  "dia_ds_spmv": timing["dia_ds_spmv"]["ms"],
                  "well_ds_spmv":
                      timing["well_ds_spmv"]["other_shapes"][f"bench {N_WELL}"]["ms"]}
-    timing.update(phase_block_timing(a, d32, a4, w4, w4ds, single_ms, dev))
+    timing.update(phase_block_timing(a, d32, a4, w4, w4ds, single_ms, circuit_ops, dev))
     show("10.seconds", seconds=time.perf_counter() - t0,
          ds_launches_per_cg_iteration=per_iter)
 

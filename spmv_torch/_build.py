@@ -35,13 +35,12 @@ _DIA_DS_ARGS = [_P, _P, _P, _P, _P, _P, _L, _I, _P, _I, _P]  # data hi, lo,
 _WELL_DS_ARGS = [_P] * 9 + [_L, _L, _I, _L, _I, _P]  # values hi, lo, pos,
 #                 slice_ptr, w0, x hi, lo, y hi, lo, nslices, entries,
 #                 tile_groups, col_pad, nshards, stream
-# the block (SpMM) entries: the DIA arguments plus nrhs before nshards;
-# WELL (values [hi, lo], pos, w0, x [hi, lo], y [hi, lo], ngroups, k,
-# tile_groups, col_pad, nrhs, nshards, stream) on the WELL arrays
+# the block (SpMM) entries: the single-RHS arguments plus nrhs before
+# nshards
 _DIA_SPMM_ARGS = _DIA_ARGS[:6] + [_I] + _DIA_ARGS[6:]
-_WELL_SPMM_ARGS = [_P] * 5 + [_L, _I, _I, _L, _I, _I, _P]
+_WELL_SPMM_ARGS = _WELL_ARGS[:10] + [_I] + _WELL_ARGS[10:]
 _DIA_DS_SPMM_ARGS = _DIA_DS_ARGS[:9] + [_I] + _DIA_DS_ARGS[9:]
-_WELL_DS_SPMM_ARGS = [_P] * 8 + [_L, _I, _I, _L, _I, _I, _P]
+_WELL_DS_SPMM_ARGS = _WELL_DS_ARGS[:13] + [_I] + _WELL_DS_ARGS[13:]
 KERNEL_ENTRIES = {
     **{f"{n}_{t}": _DIA_ARGS for n in ("dia_spmv", "dia_sym_spmv")
        for t in ("f32", "f64")},

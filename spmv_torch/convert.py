@@ -8,10 +8,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spmv_torch.formats.csr import coo_ell, ell_transpose
 from spmv_torch.formats.dia import DiaMatrix
 from spmv_torch.formats.well import pack_rows
 from spmv_torch.parallel.comm_plan import CommPlan
-from spmv_torch.parallel.dist_matrix import DistMatrix, _rows_fields
+from spmv_torch.parallel.dist_matrix import HOST_FIELDS, DistMatrix, _rows_fields
 
 
 def _put(arr, device, dtype=None):
@@ -47,8 +48,12 @@ def dist_matrix_from_numpy(arrays: dict[str, np.ndarray], meta: dict, *,
     ``meta``: nrows_global, ncols_global, row_pad, symmetric, nnz_global,
     local_format, dia_offsets, rounds, n_devices, nlocal_pad, nghost_pad;
     for "well"/"well_ds" well_meta, well_far_nnz (and wellT_meta,
-    well_farT_nnz). The row lists the single-RHS WELL kernels read are
-    derived here from the WELL arrays (``formats/well.pack_rows``).
+    well_farT_nnz). What the port's apply reads and the reference does
+    not store is derived here: the row lists the WELL kernels read, from
+    the WELL arrays (``formats/well.pack_rows``), which stay on the host;
+    the far remainders' ELL rectangles from their COO ("well"); the local
+    block's transpose (symmetric "ell") and the remote block's transpose
+    over the ghost slots (symmetric, ghosts) from the ELL blocks.
     """
     fmt = meta["local_format"]
     if fmt not in ("ell", "dia", "dia_ds", "well", "well_ds"):
@@ -70,8 +75,8 @@ def dist_matrix_from_numpy(arrays: dict[str, np.ndarray], meta: dict, *,
             if arrays.get(f"local_well{tag}_values") is None:
                 continue
             extra.update({
-                f"local_well{tag}_values": _put(arrays[f"local_well{tag}_values"], device),
-                f"local_well{tag}_pos": _put(arrays[f"local_well{tag}_pos"], device,
+                f"local_well{tag}_values": _put(arrays[f"local_well{tag}_values"], "cpu"),
+                f"local_well{tag}_pos": _put(arrays[f"local_well{tag}_pos"], "cpu",
                                              torch.int32),
                 f"local_well{tag}_w0": _put(arrays[f"local_well{tag}_w0"], device,
                                             torch.int32),
@@ -88,12 +93,26 @@ def dist_matrix_from_numpy(arrays: dict[str, np.ndarray], meta: dict, *,
                              None if lo is None else np.asarray(lo))
             extra.update({name: _put(arr, device)
                           for name, arr in _rows_fields(tag, rows).items()})
+            if fmt == "well" and arrays.get(f"far{tag}_rows") is not None:
+                ell = coo_ell(*(np.asarray(arrays[f"far{tag}_{f}"])
+                                for f in ("rows", "cols", "vals")), int(meta["row_pad"]))
+                extra[f"far{tag}_ell_colind"] = _put(ell[0], device)
+                extra[f"far{tag}_ell_values"] = _put(ell[1], device)
     if fmt.endswith("_ds"):
-        extra.update({name: _put(arrays.get(name), device) for name in (
+        extra.update({name: _put(arrays.get(name), "cpu" if name in HOST_FIELDS
+                                 else device) for name in (
             "local_dia_data_lo", "remote_values_lo", "local_well_values_lo",
             "local_values_lo", "local_wellT_values_lo", "farT_vals_lo",
             "diagonal_lo", "remoteT_vals", "remoteT_vals_lo")})
         extra["remoteT_colind"] = _put(arrays.get("remoteT_colind"), device, torch.int64)
+    elif meta["symmetric"] and int(meta["nghost_pad"]) > 0:
+        ell = ell_transpose(np.asarray(arrays["remote_colind"]),
+                            np.asarray(arrays["remote_values"]), int(meta["nghost_pad"]))
+        extra["remoteT_colind"], extra["remoteT_vals"] = (_put(t, device) for t in ell)
+    if fmt == "ell" and meta["symmetric"]:
+        ell = ell_transpose(np.asarray(arrays["local_colind"]),
+                            np.asarray(arrays["local_values"]), int(meta["row_pad"]))
+        extra["localT_colind"], extra["localT_values"] = (_put(t, device) for t in ell)
     return DistMatrix(
         local_colind=(_put(arrays["local_colind"], device, torch.int64)
                       if has_local_ell else None),

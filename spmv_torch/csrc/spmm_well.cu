@@ -1,5 +1,6 @@
 // WELL (windowed sliced-ELL) block SpMM kernels (Y = A X for nrhs columns)
-// for Hopper (sm_90a), plain and double-single.
+// for Hopper (sm_90a), plain and double-single, over the stack's
+// warp-sliced row lists.
 //
 // Replaces the Pallas TPU kernels of spmv_tpu/ops/spmm_well_pallas.py:
 //   well_spmm     <- _well_mrhs_kernel     (:38, pallas_call :181,
@@ -11,30 +12,39 @@
 // around Mosaic's lack of a multi-row gather; on the card the gather is a
 // plain load.
 //
-// Layout (spmv_torch/formats/well.py, ops/spmm_well.py): D shards stacked;
-// per shard values (K, G, 128) (float32/float64, or hi/lo float32 planes
-// for the DS kernel), pos (K, G, 128) int16/int32 (window-relative flat
-// column), w0 (G / tile_groups) int32. X (col_pad/128, nrhs*128) and
+// Layout (spmv_torch/formats/well.py, pack_rows; the row lists of
+// csrc/spmv_well.cu and csrc/spmv_well_ds.cu): D shards stacked; per shard
+// values (E) float32/float64 (hi/lo float32 planes for the DS kernel) and
+// pos (E) int16/int32 (window-relative flat column) hold entry j of row
+// 32s + l at slice_ptr[s] + 32*j + l, slice_ptr (S+1) int64, w0
+// (G / tile_groups) int32 with G = S/4. X (col_pad/128, nrhs*128) and
 // Y (G, nrhs*128) per shard are in the SpMM lane layout: element
 // (q, c*128 + l) is row 128q+l of column c.
 //
-// Design: one thread owns output row r = 128g + j of shard s (blockIdx.y =
-// s) for a chunk of at most NR = 8 columns (blockIdx.z; NR = min(nrhs, 8),
-// a template parameter). It reads each slot's value and pos once per chunk,
-// decodes the column once, and applies the slot to each of its columns:
-//   y[s, r, c] = sum_k values[s, k, g, j] * x[s, w0[s, g/tg]*128 + pos[s, k, g, j], c]
+// Design: one warp owns slice s of shard blockIdx.y, one thread row
+// r = 32s + l, for a chunk of at most NR = 8 columns (blockIdx.z;
+// NR = min(nrhs, 8), a template parameter). The thread loops to its
+// slice's width, reads each entry's value and pos once per chunk, decodes
+// the column once, and applies the entry to each column of the chunk:
+//   y[r, c] = sum_j values[e_j] * x[w0[(r / 128) / tg]*128 + pos[e_j], c]
 // with NR accumulators in registers (NR (hi, lo) pairs for DS); a block of
-// more than 8 columns re-reads the matrix once per chunk. A read outside
-// [0, col_pad) contributes 0. Column c takes the same terms in the same
-// order as well_spmv (or well_ds_spmv) does on the stack's row lists, and
-// the padding either one adds is an exact zero, so it equals the
-// single-RHS kernel's result bit for bit.
+// more than 8 columns re-reads the lists once per chunk. A read outside
+// [0, col_pad) contributes 0, so a shard never reads its neighbour's X.
+// Column c takes the same entries in the same order as well_spmv (or
+// well_ds_spmv) does on column c, with the same acc += v*x that nvcc
+// contracts into one fma (ds_add / ds_mul_f32 of ds.cuh for DS), so it
+// equals the single-RHS kernel's result bit for bit.
 //
-// Bound: bytes. One apply must move the stored values + pos + w0 once and X
-// and Y once (2 nrhs vector planes; 4 for DS); with chunks the matrix moves
-// ceil(nrhs/8) times. Each slot's value and pos reads are one coalesced pass;
-// within one slot a warp's x reads of a column fall in one or two 128-wide
-// segments and are served from L1/L2. Shared-memory windows are later work.
+// Bound: bytes. One apply must move values + pos of the stored entries,
+// slice_ptr and w0 once per chunk, and X and Y once (2 nrhs vector planes;
+// 4 for DS). A warp's load of one slot is 32 contiguous values and
+// positions, read with streaming loads (__ldcs) so the matrix stream does
+// not push X out of L2 (X of the 640k-node circuit at nrhs 8 is 20 MB, the
+// L2 50 MB); the X gathers go through L1/L2. A shared-memory X window
+// still does not pay at nrhs 8: a window is wseg*128*nrhs*4 B, 256 KB at
+// wseg 64, more than a block's 227 KB of shared memory, and a block of 8
+// slices gathers a small part of it. The entry loop is not unrolled: each
+// entry already puts NR gathers in flight. Index math is 64-bit.
 //
 // Plain C interface, bound from Python with ctypes
 // (spmv_torch/ops/spmm_well_cuda.py). Each entry launches on the given
@@ -44,36 +54,43 @@
 
 #include "ds.cuh"
 
-#define SPMM_WELL_MAX_NR 8
+static constexpr int kSlice = 32;     // rows per slice: one warp
+static constexpr int kThreads = 256;  // 8 slices per block
+static constexpr int kMaxNr = 8;      // columns per chunk
 
 template <typename T, typename P, int NR>
 __global__ void well_spmm_kernel(const T* __restrict__ values,
                                  const P* __restrict__ pos,
+                                 const long long* __restrict__ slice_ptr,
                                  const int* __restrict__ w0,
                                  const T* __restrict__ x, T* __restrict__ y,
-                                 long long ngroups, int k, int tile_groups,
-                                 long long col_pad, int nrhs) {
-  const long long plane = ngroups * 128;  // rows of one shard
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= plane) return;
+                                 long long nslices, long long entries,
+                                 int tile_groups, long long col_pad, int nrhs) {
+  const long long s =
+      (long long)blockIdx.x * (kThreads / kSlice) + threadIdx.x / kSlice;
+  if (s >= nslices) return;
   const long long shard = blockIdx.y;
+  const long long r = s * kSlice + threadIdx.x % kSlice;  // row in the shard
   const int c0 = blockIdx.z * NR;
   const int nc = min(NR, nrhs - c0);
   const long long lanes = (long long)nrhs * 128;
-  const long long ntiles = ngroups / tile_groups;
+  const long long* sp = slice_ptr + shard * (nslices + 1);
+  const long long end = sp[s + 1];
+  const long long ntiles = nslices / 4 / tile_groups;
   const long long base =
       (long long)w0[shard * ntiles + (r >> 7) / tile_groups] * 128;
   const T* xs = x + shard * col_pad * nrhs + c0 * 128;
-  const T* v = values + shard * k * plane + r;
-  const P* p = pos + shard * k * plane + r;
+  const T* v = values + shard * entries;
+  const P* p = pos + shard * entries;
   T acc[NR];
 #pragma unroll
   for (int c = 0; c < NR; ++c) acc[c] = T(0);
-  for (int kk = 0; kk < k; ++kk) {
-    const long long j = base + (long long)p[kk * plane];
+#pragma unroll 1
+  for (long long e = sp[s] + threadIdx.x % kSlice; e < end; e += kSlice) {
+    const long long j = base + (long long)__ldcs(p + e);
     const bool in = j >= 0 && j < col_pad;
     const long long jo = in ? (j >> 7) * lanes + (j & 127) : 0;
-    const T vv = v[kk * plane];
+    const T vv = __ldcs(v + e);
 #pragma unroll
     for (int c = 0; c < NR; ++c) {
       if (c < nc) {
@@ -82,7 +99,8 @@ __global__ void well_spmm_kernel(const T* __restrict__ values,
       }
     }
   }
-  T* ys = y + shard * plane * nrhs + (r >> 7) * lanes + c0 * 128 + (r & 127);
+  T* ys = y + shard * nslices * kSlice * nrhs + (r >> 7) * lanes + c0 * 128 +
+          (r & 127);
 #pragma unroll
   for (int c = 0; c < NR; ++c) {
     if (c < nc) ys[c * 128] = acc[c];
@@ -93,34 +111,40 @@ template <typename P, int NR>
 __global__ void well_ds_spmm_kernel(const float* __restrict__ vh,
                                     const float* __restrict__ vl,
                                     const P* __restrict__ pos,
+                                    const long long* __restrict__ slice_ptr,
                                     const int* __restrict__ w0,
                                     const float* __restrict__ xh,
                                     const float* __restrict__ xl,
                                     float* __restrict__ yh,
-                                    float* __restrict__ yl, long long ngroups,
-                                    int k, int tile_groups, long long col_pad,
-                                    int nrhs) {
-  const long long plane = ngroups * 128;
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= plane) return;
+                                    float* __restrict__ yl, long long nslices,
+                                    long long entries, int tile_groups,
+                                    long long col_pad, int nrhs) {
+  const long long s =
+      (long long)blockIdx.x * (kThreads / kSlice) + threadIdx.x / kSlice;
+  if (s >= nslices) return;
   const long long shard = blockIdx.y;
+  const long long r = s * kSlice + threadIdx.x % kSlice;  // row in the shard
   const int c0 = blockIdx.z * NR;
   const int nc = min(NR, nrhs - c0);
   const long long lanes = (long long)nrhs * 128;
-  const long long ntiles = ngroups / tile_groups;
+  const long long* sp = slice_ptr + shard * (nslices + 1);
+  const long long end = sp[s + 1];
+  const long long ntiles = nslices / 4 / tile_groups;
   const long long base =
       (long long)w0[shard * ntiles + (r >> 7) / tile_groups] * 128;
   const long long xbase = shard * col_pad * nrhs + c0 * 128;
-  const long long v0 = shard * k * plane + r;
+  const float* h = vh + shard * entries;
+  const float* l = vl + shard * entries;
+  const P* p = pos + shard * entries;
   Ds acc[NR];
 #pragma unroll
   for (int c = 0; c < NR; ++c) acc[c] = {0.0f, 0.0f};
-  for (int kk = 0; kk < k; ++kk) {
-    const long long at = v0 + kk * plane;
-    const long long j = base + (long long)pos[at];
+#pragma unroll 1
+  for (long long e = sp[s] + threadIdx.x % kSlice; e < end; e += kSlice) {
+    const long long j = base + (long long)__ldcs(p + e);
     const bool in = j >= 0 && j < col_pad;
     const long long jo = xbase + (in ? (j >> 7) * lanes + (j & 127) : 0);
-    const Ds a = {vh[at], vl[at]};
+    const Ds a = {__ldcs(h + e), __ldcs(l + e)};
 #pragma unroll
     for (int c = 0; c < NR; ++c) {
       if (c < nc) {
@@ -129,7 +153,8 @@ __global__ void well_ds_spmm_kernel(const float* __restrict__ vh,
       }
     }
   }
-  const long long yo = shard * plane * nrhs + (r >> 7) * lanes + c0 * 128 + (r & 127);
+  const long long yo = shard * nslices * kSlice * nrhs + (r >> 7) * lanes +
+                       c0 * 128 + (r & 127);
 #pragma unroll
   for (int c = 0; c < NR; ++c) {
     if (c < nc) {
@@ -139,36 +164,42 @@ __global__ void well_ds_spmm_kernel(const float* __restrict__ vh,
   }
 }
 
-static bool bad_shape(long long ngroups, int k, int tile_groups,
-                      long long col_pad, int nrhs, int nshards) {
-  return ngroups < 1 || k < 1 || tile_groups < 1 || ngroups % tile_groups ||
-         col_pad < 1 || nrhs < 1 || nshards < 1 || nshards > 65535;
-}
-
-static dim3 grid_of(long long ngroups, int nrhs, int nshards, int threads, int* nr) {
-  *nr = nrhs < SPMM_WELL_MAX_NR ? nrhs : SPMM_WELL_MAX_NR;
-  return dim3((unsigned)((ngroups * 128 + threads - 1) / threads),
-              (unsigned)nshards, (unsigned)((nrhs + *nr - 1) / *nr));
+// The launch geometry, or false when the shapes are not a row-list stack:
+// x blocks of 8 slices, y shards, z column chunks of *nr columns.
+static bool geometry(long long nslices, long long entries, int tile_groups,
+                     long long col_pad, int nrhs, int nshards, dim3* grid,
+                     int* nr) {
+  if (nslices < 4 || nslices % 4 || entries < 1 || tile_groups < 1 ||
+      (nslices / 4) % tile_groups || col_pad < 1 || nrhs < 1 || nshards < 1 ||
+      nshards > 65535) {
+    return false;
+  }
+  *nr = nrhs < kMaxNr ? nrhs : kMaxNr;
+  const long long per_block = kThreads / kSlice;
+  *grid = dim3((unsigned)((nslices + per_block - 1) / per_block),
+               (unsigned)nshards, (unsigned)((nrhs + *nr - 1) / *nr));
+  return true;
 }
 
 template <typename T, typename P>
-static int launch(const void* values, const void* pos, const void* w0,
-                  const void* x, void* y, long long ngroups, int k,
-                  int tile_groups, long long col_pad, int nrhs, int nshards,
-                  void* stream) {
-  if (bad_shape(ngroups, k, tile_groups, col_pad, nrhs, nshards)) {
+static int launch(const void* values, const void* pos, const void* slice_ptr,
+                  const void* w0, const void* x, void* y, long long nslices,
+                  long long entries, int tile_groups, long long col_pad,
+                  int nrhs, int nshards, void* stream) {
+  dim3 grid;
+  int nr = 0;
+  if (!geometry(nslices, entries, tile_groups, col_pad, nrhs, nshards, &grid,
+                &nr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int threads = 256;
-  int nr = 0;
-  const dim3 grid = grid_of(ngroups, nrhs, nshards, threads, &nr);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define WELL_CASE(NR)                                                          \
   case NR:                                                                     \
-    well_spmm_kernel<T, P, NR><<<grid, threads, 0, s>>>(                       \
+    well_spmm_kernel<T, P, NR><<<grid, kThreads, 0, st>>>(                     \
         static_cast<const T*>(values), static_cast<const P*>(pos),             \
-        static_cast<const int*>(w0), static_cast<const T*>(x),                 \
-        static_cast<T*>(y), ngroups, k, tile_groups, col_pad, nrhs);           \
+        static_cast<const long long*>(slice_ptr), static_cast<const int*>(w0), \
+        static_cast<const T*>(x), static_cast<T*>(y), nslices, entries,        \
+        tile_groups, col_pad, nrhs);                                           \
     break;
   switch (nr) {
     WELL_CASE(1) WELL_CASE(2) WELL_CASE(3) WELL_CASE(4)
@@ -181,24 +212,26 @@ static int launch(const void* values, const void* pos, const void* w0,
 
 template <typename P>
 static int launch_ds(const void* vh, const void* vl, const void* pos,
-                     const void* w0, const void* xh, const void* xl, void* yh,
-                     void* yl, long long ngroups, int k, int tile_groups,
-                     long long col_pad, int nrhs, int nshards, void* stream) {
-  if (bad_shape(ngroups, k, tile_groups, col_pad, nrhs, nshards)) {
+                     const void* slice_ptr, const void* w0, const void* xh,
+                     const void* xl, void* yh, void* yl, long long nslices,
+                     long long entries, int tile_groups, long long col_pad,
+                     int nrhs, int nshards, void* stream) {
+  dim3 grid;
+  int nr = 0;
+  if (!geometry(nslices, entries, tile_groups, col_pad, nrhs, nshards, &grid,
+                &nr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int threads = 256;
-  int nr = 0;
-  const dim3 grid = grid_of(ngroups, nrhs, nshards, threads, &nr);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define WELL_DS_CASE(NR)                                                       \
   case NR:                                                                     \
-    well_ds_spmm_kernel<P, NR><<<grid, threads, 0, s>>>(                       \
+    well_ds_spmm_kernel<P, NR><<<grid, kThreads, 0, st>>>(                     \
         static_cast<const float*>(vh), static_cast<const float*>(vl),          \
-        static_cast<const P*>(pos), static_cast<const int*>(w0),               \
-        static_cast<const float*>(xh), static_cast<const float*>(xl),          \
-        static_cast<float*>(yh), static_cast<float*>(yl), ngroups, k,          \
-        tile_groups, col_pad, nrhs);                                           \
+        static_cast<const P*>(pos), static_cast<const long long*>(slice_ptr),  \
+        static_cast<const int*>(w0), static_cast<const float*>(xh),            \
+        static_cast<const float*>(xl), static_cast<float*>(yh),                \
+        static_cast<float*>(yl), nslices, entries, tile_groups, col_pad,       \
+        nrhs);                                                                 \
     break;
   switch (nr) {
     WELL_DS_CASE(1) WELL_DS_CASE(2) WELL_DS_CASE(3) WELL_DS_CASE(4)
@@ -209,21 +242,24 @@ static int launch_ds(const void* vh, const void* vl, const void* pos,
   return (int)cudaGetLastError();
 }
 
-#define WELL_SPMM_ENTRY(NAME, T, P)                                             \
-  int NAME(const void* values, const void* pos, const void* w0,               \
-           const void* x, void* y, long long ngroups, int k, int tile_groups, \
-           long long col_pad, int nrhs, int nshards, void* stream) {          \
-    return launch<T, P>(values, pos, w0, x, y, ngroups, k, tile_groups,       \
-                        col_pad, nrhs, nshards, stream);                      \
+#define WELL_SPMM_ENTRY(NAME, T, P)                                           \
+  int NAME(const void* values, const void* pos, const void* slice_ptr,       \
+           const void* w0, const void* x, void* y, long long nslices,        \
+           long long entries, int tile_groups, long long col_pad, int nrhs,  \
+           int nshards, void* stream) {                                      \
+    return launch<T, P>(values, pos, slice_ptr, w0, x, y, nslices, entries,  \
+                        tile_groups, col_pad, nrhs, nshards, stream);        \
   }
 
-#define WELL_DS_SPMM_ENTRY(NAME, P)                                             \
-  int NAME(const void* vh, const void* vl, const void* pos, const void* w0,   \
-           const void* xh, const void* xl, void* yh, void* yl,                \
-           long long ngroups, int k, int tile_groups, long long col_pad,      \
-           int nrhs, int nshards, void* stream) {                             \
-    return launch_ds<P>(vh, vl, pos, w0, xh, xl, yh, yl, ngroups, k,          \
-                        tile_groups, col_pad, nrhs, nshards, stream);         \
+#define WELL_DS_SPMM_ENTRY(NAME, P)                                           \
+  int NAME(const void* vh, const void* vl, const void* pos,                  \
+           const void* slice_ptr, const void* w0, const void* xh,            \
+           const void* xl, void* yh, void* yl, long long nslices,            \
+           long long entries, int tile_groups, long long col_pad, int nrhs,  \
+           int nshards, void* stream) {                                      \
+    return launch_ds<P>(vh, vl, pos, slice_ptr, w0, xh, xl, yh, yl, nslices, \
+                        entries, tile_groups, col_pad, nrhs, nshards,        \
+                        stream);                                             \
   }
 
 extern "C" {

@@ -3,7 +3,9 @@ host oracle.
 
 Carried across from ``spmv_tpu.formats.csr`` (which cannot be imported here:
 its package imports jax). Only the numpy tier of ``from_coo`` comes along;
-the native C++ host tier is still to port (ROADMAP.md).
+the native C++ host tier is still to port (ROADMAP.md). ``coo_ell`` and
+``ell_transpose`` build the stacked ELL rectangles through which the
+port applies its far remainders and transpose terms as gathers.
 """
 from __future__ import annotations
 
@@ -156,3 +158,35 @@ class CSRHost:
             rows[keep], self.colind[keep], self.values[keep], self.nrows,
             self.ncols, sum_duplicates=False)
         return lower, diag
+
+
+def coo_ell(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+            nrows: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-shard COO entries (D, F) as a (D, nrows, K) ELL rectangle: each
+    row keeps its entries in their COO order, zero values (the padding of
+    a stacked COO or ELL) are dropped, and K is the longest row (at least
+    1). Returns (colind int64, values)."""
+    nd = rows.shape[0]
+    keep = vals != 0
+    shard = np.broadcast_to(np.arange(nd, dtype=np.int64)[:, None], rows.shape)[keep]
+    key = shard * nrows + rows[keep].astype(np.int64)
+    order = np.argsort(key, kind="stable")
+    key = key[order]
+    rank = np.arange(len(key)) - np.searchsorted(key, key, side="left")
+    k = int(rank.max()) + 1 if len(rank) else 1
+    colind = np.zeros((nd, nrows, k), dtype=np.int64)
+    values = np.zeros((nd, nrows, k), dtype=vals.dtype)
+    colind[key // nrows, key % nrows, rank] = cols[keep][order]
+    values[key // nrows, key % nrows, rank] = vals[keep][order]
+    return colind, values
+
+
+def ell_transpose(colind: np.ndarray, values: np.ndarray, ncols: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """The transpose of each shard's (D, R, K) ELL block as a
+    (D, ncols, K') ELL rectangle, each row's entries in ascending source
+    row."""
+    nd, r, k = colind.shape
+    src = np.broadcast_to(np.arange(r, dtype=np.int64)[None, :, None], colind.shape)
+    return coo_ell(colind.reshape(nd, -1), src.reshape(nd, -1),
+                   values.reshape(nd, -1), ncols)

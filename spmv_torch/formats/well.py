@@ -23,13 +23,13 @@ Every entry of one slot reads one 128-aligned x segment; with
 reads two segments (the endpoint lanes 0 and 127 carry the two legs'
 segments). Both forms obey the formula above, because every real entry's
 ``pos`` carries its own segment and padding slots hold value 0 at a
-position inside the window. The formula is what the block (SpMM) kernels
-and the WELL plain version (``ops/spmv_well.py``) compute.
+position inside the window. The formula is what the WELL plain version
+(``ops/spmv_well.py``) computes, the oracle of the row lists below.
 
-The single-RHS kernels read the same stack as warp-sliced row lists
-(``pack_rows``), derived from the WELL arrays: rows cut into slices of 32
-consecutive rows (one warp), each slice as wide as its longest row, and
-only each row's occupied slots stored, in ascending slot order:
+The kernels, single-RHS and block, read the same stack as warp-sliced row
+lists (``pack_rows``), derived from the WELL arrays: rows cut into slices
+of 32 consecutive rows (one warp), each slice as wide as its longest row,
+and only each row's occupied slots stored, in ascending slot order:
 
   rows.values[slice_ptr[s] + 32*j + l]  the j-th occupied slot of row 32s+l
   rows.pos[...]                         its window-relative position
@@ -47,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from spmv_torch.formats.csr import CSRHost
+from spmv_torch.formats.csr import CSRHost, coo_ell
 from spmv_torch.formats.dia import host_dtype
 
 LANES = 128
@@ -91,9 +91,9 @@ def pack_rows(values: np.ndarray, pos: np.ndarray, wseg: int,
     nent = max(int(slice_ptr[:, -1].max()), 1)
     pos_dtype = np.int16 if wseg * LANES <= np.iinfo(np.int16).max else np.int32
     # occupied slots in (shard, slot, row) order; rank = slot's place in
-    # its row (K <= 64 fits int8)
+    # its row (int32: max_k may exceed any narrower type's range)
     d_i, k_i, r_i = np.nonzero(occ)
-    rank = (np.cumsum(occ, axis=1, dtype=np.int8) - 1)[d_i, k_i, r_i]
+    rank = (np.cumsum(occ, axis=1, dtype=np.int32) - 1)[d_i, k_i, r_i]
     dest = slice_ptr[d_i, r_i // SLICE] + SLICE * rank.astype(np.int64) + r_i % SLICE
     pos_r = pos.reshape(nd, k, nrows)
     real_pos = pos_r[d_i, k_i, r_i]
@@ -130,7 +130,7 @@ class WellMatrix:
     nseg: int = 0         # x segments incl. window-overrun padding
     _nnz: int = 0
     paired: bool = False  # any slot carries two segments
-    # the row lists (pack_rows) the single-RHS kernel reads
+    # the row lists (pack_rows) the kernels read
     rows_values: torch.Tensor | None = None  # (E,)
     rows_pos: torch.Tensor | None = None     # (E,) int16/int32
     slice_ptr: torch.Tensor | None = None    # (G*4 + 1,) int64
@@ -535,8 +535,9 @@ class SymWellMatrix:
     lower triangle L stored as a WELL operator and its transpose L^T
     pre-built as a second one, so the symmetric apply is two gather kernels
     plus a diagonal product, with no scatter on the hot path. Each
-    triangle carries its own compact-COO far remainder (entries outside its
-    window split), empty after RCM for most matrices."""
+    triangle carries its own far remainder (entries outside its window
+    split), empty after RCM for most matrices: as compact COO, the
+    reference's form, and as an ELL rectangle, which the apply gathers."""
 
     lower: WellMatrix
     upper: WellMatrix
@@ -544,6 +545,8 @@ class SymWellMatrix:
     farl: tuple | None         # (rows, cols, vals) of the lower far part
     faru: tuple | None         # same for the transposed part
     nrows: int
+    farl_ell: tuple | None = None  # (cols, vals) (nrows_pad, Kf) of farl
+    faru_ell: tuple | None = None
 
     @property
     def nrows_pad(self) -> int:
@@ -558,23 +561,24 @@ class SymWellMatrix:
     def format_size_bytes(self) -> int:
         total = self.lower.format_size_bytes() + self.upper.format_size_bytes()
         total += self.diag.numel() * self.diag.element_size()
-        for far in (self.farl, self.faru):
+        for far in (self.farl, self.faru, self.farl_ell, self.faru_ell):
             if far is not None:
                 total += sum(t.numel() * t.element_size() for t in far)
         return total
 
 
-def _far_coo(far: CSRHost, dtype, device):
-    """Compact COO triple (rows, cols int64; values) of a far remainder
-    (None when empty)."""
+def _far_coo(far: CSRHost, dtype, device, nrows_pad: int):
+    """A far remainder as a compact COO triple (rows, cols int64; values)
+    and as an ELL rectangle (cols int64, values) of nrows_pad rows; (None,
+    None) when empty."""
     if far.nnz == 0:
-        return None
+        return None, None
     rows = np.repeat(np.arange(far.nrows, dtype=np.int64), far.row_nnz())
-    return (
-        torch.as_tensor(rows, device=device),
-        torch.as_tensor(far.colind.astype(np.int64), device=device),
-        torch.as_tensor(far.values.astype(dtype or far.dtype), device=device),
-    )
+    cols = far.colind.astype(np.int64)
+    vals = far.values.astype(dtype or far.dtype)
+    ell = coo_ell(rows[None], cols[None], vals[None], nrows_pad)
+    return (tuple(torch.as_tensor(t, device=device) for t in (rows, cols, vals)),
+            tuple(torch.as_tensor(t[0], device=device) for t in ell))
 
 
 def csr_to_well_sym(
@@ -602,11 +606,15 @@ def csr_to_well_sym(
     wl, wu = _pad_well_to(wl, tgt), _pad_well_to(wu, tgt)
     dpad = np.zeros(wl.nrows_pad, dtype=dtype or a.dtype)
     dpad[: len(diag)] = diag
+    farl, farl_ell = _far_coo(far_l, dtype, device, wl.nrows_pad)
+    faru, faru_ell = _far_coo(far_u, dtype, device, wl.nrows_pad)
     return SymWellMatrix(
         lower=wl,
         upper=wu,
         diag=torch.as_tensor(dpad, device=device),
-        farl=_far_coo(far_l, dtype, device),
-        faru=_far_coo(far_u, dtype, device),
+        farl=farl,
+        faru=faru,
         nrows=a.nrows,
+        farl_ell=farl_ell,
+        faru_ell=faru_ell,
     )

@@ -15,8 +15,9 @@ and is the oracle both are held to. The entry points go through the
 wrapper, which takes the plain version on a CPU tensor and launches the
 kernel on a CUDA tensor.
 
-The far remainders of the symmetric form are applied with ``index_add_``
-(plain torch: on the TPU they were XLA scatter-adds, not a Pallas kernel).
+The far remainders of the symmetric form are applied as gathers over
+their ELL rectangles (plain torch: on the TPU they were XLA scatter-adds,
+not a Pallas kernel), with no atomics, so the sum's order is fixed.
 """
 from __future__ import annotations
 
@@ -103,21 +104,6 @@ def spmv_well(a: WellMatrix, x: torch.Tensor) -> torch.Tensor:
     return spmv_well_2d(a, well_to_2d(a, x)).reshape(a.nrows_pad)
 
 
-def far_add(y: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
-            vals: torch.Tensor, x: torch.Tensor) -> None:
-    """y[s, rows[s]] += vals[s] * x[s, cols[s]] in place for every shard s
-    of a compact-COO far remainder: y (D, R), x (D, C), the rest (D, F);
-    a block y (D, R, nrhs), x (D, C, nrhs) takes every column at once.
-    ``index_add_`` sums with atomics on the card, so the order (and the
-    last bits) may change from run to run."""
-    nd = rows.shape[0]
-    tail = x.shape[2:]
-    shard = torch.arange(nd, device=rows.device)[:, None]
-    xg = x.reshape(-1, *tail)[(cols + shard * x.shape[1]).reshape(-1)]
-    src = vals.reshape(-1, *(1,) * len(tail)) * xg
-    y.view(-1, *tail).index_add_(0, (rows + shard * y.shape[1]).reshape(-1), src)
-
-
 def spmv_well_sym(a: SymWellMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = (L + D + L^T) x with both triangles as WELL gather applies, the
     diagonal product and the (usually empty) far remainders. ``x`` flat
@@ -129,9 +115,10 @@ def spmv_well_sym(a: SymWellMatrix, x: torch.Tensor) -> torch.Tensor:
         xp[: min(x.shape[0], npad)] = x[:npad]
     y = spmv_well(a.lower, xp) + spmv_well(a.upper, xp)
     y = y + a.diag * xp
-    for far in (a.farl, a.faru):
+    for far in (a.farl_ell, a.faru_ell):
         if far is not None:
-            far_add(y.view(1, -1), *(t.view(1, -1) for t in far), xp.view(1, -1))
+            cols, vals = far
+            y = y + (vals * xp[cols]).sum(-1)
     return y
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from spmv_torch.formats.well import LANES, SLICE
+from spmv_torch.ops.spmv_dia_cuda import _lanes_ok
 from spmv_torch.ops.spmv_well import spmv_well_rows_plain
 
 launches = {"well": 0}
@@ -25,11 +26,13 @@ def reset_launches() -> None:
         launches[key] = 0
 
 
-def check_rows(planes, pos, slice_ptr, w0, xs, tile_groups: int) -> int:
+def check_rows(planes, pos, slice_ptr, w0, xs, tile_groups: int,
+               block: bool = False) -> int:
     """Validate stacked row-list operands: value planes and pos (D, E),
     slice_ptr (D, S+1) with S a multiple of 4 (G = S/4 groups), w0
-    (D, G/tile_groups), each x plane (D*col_pad/128, 128). Returns col_pad
-    (x entries per shard)."""
+    (D, G/tile_groups), each x plane (D*col_pad/128, 128), or
+    (D*col_pad/128, nrhs*128) in the SpMM lane layout for a ``block``
+    apply. Returns col_pad (x rows per shard, times 128)."""
     ops = (*planes, pos, slice_ptr, w0, *xs)
     devs = {t.device for t in ops}
     if len(devs) != 1:
@@ -55,10 +58,10 @@ def check_rows(planes, pos, slice_ptr, w0, xs, tile_groups: int) -> int:
         raise ValueError(f"w0 must be ({nd}, {g // tile_groups}), got "
                          f"{tuple(w0.shape)}")
     for x in xs:
-        if (x.dim() != 2 or x.shape[1] != LANES or x.shape[0] % nd
+        if (x.dim() != 2 or not _lanes_ok(x.shape[1], block) or x.shape[0] % nd
                 or x.shape != xs[0].shape):
-            raise ValueError(f"x must be (D*col_pad/128, 128) for D={nd}, got "
-                             f"{[tuple(t.shape) for t in xs]}")
+            raise ValueError(f"x must be (D*col_pad/128, {'nrhs*' if block else ''}128) "
+                             f"for D={nd}, got {[tuple(t.shape) for t in xs]}")
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("WELL apply takes contiguous operands")
     return xs[0].shape[0] // nd * LANES

@@ -51,7 +51,7 @@ class WellDsMatrix:
     nseg: int = 0
     _nnz: int = 0
     paired: bool = False
-    # the row lists (formats/well.pack_rows) the single-RHS kernel reads
+    # the row lists (formats/well.pack_rows) the kernels read
     rows_values_hi: torch.Tensor | None = None  # (E,)
     rows_values_lo: torch.Tensor | None = None
     rows_pos: torch.Tensor | None = None        # (E,) int16/int32

@@ -16,7 +16,9 @@ spare column before each scatter or gather and dropped afterwards.
 (a trailing axis) in one set per round, as the reference's
 ``_plan_gather`` / ``_plan_scatter_add`` do for ``matmat``.
 ``halo_scatter_add_ds`` is the error-free double-single reverse exchange
-of the symmetric "well_ds" operator.
+of the symmetric "well_ds" operator. Neither reverse exchange sums with
+atomics: each round's owned indices are unique, so a round is a
+placement and a dense add.
 """
 from __future__ import annotations
 
@@ -166,6 +168,29 @@ def halo_gather(
     return g[:, :nghost_pad]
 
 
+def _reverse_rounds(planes, nlocal_pad: int, send_idx: torch.Tensor,
+                    recv_pos: torch.Tensor, rounds: tuple[int, ...]):
+    """Per round of the reverse exchange, each ghost-contribution plane
+    (D, nghost_pad[, nrhs]) routed back to its owners and placed into
+    zeros (D, nlocal_pad[, nrhs]). Within one round each shard receives
+    from exactly one peer, whose ghost list has no duplicates, so the
+    round's owned indices are unique and the placement is a plain scatter
+    with no atomics; padding slots (OOB receive positions, owned index 0)
+    are redirected to a spare column on both sides and dropped with it."""
+    nd, nghost_pad = planes[0].shape[:2]
+    tail = planes[0].shape[2:]
+    ext = [torch.cat([g, g.new_zeros((nd, 1, *tail))], dim=1) for g in planes]
+    for i, d in enumerate(rounds):
+        pos = expand_index(_spare_slot(recv_pos[:, i], nghost_pad), planes[0])
+        # the owner's slots line up with its receiver's: padding where the
+        # receiver's position is OOB
+        pad = torch.roll(recv_pos[:, i], -d, dims=0) == int(OOB)
+        dst = expand_index(torch.where(pad, nlocal_pad, send_idx[:, i]), planes[0])
+        yield [g.new_zeros((nd, nlocal_pad + 1, *tail))
+               .scatter_(1, dst, torch.roll(torch.gather(g, 1, pos), -d, dims=0))
+               [:, :nlocal_pad] for g in ext]
+
+
 def halo_scatter_add(
     gz: torch.Tensor,        # (D, nghost_pad[, nrhs]) ghost-slot contributions
     y: torch.Tensor,         # (D, nlocal_pad[, nrhs]) owned accumulator
@@ -174,17 +199,12 @@ def halo_scatter_add(
     rounds: tuple[int, ...],
 ) -> torch.Tensor:
     """Reverse halo exchange: route ghost-slot contributions back to their
-    owners and accumulate into the owned entries (scatter-add); a block
-    moves whole, one set per round. Padding slots read 0 and add it at
-    index 0. On CUDA the scatter-add uses atomics, so its summation order
-    is not fixed; on the CPU it is."""
-    nd, nghost_pad = gz.shape[:2]
-    gz_ext = torch.cat([gz, gz.new_zeros((nd, 1, *gz.shape[2:]))], dim=1)
-    for i, d in enumerate(rounds):
-        buf = torch.gather(gz_ext, 1, expand_index(
-            _spare_slot(recv_pos[:, i], nghost_pad), gz))
-        buf = torch.roll(buf, -d, dims=0)
-        y = y.scatter_add(1, expand_index(send_idx[:, i], y), buf)
+    owners and add them to the owned entries, one placement and one dense
+    add per round (``_reverse_rounds``); a block moves whole, one set per
+    round. No atomics, so the sum's order is fixed and the bits are the
+    same on every run."""
+    for (placed,) in _reverse_rounds((gz,), y.shape[1], send_idx, recv_pos, rounds):
+        y = y + placed
     return y
 
 
@@ -197,26 +217,11 @@ def halo_scatter_add_ds(
     recv_pos: torch.Tensor,
     rounds: tuple[int, ...],
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Error-free double-single reverse halo exchange. Within one round
-    each shard receives from exactly one peer, whose ghost list has no
-    duplicates, so the round's owned indices are unique: each round is a
-    placement into zeros (a deterministic scatter, no atomics), followed by
-    one dense ``ds_add``. Padding slots are redirected to a spare column
-    before the placement and dropped with it, so they add an exact (0, 0)
-    and leave the accumulator's bits unchanged."""
-    nd, nghost_pad = gzh.shape
-    nlocal_pad = acc_h.shape[1]
-    ext = [torch.cat([g, g.new_zeros((nd, 1))], dim=1) for g in (gzh, gzl)]
-    for i, d in enumerate(rounds):
-        pos = _spare_slot(recv_pos[:, i], nghost_pad)
-        # the owner's slots line up with its receiver's: padding where the
-        # receiver's position is OOB
-        pad = torch.roll(recv_pos[:, i], -d, dims=0) == int(OOB)
-        dst = torch.where(pad, nlocal_pad, send_idx[:, i])
-        placed = []
-        for g in ext:
-            buf = torch.roll(torch.gather(g, 1, pos), -d, dims=0)
-            placed.append(g.new_zeros((nd, nlocal_pad + 1))
-                          .scatter_(1, dst, buf)[:, :nlocal_pad])
+    """Error-free double-single reverse halo exchange: each round's
+    placement (``_reverse_rounds``) of both planes, followed by one dense
+    ``ds_add``. Padding slots add an exact (0, 0) and leave the
+    accumulator's bits unchanged."""
+    for placed in _reverse_rounds((gzh, gzl), acc_h.shape[1], send_idx, recv_pos,
+                                  rounds):
         acc_h, acc_l = ds_add(acc_h, acc_l, *placed)
     return acc_h, acc_l

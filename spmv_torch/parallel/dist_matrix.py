@@ -17,9 +17,15 @@ The symmetric path stores the strict lower triangle plus diagonal; ghost
 column contributions return to their owners through the reverse plan. The
 symmetric WELL form ("dual-WELL") also stores the local block's transpose
 as a second WELL stack, so its local apply is two gather launches plus the
-diagonal product, with no scatter. The single-RHS WELL kernels read each
-stack's warp-sliced row lists (``formats/well.pack_rows``), held beside the
-WELL arrays, which the block kernels read.
+diagonal product. The WELL kernels, single-RHS and block, read each
+stack's warp-sliced row lists (``formats/well.pack_rows``); the WELL
+arrays they are derived from stay on the host.
+
+No term sums with atomics, so an apply gives the same bits on every run:
+the far remainders, the symmetric transpose of the local ELL block and
+the ghost-column contributions are ELL rectangles built on the host and
+applied as gathers, and the reverse exchange places each round's values
+(its owned indices are unique) before one dense add.
 
 ``matmat`` / ``matmat_ds`` apply a block of nrhs vectors in the SpMM lane
 layout (D*pad/128, nrhs*128): the local block runs a block kernel that
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from spmv_torch.ds import ds_add, ds_from_f64, ds_mul_f32
-from spmv_torch.formats.csr import CSRHost
+from spmv_torch.formats.csr import CSRHost, coo_ell, ell_transpose
 from spmv_torch.formats.dia import LANES, host_dtype
 from spmv_torch.formats.well import _build_arrays, _pack, pack_rows, split_window
 from spmv_torch.ops.spmm_dia import spmm_from_layout, to_lanes
@@ -43,7 +49,6 @@ from spmv_torch.ops.spmm_dia_cuda import spmm_dia_stacked
 from spmv_torch.ops.spmm_well_cuda import spmm_well_ds_stacked, spmm_well_stacked
 from spmv_torch.ops.spmv_dia_cuda import MAX_DIAGS, spmv_dia_stacked
 from spmv_torch.ops.spmv_dia_ds_cuda import spmm_dia_ds_stacked, spmv_dia_ds_stacked
-from spmv_torch.ops.spmv_well import far_add
 from spmv_torch.ops.spmv_well_cuda import spmv_well_stacked
 from spmv_torch.ops.spmv_well_ds_cuda import spmv_well_ds_stacked
 from spmv_torch.parallel.comm_plan import (
@@ -99,24 +104,29 @@ class DistMatrix:
     diagonal: (D, R) when symmetric
     jacobi_diag: (D, R) dense diagonal (preconditioning)
     local_dia_data: (D, R/128, Kd*128) interleaved DIA local block ("dia")
+    localT_colind/localT_values: (D, R, Kt) ELL of the local block's
+        transpose (symmetric "ell"), the gather form of its transpose term
     local_well_*: (D, Kw, G, 128) values and int32 pos, (D, G/tg) int32 w0
         of the stacked WELL local block ("well"; G*128 == R), well_meta =
-        (k_slots, wseg, tile_groups, paired)
+        (k_slots, wseg, tile_groups, paired); values and pos stay on the
+        host (the kernels read the row lists)
     far_rows/cols/vals: (D, F) compact COO of the window split's far
         remainder (padding slots are (0, 0, 0.0)), None when every shard's
-        is empty
+        is empty; far_ell_colind/far_ell_values: the same entries as a
+        (D, R, Kf) ELL rectangle, which the apply reads
     local_wellT_*, wellT_meta, farT_*: the same for the transpose of the
         local strict lower triangle (symmetric "well")
     local_rows_values/pos/ptr, local_rowsT_*: the row lists of the two WELL
         stacks (formats/well.pack_rows), (D, E) values and int16/int32 pos,
-        (D, G*4 + 1) int64 slice pointers; the single-RHS kernels read them
+        (D, G*4 + 1) int64 slice pointers; the WELL kernels read them
+    remoteT_colind/remoteT_vals: (D, nghost_pad, Kg) ELL of the remote
+        block's transpose over the ghost slots (every symmetric operator
+        with ghosts), the gather form of the ghost-column contributions
 
     Double-single ("dia_ds", "well_ds"): every value array above holds the
     float32 hi plane and ``<name>_lo`` the lo plane. "well_ds" keeps its
     far remainders as ELL rectangles: local_colind/local_values (D, R, Kf)
-    and farT_cols/farT_vals (D, R, KfT). Symmetric "well_ds" also stores
-    the transposed remote block over the ghost slots, remoteT_colind/vals
-    (D, nghost_pad, Kg), for the error-free reverse exchange.
+    and farT_cols/farT_vals (D, R, KfT); its remoteT_vals carry a lo plane.
     """
 
     local_colind: torch.Tensor | None
@@ -150,6 +160,12 @@ class DistMatrix:
     farT_cols: torch.Tensor | None = None
     farT_vals: torch.Tensor | None = None
     well_farT_nnz: int = 0
+    far_ell_colind: torch.Tensor | None = None
+    far_ell_values: torch.Tensor | None = None
+    farT_ell_colind: torch.Tensor | None = None
+    farT_ell_values: torch.Tensor | None = None
+    localT_colind: torch.Tensor | None = None
+    localT_values: torch.Tensor | None = None
     local_rows_values: torch.Tensor | None = None
     local_rows_pos: torch.Tensor | None = None
     local_rows_ptr: torch.Tensor | None = None
@@ -191,11 +207,13 @@ class DistMatrix:
 
     def format_size_bytes(self) -> int:
         """Device bytes held by the matrix's arrays (the plan tables and the
-        Jacobi diagonal excluded, as in the reference)."""
+        Jacobi diagonal excluded, as in the reference; the WELL arrays
+        that stay on the host too)."""
         return sum(
             t.numel() * t.element_size()
             for name, t in vars(self).items()
-            if isinstance(t, torch.Tensor) and name != "jacobi_diag")
+            if isinstance(t, torch.Tensor) and name != "jacobi_diag"
+            and name not in HOST_FIELDS)
 
     @property
     def row_lane_rows(self) -> int:
@@ -345,8 +363,8 @@ def _stacked_mult(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
         y = spmv_well_stacked(A.local_rows_values, A.local_rows_pos,
                               A.local_rows_ptr, A.local_well_w0, x2,
                               A.well_meta[2]).reshape(nd, A.row_pad)
-        if A.far_rows is not None:
-            far_add(y, A.far_rows, A.far_cols, A.far_vals, x)
+        if A.far_ell_colind is not None:
+            y = y + _ell_apply(A.far_ell_colind, A.far_ell_values, x)
     else:
         y = _ell_apply(A.local_colind, A.local_values, x)
     if have_ghosts:
@@ -359,19 +377,15 @@ def _stacked_mult(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
                                       A.local_rowsT_ptr, A.local_wellT_w0, x2,
                                       A.wellT_meta[2]).reshape(nd, A.row_pad)
             y = y + A.diagonal * x
-            if A.farT_rows is not None:
-                far_add(y, A.farT_rows, A.farT_cols, A.farT_vals, x)
+            if A.farT_ell_colind is not None:
+                y = y + _ell_apply(A.farT_ell_colind, A.farT_ell_values, x)
         elif A.local_format != "dia":
             y = y + A.diagonal * x
             # transpose contributions to owned columns
-            contrib = A.local_values * x[:, :, None]
-            y = y.scatter_add(1, A.local_colind.reshape(nd, -1),
-                              contrib.reshape(nd, -1))
+            y = y + _ell_apply(A.localT_colind, A.localT_values, x)
         if have_ghosts:
             # contributions to ghost columns -> reverse exchange to owners
-            gcontrib = A.remote_values * x[:, :, None]
-            gz = x.new_zeros((nd, plan.nghost_pad)).scatter_add(
-                1, A.remote_colind.reshape(nd, -1), gcontrib.reshape(nd, -1))
+            gz = _ell_apply(A.remoteT_colind, A.remoteT_vals, x)
             y = halo_scatter_add(gz, y, plan.send_idx, plan.recv_pos,
                                  plan.rounds)
     return y.reshape(nd * A.row_lane_rows, LANES)
@@ -456,11 +470,12 @@ def _stacked_matmat(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
     if A.local_format == "dia":
         y2 = spmm_dia_stacked(A.local_dia_data, x2, A.dia_offsets, A.symmetric)
     elif A.local_format == "well":
-        y2 = spmm_well_stacked(A.local_well_values, A.local_well_pos,
-                               A.local_well_w0, x2, A.well_meta[2])
+        y2 = spmm_well_stacked(A.local_rows_values, A.local_rows_pos,
+                               A.local_rows_ptr, A.local_well_w0, x2,
+                               A.well_meta[2])
     else:
         y2 = None
-    if y2 is not None and not (have_ghosts or A.far_rows is not None
+    if y2 is not None and not (have_ghosts or A.far_ell_colind is not None
                                or (A.symmetric and A.local_format == "well")):
         return y2
     x = _lanes_to_block(x2, nd, nrhs)
@@ -468,8 +483,8 @@ def _stacked_matmat(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
         y = _ell_apply(A.local_colind, A.local_values, x)
     else:
         y = _lanes_to_block(y2, nd, nrhs)
-    if A.far_rows is not None:
-        far_add(y, A.far_rows, A.far_cols, A.far_vals, x)
+    if A.far_ell_colind is not None:
+        y = y + _ell_apply(A.far_ell_colind, A.far_ell_values, x)
     if have_ghosts:
         # the block halo: one gather per round for every column
         ghosts = halo_gather(x, plan.send_idx, plan.recv_pos, plan.rounds,
@@ -479,22 +494,17 @@ def _stacked_matmat(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
         if A.local_format == "well":
             # dual-WELL: a second block launch over the transpose stack
             y = y + _lanes_to_block(spmm_well_stacked(
-                A.local_wellT_values, A.local_wellT_pos, A.local_wellT_w0, x2,
-                A.wellT_meta[2]), nd, nrhs)
+                A.local_rowsT_values, A.local_rowsT_pos, A.local_rowsT_ptr,
+                A.local_wellT_w0, x2, A.wellT_meta[2]), nd, nrhs)
             y = y + A.diagonal[:, :, None] * x
-            if A.farT_rows is not None:
-                far_add(y, A.farT_rows, A.farT_cols, A.farT_vals, x)
+            if A.farT_ell_colind is not None:
+                y = y + _ell_apply(A.farT_ell_colind, A.farT_ell_values, x)
         elif A.local_format != "dia":
             y = y + A.diagonal[:, :, None] * x
-            contrib = A.local_values[..., None] * x[:, :, None, :]
-            y = y.scatter_add(1, expand_index(A.local_colind.reshape(nd, -1), y),
-                              contrib.reshape(nd, -1, nrhs))
+            y = y + _ell_apply(A.localT_colind, A.localT_values, x)
         if have_ghosts:
             # ghost-column contributions of every column, one reverse set
-            gcontrib = (A.remote_values[..., None] * x[:, :, None, :]).reshape(
-                nd, -1, nrhs)
-            gz = x.new_zeros((nd, plan.nghost_pad, nrhs)).scatter_add(
-                1, expand_index(A.remote_colind.reshape(nd, -1), gcontrib), gcontrib)
+            gz = _ell_apply(A.remoteT_colind, A.remoteT_vals, x)
             y = halo_scatter_add(gz, y, plan.send_idx, plan.recv_pos, plan.rounds)
     return _block_to_lanes(y)
 
@@ -510,9 +520,9 @@ def _stacked_matmat_ds(A: DistMatrix, xh2: torch.Tensor, xl2: torch.Tensor
     nrhs = xh2.shape[1] // LANES
     have_ghosts = plan.nghost_pad > 0 and len(plan.rounds) > 0
     if A.local_format == "well_ds":
-        y = spmm_well_ds_stacked(A.local_well_values, A.local_well_values_lo,
-                                 A.local_well_pos, A.local_well_w0, xh2, xl2,
-                                 A.well_meta[2])
+        y = spmm_well_ds_stacked(A.local_rows_values, A.local_rows_values_lo,
+                                 A.local_rows_pos, A.local_rows_ptr,
+                                 A.local_well_w0, xh2, xl2, A.well_meta[2])
     else:
         y = spmm_dia_ds_stacked(A.local_dia_data, A.local_dia_data_lo, xh2, xl2,
                                 A.dia_offsets)
@@ -579,7 +589,8 @@ def _assemble(
     device,
 ) -> DistMatrix:
     """Compile the (column-side) CommPlan, stack the ELL/DIA/WELL blocks on
-    the host, and move everything to ``device`` once. The double-single
+    the host, and move everything to ``device`` once, except the WELL
+    arrays the row lists are derived from (``HOST_FIELDS``). The double-single
     formats pack in float64 and store every value array as a float32 hi
     plane under its own name plus a lo plane under ``<name>_lo``."""
     nd = len(shards)
@@ -628,6 +639,9 @@ def _assemble(
     if local_format == "ell":
         host["local_colind"], host["local_values"] = _stack_ell(
             [s.local for s in shards], r, kl, dtype=dtype)
+        if symmetric:
+            host["localT_colind"], host["localT_values"] = ell_transpose(
+                host["local_colind"], host["local_values"], r)
 
     if well is not None:
         for tag in ("", "T"):
@@ -643,8 +657,11 @@ def _assemble(
             fars = well[f"far{tag}"]
             host[f"well_far{tag}_nnz"] = max((b.nnz for b in fars), default=0)
             if not ds:
-                (host[f"far{tag}_rows"], host[f"far{tag}_cols"],
-                 host[f"far{tag}_vals"], _) = _far_coo_stack(fars, dtype)
+                coo = _far_coo_stack(fars, dtype)
+                host[f"far{tag}_rows"], host[f"far{tag}_cols"], host[f"far{tag}_vals"] = coo
+                if coo[0] is not None:
+                    (host[f"far{tag}_ell_colind"],
+                     host[f"far{tag}_ell_values"]) = coo_ell(*coo, r)
                 continue
             # double-single far remainders stay ELL rectangles (the DS
             # chain accumulates per output row, slot by slot, error-free):
@@ -665,15 +682,11 @@ def _assemble(
     rci, rv = _stack_ell([s.remote for s in shards], r, kr, dtype=pack_dtype)
     host["remote_colind"] = rci
     planes("remote_values", rv)
-    if symmetric and local_format == "well_ds" and plan.nghost_pad > 0:
-        # transposed-remote ELL over ghost slots: the symmetric DS reverse
-        # exchange forms each ghost's contribution with an error-free
-        # slot-wise chain (no scatter)
-        rem_t = [s.remote.transpose() for s in shards]
-        kg = max(max((int(b.row_nnz().max()) if b.nnz else 0) for b in rem_t), 1)
-        host["remoteT_colind"], v64 = _stack_ell(rem_t, plan.nghost_pad, kg,
-                                                 dtype=np.float64)
-        planes("remoteT_vals", v64)
+    if symmetric and plan.nghost_pad > 0:
+        # transposed-remote ELL over ghost slots: each ghost's contribution
+        # as a gather (no scatter), slot by slot in DS
+        host["remoteT_colind"], vt = ell_transpose(rci, rv, plan.nghost_pad)
+        planes("remoteT_vals", vt)
     vdtype = host["remote_values"].dtype  # float32 (the hi plane) for DS
 
     if symmetric:
@@ -699,7 +712,8 @@ def _assemble(
         if not isinstance(arr, np.ndarray):
             return arr  # static metadata
         dt = torch.int64 if name in _INDEX_FIELDS else None
-        return torch.as_tensor(np.ascontiguousarray(arr), dtype=dt, device=device)
+        return torch.as_tensor(np.ascontiguousarray(arr), dtype=dt,
+                               device="cpu" if name in HOST_FIELDS else device)
 
     fields = dict(local_colind=None, local_values=None, diagonal=None)
     fields.update({name: put(name, arr) for name, arr in host.items()})
@@ -721,7 +735,13 @@ def _rows_fields(tag: str, rows) -> dict:
 
 # index arrays, int64 on the device (torch.gather and scatter take int64)
 _INDEX_FIELDS = ("local_colind", "remote_colind", "remoteT_colind", "far_rows",
-                 "far_cols", "farT_rows", "farT_cols")
+                 "far_cols", "farT_rows", "farT_cols", "localT_colind",
+                 "far_ell_colind", "farT_ell_colind")
+# the WELL arrays the row lists are derived from: no kernel reads them, so
+# they stay on the host (the reference's fields, kept for comparison)
+HOST_FIELDS = tuple(f"local_well{t}_{f}" for t in ("", "T")
+                    for f in ("values", "pos", "values_lo"))
+
 
 
 def _stack_dia(shards: list[ShardCSR], symmetric: bool, r: int, dtype
@@ -774,7 +794,7 @@ def _far_coo_stack(blocks: list[CSRHost], dtype):
     F = the largest shard's far nnz); all None when every one is empty."""
     fmax = max((b.nnz for b in blocks), default=0)
     if fmax == 0:
-        return None, None, None, 0
+        return None, None, None
     nd = len(blocks)
     rows = np.zeros((nd, fmax), dtype=np.int32)
     cols = np.zeros((nd, fmax), dtype=np.int32)
@@ -786,8 +806,8 @@ def _far_coo_stack(blocks: list[CSRHost], dtype):
                                      b.row_nnz())
         cols[s, : b.nnz] = b.colind
         vals[s, : b.nnz] = b.values
-        # padding slots stay (row 0, col 0, val 0): they add 0.0
-    return rows, cols, vals, fmax
+        # padding slots stay (row 0, col 0, val 0); coo_ell drops them
+    return rows, cols, vals
 
 
 def _stack_well(shards: list[ShardCSR], symmetric: bool, dtype) -> dict:

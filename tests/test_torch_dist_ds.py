@@ -103,6 +103,10 @@ def _assert_same_assembly(R, P):
     names = DS_FIELDS
     if P.local_format == "well_ds":  # the far ELL (dia_ds keeps placeholders)
         names += ("local_colind", "local_values", "local_values_lo")
+    if not P.local_format.endswith("_ds"):
+        # a symmetric non-DS operator with ghosts keeps the port's own gather
+        # form of its ghost-column term, which the reference does not store
+        names = tuple(n for n in names if n not in ("remoteT_colind", "remoteT_vals"))
     for name in names:
         got, want = getattr(P, name), getattr(R, name)
         assert (got is None) == (want is None), name

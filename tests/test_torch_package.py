@@ -41,7 +41,7 @@ from spmv_torch.ops.spmv_dia_ds import (
     spmm_dia_ds_stacked_plain,
     spmv_dia_ds_stacked_plain,
 )
-from spmv_torch.formats.well import pack_rows
+from spmv_torch.formats.well import csr_to_well
 from spmv_torch.ops.spmv_well import spmv_well_rows_plain
 from spmv_torch.ops.spmv_well_ds import (
     csr_to_well_ds,
@@ -341,12 +341,12 @@ def test_dist_matrix_runs_through_kernel_on_cuda(cuda):
     assert spmv_dia_cuda.launches == {"dia": 0, "dia_sym": 1}
 
 
-def _rows_args(rng, dtype, pos_dtype, device, planes=1):
+def _rows_args(rng, dtype, pos_dtype, device, planes=1, nrhs=1):
     """Random stacked row lists: D=3 shards of 32 groups (128 slices) with
     slice widths 0 to 6 (so the shards' entry counts differ), random window
-    starts and positions; x (D*col_pad/128, 128). Returns (value planes,
-    pos, slice_ptr, w0, x planes, tile_groups); DS planes get small lo
-    planes."""
+    starts and positions; x (D*col_pad/128, nrhs*128). Returns (value
+    planes, pos, slice_ptr, w0, x planes, tile_groups); DS planes get small
+    lo planes."""
     nd, g, tg, col_pad = 3, 32, 8, 64 * 128
     width = rng.integers(0, 7, (nd, g * 4))
     ptr = np.zeros((nd, g * 4 + 1), dtype=np.int64)
@@ -358,8 +358,8 @@ def _rows_args(rng, dtype, pos_dtype, device, planes=1):
                           device=device)
     w0 = torch.as_tensor(rng.integers(0, 5, (nd, g // tg)) * 8, dtype=torch.int32,
                          device=device)
-    xs = [torch.as_tensor(rng.standard_normal((nd * col_pad // 128, 128)), dtype=dtype,
-                          device=device) for _ in range(planes)]
+    xs = [torch.as_tensor(rng.standard_normal((nd * col_pad // 128, nrhs * 128)),
+                          dtype=dtype, device=device) for _ in range(planes)]
     if planes == 2:
         values[1], xs[1] = values[1] * 1e-8, xs[1] * 1e-8
     return values, pos, torch.as_tensor(ptr, device=device), w0, xs, tg
@@ -508,32 +508,6 @@ def _spmm_dia_args(rng, dtype, symmetric, nrhs, device, nd=3, nr=40):
     return data, x2, offs
 
 
-def _spmm_well_args(rng, dtype, pos_dtype, nrhs, device, planes=1):
-    nd, k, g, tg, col_pad = 3, 5, 32, 8, 64 * 128
-    values = [torch.as_tensor(rng.standard_normal((nd, k, g, 128)), dtype=dtype,
-                              device=device) for _ in range(planes)]
-    pos = torch.as_tensor(rng.integers(0, 24 * 128, (nd, k, g, 128)),
-                          dtype=pos_dtype, device=device)
-    w0 = torch.as_tensor(rng.integers(0, 5, (nd, g // tg)) * 8, dtype=torch.int32,
-                         device=device)
-    xs = [torch.as_tensor(rng.standard_normal((nd * col_pad // 128, nrhs * 128)),
-                          dtype=dtype, device=device) for _ in range(planes)]
-    if planes == 2:  # DS: small lo planes
-        values[1] = values[1] * 1e-8
-        xs[1] = xs[1] * 1e-8
-    return values, pos, w0, xs, tg
-
-
-def _rows_of(pos, w0, *planes):
-    """The row-list operands (value planes, pos, slice_ptr, w0) of a stacked
-    WELL stack whose positions lie in a 24-segment window, on its device."""
-    rows = pack_rows(planes[0].cpu().numpy(), pos.cpu().numpy(), 24,
-                     values_lo=planes[1].cpu().numpy() if len(planes) == 2 else None)
-    out = [rows.values] + ([rows.values_lo] if len(planes) == 2 else [])
-    return (*(torch.as_tensor(a, device=pos.device)
-              for a in (*out, rows.pos, rows.slice_ptr)), w0)
-
-
 @pytest.mark.parametrize("symmetric", [False, True])
 def test_spmm_wrappers_take_plain_path_on_cpu(symmetric):
     """On CPU tensors every block wrapper returns its plain version's
@@ -545,14 +519,17 @@ def test_spmm_wrappers_take_plain_path_on_cpu(symmetric):
     assert torch.equal(y, spmm_dia_stacked_plain(data, x2, offs, symmetric))
     for c, yc in zip(columns(x2), columns(y)):
         assert torch.equal(yc, spmv_dia_stacked_plain(data, c, offs, symmetric))
-    (v,), pos, w0, (x,), tg = _spmm_well_args(rng, torch.float32, torch.int16, 3, "cpu")
-    assert torch.equal(spmm_well_cuda.spmm_well_stacked(v, pos, w0, x, tg),
-                       spmm_well_stacked_plain(v, pos, w0, x, tg))
-    vs, pos, w0, xs, tg = _spmm_well_args(rng, torch.float32, torch.int32, 2, "cpu", 2)
-    got = spmm_well_cuda.spmm_well_ds_stacked(*vs, pos, w0, *xs, tg)
-    assert _bits_equal(got, spmm_well_ds_stacked_plain(*vs, pos, w0, *xs, tg))
+    (v,), pos, ptr, w0, (x,), tg = _rows_args(rng, torch.float32, torch.int16, "cpu",
+                                              nrhs=3)
+    y = spmm_well_cuda.spmm_well_stacked(v, pos, ptr, w0, x, tg)
+    assert torch.equal(y, spmm_well_stacked_plain(v, pos, ptr, w0, x, tg))
+    for c, yc in zip(columns(x), columns(y)):
+        assert torch.equal(yc, spmv_well_rows_plain(v, pos, ptr, w0, c, tg))
+    vs, pos, ptr, w0, xs, tg = _rows_args(rng, torch.float32, torch.int32, "cpu", 2, 2)
+    got = spmm_well_cuda.spmm_well_ds_stacked(*vs, pos, ptr, w0, *xs, tg)
+    assert _bits_equal(got, spmm_well_ds_stacked_plain(*vs, pos, ptr, w0, *xs, tg))
     for r, (h, lo) in enumerate(zip(columns(xs[0]), columns(xs[1]))):
-        one = spmv_well_ds_stacked_plain(*vs, pos, w0, h, lo, tg)
+        one = spmv_well_ds_rows_plain(*vs, pos, ptr, w0, h, lo, tg)
         assert _bits_equal([columns(g)[r] for g in got], one)
     dh, xh, offs = _spmm_dia_args(rng, torch.float32, False, 2, "cpu", nr=8)
     planes = (dh, dh * 1e-8, xh, xh * 1e-8)
@@ -573,8 +550,9 @@ def test_spmm_wrappers_take_plain_path_on_cpu(symmetric):
 def test_spmm_wrappers_reject_bad_input(case, exc):
     rng = np.random.default_rng(32)
     data, x2, offs = _spmm_dia_args(rng, torch.float32, True, 2, "cpu", nr=4)
-    (v,), pos, w0, (x,), tg = _spmm_well_args(rng, torch.float32, torch.int16, 2, "cpu")
-    vs, _, _, xs, _ = _spmm_well_args(rng, torch.float32, torch.int16, 2, "cpu", 2)
+    (v,), pos, ptr, w0, (x,), tg = _rows_args(rng, torch.float32, torch.int16, "cpu",
+                                              nrhs=2)
+    vs, _, _, _, xs, _ = _rows_args(rng, torch.float32, torch.int16, "cpu", 2, 2)
     calls = {
         "dia_lanes": lambda: spmm_dia_cuda.spmm_dia_stacked(data, x2[:, :200].contiguous(),
                                                             offs, True),
@@ -585,13 +563,15 @@ def test_spmm_wrappers_reject_bad_input(case, exc):
         "dia_noncontiguous": lambda: spmm_dia_cuda.spmm_dia_stacked(
             data, torch.zeros((256, 120)).t(), offs, True),
         "well_lanes": lambda: spmm_well_cuda.spmm_well_stacked(
-            v, pos, w0, x[:, :100].contiguous(), tg),
-        "well_dtype": lambda: spmm_well_cuda.spmm_well_stacked(v, pos, w0, x.double(), tg),
-        "well_pos": lambda: spmm_well_cuda.spmm_well_stacked(v, pos.long(), w0, x, tg),
+            v, pos, ptr, w0, x[:, :100].contiguous(), tg),
+        "well_dtype": lambda: spmm_well_cuda.spmm_well_stacked(v, pos, ptr, w0,
+                                                               x.double(), tg),
+        "well_pos": lambda: spmm_well_cuda.spmm_well_stacked(v, pos.long(), ptr, w0, x, tg),
         "well_ds_f64": lambda: spmm_well_cuda.spmm_well_ds_stacked(
-            vs[0].double(), vs[1].double(), pos, w0, xs[0].double(), xs[1].double(), tg),
+            vs[0].double(), vs[1].double(), pos, ptr, w0, xs[0].double(),
+            xs[1].double(), tg),
         "well_ds_planes": lambda: spmm_well_cuda.spmm_well_ds_stacked(
-            *vs, pos, w0, xs[0], xs[1][:, :128].contiguous(), tg),
+            *vs, pos, ptr, w0, xs[0], xs[1][:, :128].contiguous(), tg),
         "dia_ds_lanes": lambda: spmv_dia_ds_cuda.spmm_dia_ds_stacked(
             data, data, x2[:, :200].contiguous(), x2[:, :200].contiguous(), offs),
         "dia_ds_f64": lambda: spmv_dia_ds_cuda.spmm_dia_ds_stacked(
@@ -628,17 +608,19 @@ def test_dia_spmm_kernels_match_plain_on_cuda(cuda, symmetric, dtype, tol, nrhs)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.float64, 1e-13)])
 @pytest.mark.parametrize("pos_dtype", [torch.int16, torch.int32])
 def test_well_spmm_kernel_matches_plain_on_cuda(cuda, pos_dtype, dtype, tol, nrhs):
+    """well_spmm on random stacked row lists (unequal shards, empty slices)
+    vs its plain version, and column r bit-equal to the single-RHS kernel
+    on column r (nrhs 11 runs two chunks of columns)."""
     rng = np.random.default_rng(34)
-    (v,), pos, w0, (x,), tg = _spmm_well_args(rng, dtype, pos_dtype, nrhs, cuda)
-    y = spmm_well_cuda.spmm_well_stacked(v, pos, w0, x, tg)
+    (v,), pos, ptr, w0, (x,), tg = _rows_args(rng, dtype, pos_dtype, cuda, nrhs=nrhs)
+    y = spmm_well_cuda.spmm_well_stacked(v, pos, ptr, w0, x, tg)
     torch.cuda.synchronize()
-    want = spmm_well_stacked_plain(v, pos, w0, x, tg)
+    want = spmm_well_stacked_plain(v, pos, ptr, w0, x, tg)
     err = float(torch.linalg.vector_norm(y - want) / torch.linalg.vector_norm(want))
     assert err <= tol
     assert spmm_well_cuda.launches["well_spmm"] == 1
-    rows = _rows_of(pos, w0, v)
     for c, yc in zip(columns(x), columns(y)):
-        assert torch.equal(yc, spmv_well_cuda.spmv_well_stacked(*rows, c, tg))
+        assert torch.equal(yc, spmv_well_cuda.spmv_well_stacked(v, pos, ptr, w0, c, tg))
 
 
 @pytest.mark.cuda
@@ -657,12 +639,12 @@ def test_ds_spmm_kernels_match_plain_on_cuda(cuda, nrhs):
         one = spmv_dia_ds_cuda.spmv_dia_ds_stacked(dh, planes[1], h, lo, offs)
         assert _bits_equal([columns(g)[r] for g in got], one)
     for pos_dtype in (torch.int16, torch.int32):
-        vs, pos, w0, xs, tg = _spmm_well_args(rng, torch.float32, pos_dtype, nrhs,
-                                              cuda, planes=2)
-        got = spmm_well_cuda.spmm_well_ds_stacked(*vs, pos, w0, *xs, tg)
+        vs, pos, ptr, w0, xs, tg = _rows_args(rng, torch.float32, pos_dtype, cuda,
+                                              planes=2, nrhs=nrhs)
+        rows = (*vs, pos, ptr, w0)
+        got = spmm_well_cuda.spmm_well_ds_stacked(*rows, *xs, tg)
         torch.cuda.synchronize()
-        assert _bits_equal(got, spmm_well_ds_stacked_plain(*vs, pos, w0, *xs, tg))
-        rows = _rows_of(pos, w0, *vs)
+        assert _bits_equal(got, spmm_well_ds_stacked_plain(*rows, *xs, tg))
         for r, (h, lo) in enumerate(zip(columns(xs[0]), columns(xs[1]))):
             one = spmv_well_ds_cuda.spmv_well_ds_stacked(*rows, h, lo, tg)
             assert _bits_equal([columns(g)[r] for g in got], one)
@@ -702,3 +684,73 @@ def test_matmat_runs_through_block_kernels_on_cuda(cuda):
         assert np.linalg.norm(got - want) <= 1e-13 * np.linalg.norm(want)
     assert spmv_dia_ds_cuda.launches["dia_ds_spmm"] == 1
     assert spmm_well_cuda.launches["well_ds_spmm"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrhs", [1, 8, 11])
+def test_well_spmm_kernels_on_packed_stacks_on_cuda(cuda, nrhs):
+    """The block kernels on the row lists of a packing whose first row
+    group needs K = 140 slots (max_k=256): fp32 within 1e-6 of its plain
+    version, DS both planes bit for bit, and every column bit-equal to the
+    single-RHS kernel on that column."""
+    from spmv_torch.formats.csr import CSRHost
+    from spmv_torch.ops.spmm_well import spmm_well_2d, spmm_well_ds_2d
+    from spmv_torch.ops.spmv_well import spmv_well_2d
+    from spmv_torch.ops.spmv_well_ds import spmv_well_ds_2d
+
+    rng = np.random.default_rng(37)
+    n = 140 * 128
+    r = np.repeat(np.arange(128), 140)
+    rows = np.concatenate([r, np.arange(128, n)])
+    cols = np.concatenate([r + 128 * np.tile(np.arange(140), 128), np.arange(128, n)])
+    a = CSRHost.from_coo(rows, cols, rng.standard_normal(len(rows)), n, n)
+    w = csr_to_well(a, tile_groups=1, max_k=256, dtype=np.float32, device=cuda)
+    wds = csr_to_well_ds(a, tile_groups=1, max_k=256, device=cuda)
+    assert w.k_slots == wds.k_slots == 140
+    x = torch.randn((w.ncols_pad // 128, nrhs * 128), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(37))
+    y = spmm_well_2d(w, x)
+    ys = spmm_well_ds_2d(wds, x, x * 1e-8)
+    torch.cuda.synchronize()
+    tg = w.tile_groups
+    lists = [t.unsqueeze(0) for t in (w.rows_values, w.rows_pos, w.slice_ptr, w.w0)]
+    want = spmm_well_stacked_plain(*lists, x, tg)
+    assert float(torch.linalg.vector_norm(y - want)
+                 / torch.linalg.vector_norm(want)) <= 1e-6
+    ds_lists = [t.unsqueeze(0) for t in (wds.rows_values_hi, wds.rows_values_lo,
+                                         wds.rows_pos, wds.slice_ptr, wds.w0)]
+    assert _bits_equal(ys, spmm_well_ds_stacked_plain(*ds_lists, x, x * 1e-8, tg))
+    for c, xc in enumerate(columns(x)):
+        assert torch.equal(columns(y)[c], spmv_well_2d(w, xc))
+        one = spmv_well_ds_2d(wds, xc, xc * 1e-8)
+        assert _bits_equal([columns(g)[c] for g in ys], one)
+    assert spmm_well_cuda.launches == {"well_spmm": 1, "well_ds_spmm": 1}
+
+
+@pytest.mark.cuda
+def test_dist_matrix_keeps_well_arrays_on_host_on_cuda(cuda):
+    """A WELL DistMatrix built for the card keeps the WELL arrays on the
+    host and its row lists on the card; matvec and matmat (two launches
+    each: L and L^T) agree with the host oracle and give the same bits on
+    a second run."""
+    from spmv_torch.corpus import fem_p1_2d
+    from spmv_torch.parallel.dist_matrix import HOST_FIELDS, build_dist_matrix
+    from spmv_torch.reorder import rcm_reorder
+
+    a, _ = rcm_reorder(fem_p1_2d(5000, dtype=np.float64), keep_best=True)
+    A = build_dist_matrix(a, n_devices=2, symmetric=True, local_format="well",
+                          device=cuda)
+    for name in HOST_FIELDS:
+        t = getattr(A, name)
+        assert t is None or t.device.type == "cpu", name
+    assert A.local_rows_values.is_cuda and A.local_rowsT_values.is_cuda
+    X = np.random.default_rng(38).standard_normal((a.nrows, 3))
+    y = A.matvec(A.to_dist(X[:, 0].copy()))
+    Y = A.matmat(A.to_dist_block(X))
+    assert torch.equal(A.matvec(A.to_dist(X[:, 0].copy())), y)
+    assert torch.equal(A.matmat(A.to_dist_block(X)), Y)
+    want = np.stack([a.matvec(c) for c in X.T], axis=1)
+    assert np.linalg.norm(A.from_dist(y) - want[:, 0]) <= 1e-12 * np.linalg.norm(want)
+    assert np.linalg.norm(A.from_dist_block(Y) - want) <= 1e-12 * np.linalg.norm(want)
+    assert spmv_well_cuda.launches["well"] == 4
+    assert spmm_well_cuda.launches["well_spmm"] == 4

@@ -32,6 +32,7 @@ from spmv_torch.solvers.cg import cg
 from spmv_torch.solvers.refine import cg_refined, cg_refined_dist
 
 INNER_TOL = 0.05
+DS_FLOOR = 1e-8  # a residual at or below this x history[0] is at the DS floor
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -46,26 +47,49 @@ def _rel(a, x, b):
     return np.linalg.norm(a.matvec(x) - b) / np.linalg.norm(b)
 
 
-def _inner_solves(res) -> int:
-    """Inner solves the loop ran: one per residual, except after the last
-    residual when the loop stopped there (converged, or the second
-    consecutive pass contracting by less than 0.95x)."""
+def _stalled(res) -> bool:
+    """The loop's own stall rule fired: its last two passes each contracted
+    the residual by less than 0.95x."""
     stalls = 0
     for prev, cur in zip(res.history, res.history[1:]):
         stalls = stalls + 1 if cur > 0.95 * prev else 0
-    stopped = res.converged or stalls >= 2
-    return len(res.history) - (1 if stopped else 0)
+    return stalls >= 2
 
 
-def _same_loop(got, want):
-    """Outer counts equal, the first residual to float32 rounding of its
-    norm, inner iterations per inner solve within INNER_TOL. Per solve,
-    because at the DS floor the residuals are rounding noise and the stall
-    rule may stop one loop a pass before the other, both within max_outer
-    (the Jacobi cases below: the port stops after its 7th inner solve, the
-    reference runs an 8th)."""
-    assert got.outer_iterations == want.outer_iterations
-    assert got.converged == want.converged
+def _inner_solves(res) -> int:
+    """Inner solves the loop ran: one per residual, except after the last
+    residual when the loop stopped there (converged, or stalled)."""
+    return len(res.history) - (1 if res.converged or _stalled(res) else 0)
+
+
+def _floor_pass(res):
+    """The first outer pass whose residual reaches the double-single floor
+    (history[i] <= DS_FLOOR * history[0]), None if none does."""
+    return next((i for i, h in enumerate(res.history)
+                 if h <= DS_FLOOR * res.history[0]), None)
+
+
+def _same_loop(got, want, max_outer):
+    """The outer passes equal up to the first pass that reaches the DS
+    floor (the same index in both loops), or all of them where neither
+    reaches it; the first residual to float32 rounding of its norm, inner
+    iterations per inner solve within INNER_TOL. Past the floor the
+    residuals are rounding noise, and which pass a stall rule reads as two
+    poor contractions depends on the CPU's reduction order (on one host
+    the Jacobi case below stops the port after 6 outer passes and runs the
+    reference to its 8th). There each loop only has to have stopped within
+    max_outer: at max_outer, or before it by convergence or its own stall
+    rule."""
+    floor = _floor_pass(want)
+    assert _floor_pass(got) == floor
+    if floor is None:
+        assert got.outer_iterations == want.outer_iterations
+        assert got.converged == want.converged
+    else:
+        for res in (got, want):
+            assert len(res.history) <= max_outer
+            assert (len(res.history) == max_outer or res.converged
+                    or _stalled(res)), res.history
     assert abs(got.history[0] - want.history[0]) <= 1e-6 * want.history[0]
     per_got = got.inner_iterations / _inner_solves(got)
     per_want = want.inner_iterations / _inner_solves(want)
@@ -95,7 +119,7 @@ def test_refinement_reaches_f64_class_residual():
     assert res.history[1] < res.history[0] * 1e-3
     assert res.outer_iterations <= 4
     _same_loop(res, ref_refined(ref_gen.create_laplace_2d(48, 48), b, rtol=1e-12,
-                                inner_kmax=2000, interpret=True))
+                                inner_kmax=2000, interpret=True), max_outer=6)
 
 
 def test_refinement_beats_pure_fp32_floor():
@@ -139,7 +163,8 @@ def test_distributed_refinement(n_dev):
     rel = _rel(a, res.x, b)
     assert rel < 1e-11, rel
     _same_loop(res, ref_refined_dist(ref_gen.create_laplace_2d(48, 48), b,
-                                     n_devices=n_dev, rtol=1e-12, inner_kmax=2000))
+                                     n_devices=n_dev, rtol=1e-12, inner_kmax=2000),
+               max_outer=8)
 
 
 def test_dia_ds_rejects_plain_matvec():
@@ -172,7 +197,8 @@ def test_distributed_refinement_general_sparsity(n_dev):
     assert rel < 1e-10, rel
     _same_loop(res, ref_refined_dist(ref_gen.CSRHost.from_coo(*coo), b,
                                      n_devices=n_dev, rtol=1e-12,
-                                     inner_kmax=3000, local_format="well"))
+                                     inner_kmax=3000, local_format="well"),
+               max_outer=8)
 
 
 def test_refinement_jacobi_inner():
@@ -189,7 +215,7 @@ def test_refinement_jacobi_inner():
     assert jac.inner_iterations < plain.inner_iterations, (
         jac.inner_iterations, plain.inner_iterations)
     _same_loop(jac, ref_refined(ref, b, rtol=1e-10, inner_kmax=4000, max_outer=8,
-                                jacobi=True, interpret=True))
+                                jacobi=True, interpret=True), max_outer=8)
 
 
 def test_distributed_refinement_jacobi():
@@ -205,7 +231,7 @@ def test_distributed_refinement_jacobi():
     assert rel < 1e-9, rel
     assert jac.inner_iterations < plain.inner_iterations
     _same_loop(jac, ref_refined_dist(ref, b, n_devices=4, rtol=1e-10,
-                                     inner_kmax=4000, jacobi=True))
+                                     inner_kmax=4000, jacobi=True), max_outer=8)
 
 
 @pytest.mark.parametrize("amg", [True, {"aggregate": "interval2d"}])

@@ -457,15 +457,8 @@ def test_matmat_ds_matches_reference(fmt):
 def test_matmat_ds_far_chain():
     """A window split with a far remainder: the per-column DS far chain
     keeps every column bit-equal to matvec_ds and f64-class."""
-    n, pairs = 80_000, 300
-    rng = np.random.default_rng(3)
-    i = np.arange(n)
-    pi, pj = rng.integers(0, 5000, pairs), rng.integers(n - 5000, n, pairs)
-    rows = np.concatenate([i, i[1:], i[:-1], pi, pj])
-    cols = np.concatenate([i, i[:-1], i[1:], pj, pi])
-    vals = np.concatenate([np.full(n, 4.0), np.full(2 * (n - 1), -1.0),
-                           np.full(2 * pairs, -0.5)])
-    pt = pt_csr.CSRHost.from_coo(rows, cols, vals, n, n)
+    pt = _long_range_sym()
+    n = pt.nrows
     P = build_dist_matrix(pt, local_format="well_ds", device="cpu")
     assert P.well_far_nnz > 0
     X = _block(n, 2, 7)
@@ -476,6 +469,61 @@ def test_matmat_ds_far_chain():
         assert torch.equal(columns(yh)[c], vh) and torch.equal(columns(yl)[c], vl)
     got = ds_to_f64(P.from_dist_block(yh), P.from_dist_block(yl))
     assert _rel(got, np.stack([pt.matvec(c) for c in X.T], axis=1)) < 1e-13
+
+
+def _long_range_sym(n=80_000, pairs=300, seed=3):
+    """Tridiagonal plus entries joining the first and the last rows
+    (``test_matmat_ds_far_chain``'s matrix): every shard's window split
+    leaves a far remainder in both triangles."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(n)
+    pi, pj = rng.integers(0, 5000, pairs), rng.integers(n - 5000, n, pairs)
+    rows = np.concatenate([i, i[1:], i[:-1], pi, pj])
+    cols = np.concatenate([i, i[:-1], i[1:], pj, pi])
+    vals = np.concatenate([np.full(n, 4.0), np.full(2 * (n - 1), -1.0),
+                           np.full(2 * pairs, -0.5)])
+    return pt_csr.CSRHost.from_coo(rows, cols, vals, n, n)
+
+
+@pytest.mark.parametrize("case", ["well-far", "ell-ghosts", "well_sym-far"])
+def test_applies_call_no_scatter_add(case, monkeypatch):
+    """matvec and matmat of a symmetric fp32 "well" operator with far
+    remainders in both triangles, and of a symmetric "ell" operator with
+    ghosts at np 4 (and the format-level spmv_well_sym with far
+    remainders) call no index_add / scatter_add, which sum with atomics on
+    the card; they still agree with the host oracle."""
+    from spmv_torch.formats.well import csr_to_well_sym
+    from spmv_torch.ops.spmv_well import spmv_well_sym
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an apply called a scatter-add")
+
+    pt = _random_sym()[1] if case == "ell-ghosts" else _long_range_sym()
+    rng = np.random.default_rng(12)
+    X = rng.standard_normal((pt.nrows, 3)).astype(np.float32)
+    want = np.stack([pt.matvec(c.astype(np.float64)) for c in X.T], axis=1)
+    if case == "well_sym-far":
+        S = csr_to_well_sym(pt, tile_groups=16, dtype=np.float32, device="cpu")
+        assert S.farl_ell is not None and S.faru_ell is not None
+    else:
+        fmt, n_dev = ("ell", 4) if case == "ell-ghosts" else ("well", 1)
+        P = build_dist_matrix(pt, n_devices=n_dev, symmetric=True, dtype=np.float32,
+                              local_format=fmt, device="cpu")
+        if fmt == "well":
+            assert P.far_ell_colind is not None and P.farT_ell_colind is not None
+        else:
+            assert P.plan.nghost_pad > 0 and P.remoteT_colind is not None
+    for owner, name in ((torch.Tensor, "index_add_"), (torch.Tensor, "index_add"),
+                        (torch.Tensor, "scatter_add_"), (torch.Tensor, "scatter_add"),
+                        (torch, "index_add"), (torch, "scatter_add")):
+        monkeypatch.setattr(owner, name, refuse)
+    if case == "well_sym-far":
+        got = spmv_well_sym(S, torch.from_numpy(X[:, 0].copy())).numpy()[: pt.nrows]
+        assert _rel(got, want[:, 0]) <= 2e-6
+        return
+    y = P.from_dist(P.matvec(P.to_dist(X[:, 0].copy())))
+    Y = P.from_dist_block(P.matmat(P.to_dist_block(X)))
+    assert _rel(y, want[:, 0]) <= 2e-6 and _rel(Y, want) <= 2e-6
 
 
 def test_matmat_refusals_match_reference():

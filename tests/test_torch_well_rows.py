@@ -10,13 +10,15 @@ against them:
   wseg*128 <= 32767;
 - the row-list plain applies (fp32, fp64 and double-single) equal the WELL
   plain applies bit for bit: each row sums the same terms in the same
-  order, and every padded term, in either layout, adds an exact zero;
+  order, and every padded term, in either layout, adds an exact zero; so
+  do the block (SpMM) plain applies, column by column, at nrhs 1/3/8/11;
+- a group of K = 140 slots (more than 127: the ranks must not wrap);
 - against the reference's Pallas kernels in interpret mode, at the
   tolerances of ``test_torch_well.py`` (relative L2 1e-6 fp32, 1e-13 fp64)
   and ``test_torch_ds.py`` (hi planes equal, hi + lo within 4e-15);
-- ``DistMatrix.matvec`` / ``matvec_ds`` at np 1/2/4 and a converted
-  operator apply through the row lists, bit for bit as through the WELL
-  formula.
+- ``DistMatrix.matvec`` / ``matvec_ds`` and ``matmat`` / ``matmat_ds`` at
+  np 1/2/4 and a converted operator apply through the row lists, bit for
+  bit as through the WELL formula.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -42,7 +44,9 @@ from spmv_torch.formats.well import (
     csr_to_well_sym,
     pack_rows,
 )
-from spmv_torch.ops import spmv_well_cuda, spmv_well_ds_cuda
+from spmv_torch.ops import spmm_well_cuda, spmv_well_cuda, spmv_well_ds_cuda
+from spmv_torch.ops.spmm_dia import columns, from_columns
+from spmv_torch.ops.spmm_well import spmm_well_ds_stacked_plain, spmm_well_stacked_plain
 from spmv_torch.ops.spmv_well import (
     spmv_well,
     spmv_well_rows_plain,
@@ -57,6 +61,7 @@ from spmv_torch.ops.spmv_well_ds import (
 
 TOL = {np.float32: 1e-6, np.float64: 1e-13}
 CONTRACTION_TOL = 4e-15  # test_torch_ds.py's module docstring
+NRHS = (1, 3, 8, 11)  # 11: a chunk of 8 columns and one of 3 on the card
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -266,6 +271,109 @@ def test_ds_rows_plain_equals_well_plain(name):
     assert spmv_well_ds_cuda.launches["well_ds"] == 0
 
 
+def _well_block(well, xs, tg):
+    """The WELL formula's block apply, column by column: the bit-equality
+    witness of the row-list block applies. ``well`` is (values, pos, w0) or
+    (values_hi, values_lo, pos, w0); ``xs`` one x block, or the DS pair."""
+    if len(xs) == 1:
+        return (from_columns([spmv_well_stacked_plain(*well, c, tg)
+                              for c in columns(xs[0])]),)
+    outs = [spmv_well_ds_stacked_plain(*well, h, lo, tg)
+            for h, lo in zip(columns(xs[0]), columns(xs[1]))]
+    return tuple(from_columns([o[i] for o in outs]) for i in range(2))
+
+
+def _assert_block_rows(well, rows, xs, tg):
+    """The row-list block plain apply (and its wrapper on CPU tensors)
+    equals the WELL formula's block apply and, column by column, the
+    single-RHS row-list plain apply, bit for bit."""
+    if len(xs) == 1:
+        got = (spmm_well_stacked_plain(*rows, *xs, tg),)
+        wrapped = (spmm_well_cuda.spmm_well_stacked(*rows, *xs, tg),)
+        singles = [(spmv_well_rows_plain(*rows, c, tg),) for c in columns(xs[0])]
+    else:
+        got = spmm_well_ds_stacked_plain(*rows, *xs, tg)
+        wrapped = spmm_well_cuda.spmm_well_ds_stacked(*rows, *xs, tg)
+        singles = [spmv_well_ds_rows_plain(*rows, h, lo, tg)
+                   for h, lo in zip(columns(xs[0]), columns(xs[1]))]
+    want = _well_block(well, xs, tg)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(wrapped, want))
+    for c, one in enumerate(singles):
+        assert all(torch.equal(columns(g)[c], o) for g, o in zip(got, one))
+    assert spmm_well_cuda.launches == {"well_spmm": 0, "well_ds_spmm": 0}
+
+
+@pytest.mark.parametrize("kind", ["float32", "float64", "ds"])
+@pytest.mark.parametrize("name", CASES)
+def test_block_rows_plain_equals_well_plain(name, kind):
+    """The block (SpMM) plain applies on the row lists, nrhs 1/3/8/11: the
+    same terms per row in the same order as the WELL formula, column by
+    column, so the same bits; and each column the single-RHS row-list
+    plain apply of that column."""
+    dtype = np.float64 if kind == "float64" else np.float32
+    well, rows, tg, wseg, values = _torch_case(name, dtype)
+    rng = np.random.default_rng(3)
+    nd, xrows = values.shape[0], well[0].shape[2]
+    if kind == "ds":
+        lo_v = (values * 1e-8 * rng.standard_normal(values.shape)).astype(np.float32)
+        r_lo = pack_rows(values, well[1].numpy(), wseg, values_lo=lo_v).values_lo
+        well = (well[0], torch.from_numpy(lo_v), *well[1:])
+        rows = (rows[0], torch.from_numpy(r_lo), *rows[1:])
+    for nrhs in NRHS:
+        x = torch.from_numpy(rng.standard_normal((nd * xrows, nrhs * LANES)).astype(dtype))
+        _assert_block_rows(well, rows, (x, x * 1e-8) if kind == "ds" else (x,), tg)
+
+
+def _wide_group(n_slots=140, seed=11):
+    """A matrix whose first row group needs K = n_slots WELL slots (each
+    of its rows has one entry in each of n_slots segments); every other row
+    holds its diagonal."""
+    rng = np.random.default_rng(seed)
+    n = n_slots * LANES
+    r = np.repeat(np.arange(LANES), n_slots)
+    c = r + LANES * np.tile(np.arange(n_slots), LANES)
+    rows = np.concatenate([r, np.arange(LANES, n)])
+    cols = np.concatenate([c, np.arange(LANES, n)])
+    return pt_csr.CSRHost.from_coo(rows, cols, rng.standard_normal(len(rows)), n, n)
+
+
+@pytest.mark.parametrize("kind", ["float32", "ds"])
+def test_pack_rows_past_127_slots(kind):
+    """K = 140 slots (max_k=256): a row's rank counts past 127, so every
+    slot lands where the layout says, and the row-list applies, single-RHS
+    and block, equal the WELL formula's bit for bit."""
+    a = _wide_group()
+    if kind == "ds":
+        w = csr_to_well_ds(a, tile_groups=1, max_k=256, device="cpu")
+        well = (w.values_hi, w.values_lo, w.pos, w.w0)
+        rows = (w.rows_values_hi, w.rows_values_lo, w.rows_pos, w.slice_ptr, w.w0)
+    else:
+        w = csr_to_well(a, tile_groups=1, max_k=256, dtype=np.float32, device="cpu")
+        well = (w.values, w.pos, w.w0)
+        rows = (w.rows_values, w.rows_pos, w.slice_ptr, w.w0)
+    well, rows = (tuple(t.unsqueeze(0) for t in ts) for ts in (well, rows))
+    assert w.k_slots == 140 and w.k_slots * w.ngroups * LANES > w.rows_pos.numel()
+    lists = tuple(t.numpy() for t in (rows[0], *rows[-3:-1]))  # values, pos, ptr
+    width = _check_layout(well[0].numpy(), well[-2].numpy(), w.wseg, lists,
+                          values_lo=well[1].numpy() if kind == "ds" else None)
+    assert width.max() == 140
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((w.ncols_pad // LANES, 3 * LANES))
+                         .astype(np.float32))
+    xs = (x, x * 1e-8) if kind == "ds" else (x,)
+    for c in range(3):
+        cx = tuple(columns(t)[c] for t in xs)
+        if kind == "ds":
+            got, want = (spmv_well_ds_rows_plain(*rows, *cx, 1),
+                         spmv_well_ds_stacked_plain(*well, *cx, 1))
+        else:
+            got, want = ((spmv_well_rows_plain(*rows, *cx, 1),),
+                         (spmv_well_stacked_plain(*well, *cx, 1),))
+        assert all(torch.equal(g, v) for g, v in zip(got, want))
+    _assert_block_rows(well, rows, xs, 1)
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("pair,tile_groups", [(False, 16), (True, 16), (False, 4)])
 def test_rows_apply_matches_reference_kernel(pair, tile_groups, dtype):
@@ -318,8 +426,18 @@ def _through_well_formula(monkeypatch, A):
             getattr(A, f"local_well{tag}_values"), getattr(A, f"local_well{tag}_values_lo"),
             getattr(A, f"local_well{tag}_pos"), w0, xh2, xl2, tg)
 
+    def block(*args):
+        tag, lo = stack(args[0]), len(args) == 8
+        well = (getattr(A, f"local_well{tag}_values"),
+                *([getattr(A, f"local_well{tag}_values_lo")] if lo else []),
+                getattr(A, f"local_well{tag}_pos"), args[-4 if lo else -3])
+        out = _well_block(well, args[-3:-1] if lo else args[-2:-1], args[-1])
+        return out if lo else out[0]
+
     monkeypatch.setattr(dm, "spmv_well_stacked", well)
     monkeypatch.setattr(dm, "spmv_well_ds_stacked", well_ds)
+    monkeypatch.setattr(dm, "spmm_well_stacked", block)
+    monkeypatch.setattr(dm, "spmm_well_ds_stacked", block)
 
 
 @pytest.mark.parametrize("symmetric", [False, True])
@@ -358,6 +476,43 @@ def test_dist_matvec_runs_through_rows(fmt, n_dev, symmetric, monkeypatch):
         assert torch.equal(A.matvec(A.to_dist(x)), y)
     else:
         assert all(torch.equal(g, w) for g, w in zip(A.matvec_ds(*xs), y))
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 4])
+@pytest.mark.parametrize("fmt", ["well", "well_ds"])
+def test_dist_matmat_runs_through_rows(fmt, n_dev, monkeypatch):
+    """matmat (symmetric, both stacks) and matmat_ds (vanilla, as the
+    block refinement builds it) hand the block kernels the row lists (a spy
+    sees them), agree with the host oracle, and equal the same apply
+    through the WELL formula bit for bit."""
+    a = _fem(3000, seed=6)
+    symmetric = fmt == "well"
+    A = dm.build_dist_matrix(a, n_devices=n_dev, symmetric=symmetric, local_format=fmt,
+                             dtype=np.float64 if fmt == "well" else None, device="cpu")
+    X = np.random.default_rng(8).standard_normal((a.nrows, 3))
+    name = "spmm_well_stacked" if fmt == "well" else "spmm_well_ds_stacked"
+    wrapper, seen = getattr(dm, name), []
+
+    def spy(*args):
+        seen.append(args[0])
+        return wrapper(*args)
+
+    def apply():
+        if fmt == "well":
+            return (A.matmat(A.to_dist_block(X)),)
+        return A.matmat_ds(*[A.to_dist_block(p) for p in pt_ds.ds_from_f64(X)])
+
+    with monkeypatch.context() as m:
+        m.setattr(dm, name, spy)
+        y = apply()
+    stacks = [A.local_rows_values] + ([A.local_rowsT_values] if symmetric else [])
+    assert len(seen) == len(stacks) and all(s is t for s, t in zip(seen, stacks))
+    got = (A.from_dist_block(y[0]) if fmt == "well"
+           else pt_ds.ds_to_f64(*(A.from_dist_block(t) for t in y)))
+    want = np.stack([a.matvec(c) for c in X.T], axis=1)
+    assert np.linalg.norm(got - want) <= 1e-13 * np.linalg.norm(want)
+    _through_well_formula(monkeypatch, A)
+    assert all(torch.equal(g, w) for g, w in zip(apply(), y))
 
 
 @pytest.mark.parametrize("fmt", ["well", "well_ds"])
