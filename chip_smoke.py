@@ -119,6 +119,25 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      symmetric; RCM'd 50k FEM: well vanilla and symmetric; fp32 and fp64)
      and matmat_ds (dia_ds, well_ds; <= 1e-13), and a 20-iteration block_cg
      on the fp64 dia operator (host residuals within 1e-9 of the reported);
+ 18. AMG-preconditioned CG (the reference bench's headline solver,
+     bench.py:197-231): (a) on phase 4's 3200^2 CSR, the fp32 vanilla dia
+     operator, amg_setup(interval2d, 4x4 blocks, W-cycle, dia levels), PCG
+     to 1e-6 three times: at most 16 iterations, each solve's dia_spmv
+     launches exactly (k+1)(1 + the cycle's applies) and no other kernel,
+     every level's kernel vs its plain version; the levels, setup seconds
+     and their split, the median solve beside phase 4's plain fp32 CG, the
+     true f64 residual and the fp32 floor estimate printed; (b) 1024^2
+     symmetric storage (dia_sym_spmv on level 0) beside vanilla, counts
+     within 1, exact launches; (c) cg_refined_dist(amg=...) at 1024^2 to
+     rtol 1e-9, true residual < 1e-8; (d) D=4: interval2d at 512^2 within
+     1 of D=1, the default smoothed aggregation on the RCM'd 50k FEM
+     (rectangular ELL transfers, hub-split coarse operators) converged
+     beside Jacobi-PCG, a cycle apply twice with the same bits on both;
+     (e) block_cg_refined_dist(inner_solver="chebyshev") at 512^2 x 8,
+     every column < 1e-9, exact dia_spmm / dia_ds_spmm / Lanczos launches;
+     (f, with phase 10) device ms of dia_spmv on AMG levels 1 and 2 with
+     cuSPARSE and the bound, the bf16 DIA kernels at 3200^2 and the K=65
+     and K=297 kernels, each first vs its plain version (bf16 <= 8e-3);
  10. (run last) ms per apply of every ported kernel, kernel and plain in
      turns, with the library yardstick (one torch CSR @ x call, cuSPARSE,
      float64 for the DS kernels; the port never calls it) and the bytes
@@ -139,6 +158,7 @@ The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -152,7 +172,7 @@ from torch.autograd import DeviceType
 from spmv_torch import _build
 from spmv_torch.corpus import circuit_network, fem_p1_2d
 from spmv_torch.formats.csr import CSRHost
-from spmv_torch.formats.dia import csr_to_dia
+from spmv_torch.formats.dia import csr_to_dia, interleaved_to_flat
 from spmv_torch.ds import ds_from_f64, ds_to_f64
 from spmv_torch.formats.well import csr_to_well, csr_to_well_sym, pack_rows, split_window
 from spmv_torch.gen import create_laplace_2d, gaussian_bump
@@ -187,6 +207,7 @@ from spmv_torch.ops.spmv_well_ds import (
 )
 from spmv_torch.parallel.dist_matrix import HOST_FIELDS, WELL_WSEG_CAP, build_dist_matrix
 from spmv_torch.reorder import rcm_reorder
+from spmv_torch.solvers.amg import amg_setup
 from spmv_torch.solvers.block_cg import block_cg, block_cg_dia, block_cg_refined_dist
 from spmv_torch.solvers.cg import cg
 from spmv_torch.solvers.refine import cg_refined, cg_refined_dist
@@ -221,6 +242,15 @@ CIRCUIT_BLOCK_NX = 800  # 16c: circuit_network(800), 640k nodes (corpus size)
 # reached 0.8-1.8e-13 on the TPU; (b) REFINE_TOL, the single-RHS gate at
 # this size; (c) kappa ~ 1e5 with a far remainder
 BLOCK_TOL = {"a": 1e-11, "b": REFINE_TOL, "c": 1e-9}
+# phase 18: the reference bench's AMG configuration (bench.py:197-231)
+AMG_KW = dict(aggregate="interval2d", interval_size=4, cycle=2, local_format="dia")
+AMG_ITERS_GATE = 16  # tests/test_amg.py:439-440
+AMG_SYM_NX = 1024    # 18b, 18c (REFINE_NX, the refinement gate's size)
+AMG_D4_NX = 512      # 18d
+CHEB_NX = 512        # 18e
+CHEB_TOL = 1e-9      # the reference's gate for the Chebyshev inner solver
+BF16_TOL = 8e-3      # bf16 kernel vs plain: one bf16 rounding (2^-8) moved
+#                      by the contraction of the fp32 sums, relative L2
 
 
 def fail(msg: str) -> None:
@@ -316,7 +346,8 @@ def phase_kernels(a, dev):
 
 
 def phase_main_path(a, dev):
-    """Phase 4: the main path through the port's entry points."""
+    """Phase 4: the main path through the port's entry points. Returns the
+    launch counts, iterations/s and {run: (iterations, solve seconds)}."""
     # build first (host assembly is set-up), then zero the counters just
     # before the solves
     runs = []
@@ -343,7 +374,7 @@ def phase_main_path(a, dev):
         results.append((dt, sym, A, res, b_host, t_asm, t_solve, grown))
     counts = dict(spmv_dia_cuda.launches)
 
-    its_per_s = {}
+    its_per_s, solves = {}, {}
     x64 = b64 = None  # the fp64 solve runs first: the fp32 runs' yardstick
     for dt, sym, A, res, b_host, t_asm, t_solve, grown in results:
         dname = np.dtype(dt).name
@@ -384,13 +415,14 @@ def phase_main_path(a, dev):
                 rel_error_vs_fp64_solution=float(
                     np.linalg.norm(x - x64) / np.linalg.norm(x64)))
         its_per_s[tag] = res.iterations / t_solve
+        solves[tag] = (res.iterations, t_solve)
         show("4.main_path", **fields)
     for key in ("dia", "dia_sym"):
         if counts[key] == 0:
             fail(f"main path launched no {key} kernel")
     show("4.main_path", launches=counts)
     phase_plain_witness(a, runs[1], results[1][3])
-    return counts, its_per_s
+    return counts, its_per_s, solves
 
 
 def phase_plain_witness(a, run, res_kernel):
@@ -2144,6 +2176,419 @@ def phase_block_timing(a_lap, d32, a4, w4, w4ds, single_ms, circuit_ops, dev):
     return out
 
 
+def amg_cycle_applies(h) -> list[int]:
+    """Level-operator applies of one preconditioner apply, per level, from
+    the cycle's structure: a visit smooths with ``degree`` applies before
+    and ``degree`` + 1 after (the post-smoother starts from x), and each of
+    its ``cycle`` coarse corrections takes one residual apply plus, where
+    the level smooths its transfers implicitly (omega_p), one apply in the
+    restriction and one in the prolongation; level l is visited cycle**l
+    times. The headline W-cycle: 11 applies a visit, visits 1, 2, 4."""
+    out = []
+    for lvl_i, lvl in enumerate(h.levels):
+        per_visit = 2 * lvl.degree + 1 + h.cycle * (1 + (2 if lvl.omega_p else 0))
+        out.append(per_visit * h.cycle ** lvl_i)
+    return out
+
+
+def amg_levels(h) -> list:
+    """Each level's rows, format, stored diagonals and transfer mode."""
+    return [dict(level=i, rows=lvl.A.nrows_global, format=lvl.A.local_format,
+                 symmetric=lvl.A.symmetric, diagonals=len(lvl.A.dia_offsets),
+                 stride=lvl.stride, omega_p=lvl.omega_p, lmax=lvl.lmax,
+                 hub_nnz=lvl.A.hub_nnz,
+                 P=None if lvl.P is None else [lvl.P.nrows_global, lvl.P.ncols_global,
+                                                lvl.P.hub_nnz],
+                 R=None if lvl.R is None else [lvl.R.nrows_global, lvl.R.ncols_global,
+                                                lvl.R.hub_nnz])
+            for i, lvl in enumerate(h.levels)] + [dict(
+                level=len(h.levels), rows=h.coarse_A.nrows_global, coarse=True,
+                format=h.coarse_A.local_format, hub_nnz=h.coarse_A.hub_nnz,
+                dense_inverse=None if h.coarse_inv is None else list(h.coarse_inv.shape))]
+
+
+def amg_level_checks(phase, h, tag, gen, dev, max_abs) -> None:
+    """Every DIA level operator's kernel vs its plain version on that
+    level's own stack (TOL_KERNEL float32), on a random lane-layout vector;
+    these launches come before the counters are zeroed."""
+    for i, lvl in enumerate(h.levels):
+        A = lvl.A
+        if A.local_format != "dia":
+            continue
+        kname = "dia_sym_spmv" if A.symmetric else "dia_spmv"
+        x2 = torch.randn((A.n_devices * A.row_lane_rows, 128), generator=gen,
+                         dtype=torch.float32, device=dev)
+        _, err, mabs = compare(f"{phase} {tag} level {i}", A.local_dia_data, x2,
+                               A.dia_offsets, A.symmetric, TOL_KERNEL["float32"])
+        max_abs[kname] = max(max_abs[kname], mabs)
+        show(f"{phase}.kernel", kernel=kname, matrix=f"{tag}, AMG level {i}",
+             rows=A.nrows_global, shards=A.n_devices, ndiags=len(A.dia_offsets),
+             rel_l2_vs_plain=err, max_abs_vs_plain=mabs)
+
+
+def amg_pcg(A, b, h, kmax=200, rtol=1e-6):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = cg(A.as_linear_operator(), b, kmax=kmax, rtol=rtol,
+             preconditioner=h.as_preconditioner())
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def amg_launch_gate(phase, tag, h, res, got: dict) -> dict:
+    """The exact DIA launches of a PCG solve of res.iterations iterations:
+    (k+1) preconditioner applies of ``amg_cycle_applies`` each and (k+1)
+    outer applies, counted on the kernel each level's operator runs; no
+    other kernel may launch."""
+    k1 = res.iterations + 1
+    want = {"dia": 0, "dia_sym": 0}
+    outer_key = "dia_sym" if h.levels[0].A.symmetric else "dia"
+    want[outer_key] += k1
+    for lvl, n in zip(h.levels, amg_cycle_applies(h)):
+        if lvl.A.local_format != "dia" or lvl.P is not None:
+            fail(f"{phase} {tag}: level of format {lvl.A.local_format} has no "
+                 "DIA launch count")
+        want["dia_sym" if lvl.A.symmetric else "dia"] += k1 * n
+    others = single_launches() - got["dia"] - got["dia_sym"] + sum(block_launches().values())
+    if {k: got[k] for k in want} != want or others:
+        fail(f"{phase} {tag}: launches {got} ({others} of other kernels), want "
+             f"{want} for {res.iterations} iterations")
+    return want
+
+
+def phase_amg(a, plain_solves, dev, max_abs):
+    """Phase 18: AMG-preconditioned CG, the reference bench's headline
+    solver (bench.py:197-231).
+
+    (a) On phase 4's 3200^2 CSR: the fp32 vanilla dia operator,
+        amg_setup(interval2d, interval_size 4, W-cycle, dia levels), then
+        PCG to rtol 1e-6 (kmax 200) three times; gates: converged in at
+        most AMG_ITERS_GATE iterations, each solve's DIA launches exactly
+        (k+1)(1 + sum of amg_cycle_applies) with no other kernel, every
+        level's kernel vs its plain version; printed: the levels, setup
+        seconds and their split, the median solve beside phase 4's plain
+        fp32 CG on the same operator, the true float64 residual and the
+        fp32 floor estimate (bench.py:224-234).
+    (b) 1024^2, the symmetric fp32 operator (level 0 runs dia_sym_spmv),
+        beside the vanilla one: iterations within 1, exact launches.
+    (c) cg_refined_dist(amg=...) at 1024^2 to rtol 1e-9: true residual
+        below REFINE_TOL (__graft_entry__.py:455-470).
+    (d) D=4 stacked shards: interval2d at 512^2, counts within 1 of D=1;
+        the default smoothed aggregation on the RCM'd fem_p1_2d(HALO_FEM),
+        whose transfers are rectangular ELL operators and whose coarse
+        operators split hub rows, converged, beside Jacobi-PCG's count;
+        one cycle apply twice with the same bits, on both hierarchies.
+    (e) block_cg_refined_dist(inner_solver="chebyshev") at CHEB_NX^2 x
+        NRHS: every column's true residual below CHEB_TOL, dia_spmm
+        launches = inner applies, dia_ds_spmm = outer residuals, 48
+        dia_spmv for the Lanczos bounds.
+    Returns (DIA launch counts of the (a)-(e) solves, summed, and the
+    hierarchies the timing of 18f reads)."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    totals = {"dia": 0, "dia_sym": 0, "dia_spmm": 0, "dia_ds_spmm": 0}
+
+    # (a) the headline
+    t0 = time.perf_counter()
+    A = build_dist_matrix(a, n_devices=1, dtype=np.float32, local_format="dia",
+                          device=dev)
+    b_host = gaussian_bump(a.nrows, dtype=np.float32)
+    b = A.to_dist(b_host)
+    t_asm = time.perf_counter() - t0
+    split = {}
+    t0 = time.perf_counter()
+    h = amg_setup(a, A, timings=split, **AMG_KW)
+    setup_s = time.perf_counter() - t0
+    show("18a.amg_setup", matrix=f"laplace2d {NX}^2", rows=a.nrows, **AMG_KW,
+         levels=amg_levels(h), n_levels=h.n_levels,
+         grid_complexity=h.grid_complexity(), setup_s=setup_s, setup_split_s=split,
+         assemble_s=t_asm, applies_per_cycle=amg_cycle_applies(h))
+    amg_level_checks("18a", h, f"laplace2d {NX}^2", gen, dev, max_abs)
+    runs, first = [], None
+    for _ in range(3):
+        reset_counters()
+        res, seconds = amg_pcg(A, b, h)
+        got = dict(spmv_dia_cuda.launches)
+        amg_launch_gate("18a", f"laplace2d {NX}^2", h, res, got)
+        first = first or got
+        runs.append((seconds, res))
+    seconds = sorted(t for t, _ in runs)[1]
+    res = runs[-1][1]
+    x = A.from_dist(res.x).astype(np.float64)
+    bh = b_host.astype(np.float64)
+    bn = float(np.linalg.norm(bh))
+    plain_its, plain_s = plain_solves["vanilla float32"]
+    show("18a.amg_pcg", matrix=f"laplace2d {NX}^2", rtol=1e-6, kmax=200,
+         iterations=res.iterations, iterations_runs=[r.iterations for _, r in runs],
+         converged=res.converged, gate=AMG_ITERS_GATE, solve_s=seconds,
+         solve_s_runs=[t for t, _ in runs], ms_per_iteration=1e3 * seconds / res.iterations,
+         plain_cg_iterations=plain_its, plain_cg_solve_s=plain_s,
+         speedup_vs_plain_cg=plain_s / seconds,
+         reported_rel_residual=float(res.rnorm) / float(res.rnorm0),
+         true_rel_residual=float(np.linalg.norm(bh - a.matvec(x)) / bn),
+         fp32_true_residual_floor_est=float(1.2e-7 * np.abs(x).max()
+                                            * np.sqrt(a.nrows) / bn),
+         launches=first, dia_launches_per_iteration=sum(amg_cycle_applies(h)) + 1)
+    if not (res.converged and res.iterations <= AMG_ITERS_GATE):
+        fail(f"18a: AMG-PCG converged {res.converged} in {res.iterations} "
+             f"iterations (gate {AMG_ITERS_GATE})")
+    for key in ("dia", "dia_sym"):
+        totals[key] += first[key]
+    head = (A, h)
+    del x
+
+    # (b) symmetric storage at 1024^2, beside vanilla
+    a1k = create_laplace_2d(AMG_SYM_NX, AMG_SYM_NX)
+    its = {}
+    for sym in (True, False):
+        tag = f"laplace2d {AMG_SYM_NX}^2 {'symmetric' if sym else 'vanilla'} float32"
+        A1 = build_dist_matrix(a1k, n_devices=1, symmetric=sym, dtype=np.float32,
+                               local_format="dia", device=dev)
+        t0 = time.perf_counter()
+        h1 = amg_setup(a1k, A1, **AMG_KW)
+        t_setup = time.perf_counter() - t0
+        amg_level_checks("18b", h1, tag, gen, dev, max_abs)
+        reset_counters()
+        r1, s1 = amg_pcg(A1, A1.to_dist(gaussian_bump(a1k.nrows, dtype=np.float32)), h1)
+        got = dict(spmv_dia_cuda.launches)
+        amg_launch_gate("18b", tag, h1, r1, got)
+        for key in ("dia", "dia_sym"):
+            totals[key] += got[key]
+        its[sym] = r1.iterations
+        show("18b.amg_pcg", run=tag, levels=amg_levels(h1), setup_s=t_setup,
+             iterations=r1.iterations, converged=r1.converged, solve_s=s1, launches=got)
+        if not r1.converged:
+            fail(f"18b: {tag} did not converge")
+        del A1, h1
+    if abs(its[True] - its[False]) > 1:
+        fail(f"18b: symmetric {its[True]} vs vanilla {its[False]} iterations")
+
+    # (c) mixed-precision refinement with AMG-preconditioned inner solves
+    b64 = gaussian_bump(a1k.nrows)
+    reset_counters()
+    t0 = time.perf_counter()
+    ref = cg_refined_dist(a1k, b64, amg=dict(AMG_KW), rtol=1e-9, inner_kmax=200,
+                          device=dev)
+    t_ref = time.perf_counter() - t0
+    got = dict(spmv_dia_cuda.launches)
+    rel = true_rel(a1k, ref.x, b64)
+    show("18c.refine_amg", matrix=f"laplace2d {AMG_SYM_NX}^2", rtol=1e-9,
+         inner_kmax=200, outer=ref.outer_iterations, inner=ref.inner_iterations,
+         converged=ref.converged, history=ref.history, true_rel_residual=rel,
+         gate=REFINE_TOL, seconds=t_ref, launches=got,
+         dia_ds_launches=spmv_dia_ds_cuda.launches["dia_ds"])
+    if not rel < REFINE_TOL:
+        fail(f"18c: refined AMG true residual {rel:.3e} >= {REFINE_TOL:.0e}")
+    for key in ("dia", "dia_sym"):
+        totals[key] += got[key]
+
+    # (d) D=4 stacked shards
+    a512 = create_laplace_2d(AMG_D4_NX, AMG_D4_NX)
+    b512 = gaussian_bump(a512.nrows, dtype=np.float32)
+    its = {}
+    for nd in (1, 4):
+        A4 = build_dist_matrix(a512, n_devices=nd, dtype=np.float32, local_format="dia",
+                               device=dev)
+        h4 = amg_setup(a512, A4, **AMG_KW)
+        amg_level_checks("18d", h4, f"laplace2d {AMG_D4_NX}^2 D={nd}", gen, dev, max_abs)
+        reset_counters()
+        r4, s4 = amg_pcg(A4, A4.to_dist(b512), h4)
+        got = dict(spmv_dia_cuda.launches)
+        amg_launch_gate("18d", f"laplace2d {AMG_D4_NX}^2 D={nd}", h4, r4, got)
+        its[nd] = r4.iterations
+        x4 = A4.from_dist(r4.x).astype(np.float64)
+        show("18d.amg_pcg", matrix=f"laplace2d {AMG_D4_NX}^2", shards=nd,
+             levels=amg_levels(h4), iterations=r4.iterations, converged=r4.converged,
+             solve_s=s4, true_rel_residual=true_rel(a512, x4, b512.astype(np.float64)),
+             launches=got)
+        if not r4.converged:
+            fail(f"18d: interval2d at D={nd} did not converge")
+        if nd == 4:
+            v = A4.to_dist(b512)
+            same_bits(f"18d interval2d D=4 cycle", lambda: h4.as_preconditioner()(v))
+        del A4, h4
+    if abs(its[4] - its[1]) > 1:
+        fail(f"18d: interval2d iterations D=4 {its[4]} vs D=1 {its[1]}")
+
+    t0 = time.perf_counter()
+    fem, _ = rcm_reorder(fem_p1_2d(HALO_FEM), keep_best=True)
+    Af = build_dist_matrix(fem, n_devices=4, dtype=np.float32, device=dev)
+    bf = Af.to_dist(gaussian_bump(fem.nrows, dtype=np.float32))
+    hf = amg_setup(fem, Af)
+    t_setup = time.perf_counter() - t0
+    rect = [lvl for lvl in hf.levels if lvl.P is not None
+            and lvl.P.ncols_global < lvl.P.nrows_global]
+    hubs = sum(op.hub_nnz for lvl in hf.levels for op in (lvl.A, lvl.P, lvl.R)
+               if op is not None) + hf.coarse_A.hub_nnz
+    rf, sf = amg_pcg(Af, bf, hf, kmax=1000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rj = cg(Af.as_linear_operator(), bf, kmax=5000, rtol=1e-6,
+            preconditioner=Af.jacobi_preconditioner())
+    torch.cuda.synchronize()
+    sj = time.perf_counter() - t0
+    xf = Af.from_dist(rf.x).astype(np.float64)
+    fb = Af.from_dist(bf).astype(np.float64)
+    show("18d.amg_pcg", matrix=f"fem_p1_2d({HALO_FEM}) RCM", shards=4,
+         aggregate="match (smoothed, the default)", levels=amg_levels(hf),
+         setup_s=t_setup, rectangular_transfers=len(rect), hub_nnz=hubs,
+         iterations=rf.iterations, converged=rf.converged, solve_s=sf,
+         true_rel_residual=true_rel(fem, xf, fb), jacobi_pcg_iterations=rj.iterations,
+         jacobi_pcg_converged=rj.converged, jacobi_pcg_s=sj)
+    if not rf.converged or not rect or not hubs:
+        fail(f"18d: FEM smoothed aggregation converged {rf.converged}, "
+             f"{len(rect)} rectangular transfers, {hubs} hub entries")
+    same_bits("18d FEM smoothed-aggregation cycle (D=4)",
+              lambda: hf.as_preconditioner()(bf))
+    del Af, hf, fem
+
+    # (e) the refined block solve with the Chebyshev inner solver
+    ac = create_laplace_2d(CHEB_NX, CHEB_NX)
+    B = np.random.default_rng(180).standard_normal((ac.nrows, NRHS))
+    kw = dict(inner_rtol=1e-4, inner_kmax=2000, inner_solver="chebyshev")
+    path_stack_checks(ac, "dia", f"laplace2d {CHEB_NX}^2 (18e)", gen, dev, max_abs)
+    reset_counters()
+    t0 = time.perf_counter()
+    X, outer, inner, rnorms = block_cg_refined_dist(ac, B, device=dev, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = block_launches()
+    lanczos = dict(spmv_dia_cuda.launches)
+    rel = true_rels(ac, X, B)
+    show("18e.block_chebyshev", matrix=f"laplace2d {CHEB_NX}^2", nrhs=NRHS, **kw,
+         outer_passes=outer, inner_iterations=inner, true_rel_residuals=rel.tolist(),
+         max_true_rel_residual=float(rel.max()), gate=CHEB_TOL, launches=got,
+         lanczos_dia_launches=lanczos, seconds=seconds)
+    if not rel.max() < CHEB_TOL:
+        fail(f"18e: a column's true residual is {rel.max():.3e} >= {CHEB_TOL:.0e}")
+    if (got["dia_spmm"] != inner or got["dia_ds_spmm"] != outer
+            or lanczos != {"dia": 48, "dia_sym": 0}):
+        fail(f"18e: {got} block launches, {lanczos} single-RHS, for {inner} inner "
+             f"applies, {outer} residuals and a 48-step Lanczos run")
+    totals["dia"] += lanczos["dia"]
+    totals["dia_spmm"] += got["dia_spmm"]
+    totals["dia_ds_spmm"] += got["dia_ds_spmm"]
+    show("18.amg", launches=totals)
+    return totals, head
+
+
+def dia_csr(A) -> CSRHost:
+    """The host CSR of a one-shard DIA operator's stored entries."""
+    k = len(A.dia_offsets)
+    flat = interleaved_to_flat(A.local_dia_data[0], k).cpu().numpy().astype(np.float64)
+    npad = flat.shape[1]
+    rows = np.tile(np.arange(npad), k)
+    cols = rows + np.repeat(np.asarray(A.dia_offsets), npad)
+    vals = flat.reshape(-1)
+    keep = (vals != 0) & (rows < A.nrows_global)
+    return CSRHost.from_coo(rows[keep], cols[keep], vals[keep], A.nrows_global,
+                            A.nrows_global)
+
+
+def phase_amg_timing(head, dev, max_abs) -> dict:
+    """Phase 18f (run with phase 10): device ms per apply (torch.profiler)
+    of dia_spmv on the AMG levels 1 and 2 of 18a (800^2 and 200^2, K = 9),
+    kernel, plain and the cuSPARSE yardstick, with their bytes bound and
+    launches per PCG iteration; the bf16 DIA kernels at 3200^2 (bound at
+    2-byte values) and dia_spmv / dia_spmm (nrhs 8) at K = 65 and 297 (the
+    1-D interval levels' widths) on a random banded 1M-row matrix, each
+    held against its plain version on the card first (bf16: BF16_TOL; the
+    K > 64 ones TOL_KERNEL float32). Returns {kernel: {shape: row}} for the
+    kernels JSON's other_shapes."""
+    A, h = head
+    applies = amg_cycle_applies(h)
+    out = {"dia_spmv": {}, "dia_sym_spmv": {}, "dia_spmm": {}, "dia_sym_spmm": {}}
+    for i in (1, 2):
+        lvl = h.levels[i]
+        La = lvl.A
+        data, offs = La.local_dia_data, La.dia_offsets
+        csr = dia_csr(La)
+        norm = float(np.bincount(np.repeat(np.arange(csr.nrows), csr.row_nnz()),
+                                 weights=np.abs(csr.values), minlength=csr.nrows).max())
+        s = 0.9 / norm  # ||s A||_inf < 1: chained applies stay bounded
+        sdata = data * s
+        x2 = torch.zeros((La.row_lane_rows, 128), dtype=torch.float32, device=dev)
+        x2.view(-1)[: La.nrows_global] = torch.as_tensor(
+            gaussian_bump(La.nrows_global, dtype=np.float32), device=dev)
+
+        def kernel(v, d=sdata, o=offs):
+            return spmv_dia_cuda.spmv_dia_stacked(d, v, o, False)
+
+        def plain(v, d=sdata, o=offs):
+            return spmv_dia_stacked_plain(d, v, o, False)
+
+        nbytes = (len(offs) + 2) * La.row_pad * 4
+        row = dict(ms=device_ms(kernel, x2), plain_ms=device_ms(plain, x2, iters=10),
+                   library_ms=library_device_ms(csr, dev, s), bound_ms=bound_ms(nbytes),
+                   bytes=nbytes, timing="device", rows=La.nrows_global, ndiags=len(offs),
+                   launches_per_pcg_iteration=applies[i],
+                   library="torch CSR @ x (cuSPARSE), same level operator")
+        out["dia_spmv"][f"AMG level {i} ({La.nrows_global} rows, K={len(offs)})"] = row
+        show("18f.timing", kernel="dia_spmv", matrix=f"AMG level {i} of laplace2d {NX}^2",
+             **row)
+    # bf16 storage at 3200^2
+    a = create_laplace_2d(NX, NX)
+    gen = torch.Generator(device=dev).manual_seed(181)
+    for sym in (False, True):
+        d = csr_to_dia(a, row_align=ROW_ALIGN, dtype=torch.bfloat16, symmetric=sym,
+                       device=dev)
+        d.data.mul_(1.0 / 9.0)
+        data = d.data.unsqueeze(0)
+        x = torch.zeros(d.nrows_pad, dtype=torch.bfloat16, device=dev)
+        x[: a.nrows] = torch.as_tensor(gaussian_bump(a.nrows, dtype=np.float32), device=dev)
+        x2 = x.view(-1, 128)
+        for block in (False, True):
+            kname = ("dia_sym_" if sym else "dia_") + ("spmm" if block else "spmv")
+            wrapper, plain_fn = ((spmm_dia_cuda.spmm_dia_stacked, spmm_dia_stacked_plain)
+                                 if block else
+                                 (spmv_dia_cuda.spmv_dia_stacked, spmv_dia_stacked_plain))
+            kernel = functools.partial(wrapper, data, offsets=d.offsets, symmetric=sym)
+            plain = functools.partial(plain_fn, data, offsets=d.offsets, symmetric=sym)
+            xs = (torch.randn((x2.shape[0], NRHS * 128), generator=gen, device=dev)
+                  .to(torch.bfloat16) if block else x2)
+            y_k = kernel(xs)
+            torch.cuda.synchronize()
+            y_p = plain(xs)
+            _, err, mabs = check_close(f"18f {kname} bf16", y_k.float(), y_p.float(), BF16_TOL)
+            max_abs[kname] = max(max_abs[kname], mabs)
+            nrhs = NRHS if block else 1
+            nbytes = (d.ndiags + 2 * nrhs) * d.nrows_pad * 2
+            row = dict(ms=device_ms(kernel, xs), plain_ms=device_ms(plain, xs, iters=5),
+                       library_ms=None, bound_ms=bound_ms(nbytes), bytes=nbytes,
+                       timing="device", dtype="bfloat16", nrhs=nrhs,
+                       rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
+                       library="none: cuSPARSE has no bf16 CSR SpMV through torch")
+            out[kname][f"bf16 laplace2d {NX}^2" + (f" nrhs {NRHS}" if block else "")] = row
+            show("18f.timing", kernel=kname, matrix=f"laplace2d {NX}^2", **row)
+        del d, data
+    # K > 64: random banded, 1M rows, fp32
+    nr = 8192
+    for k in (65, 297):
+        offs = tuple(range(-(k // 2), k - k // 2))
+        data = (torch.randn((1, nr, k * 128), generator=gen, device=dev) / k)
+        x2 = torch.randn((nr, 128), generator=gen, device=dev)
+        xs = torch.randn((nr, NRHS * 128), generator=gen, device=dev)
+        for kname, wrapper, plain_fn, v in (
+                ("dia_spmv", spmv_dia_cuda.spmv_dia_stacked, spmv_dia_stacked_plain, x2),
+                ("dia_spmm", spmm_dia_cuda.spmm_dia_stacked, spmm_dia_stacked_plain, xs)):
+            kernel = functools.partial(wrapper, data, offsets=offs, symmetric=False)
+            plain = functools.partial(plain_fn, data, offsets=offs, symmetric=False)
+            y_k = kernel(v)
+            torch.cuda.synchronize()
+            _, err, mabs = check_close(f"18f {kname} K={k}", y_k, plain(v), TOL_KERNEL["float32"])
+            max_abs[kname] = max(max_abs[kname], mabs)
+            nrhs = v.shape[1] // 128
+            nbytes = (k + 2 * nrhs) * nr * 128 * 4
+            row = dict(ms=device_ms(kernel, v), plain_ms=device_ms(plain, v, iters=3),
+                       library_ms=None, bound_ms=bound_ms(nbytes), bytes=nbytes,
+                       timing="device", rows=nr * 128, ndiags=k, nrhs=nrhs,
+                       rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
+                       library="none: random dense band, timed for the kernel alone")
+            out[kname][f"random band K={k}, {nr * 128} rows" + (f" nrhs {NRHS}" if nrhs > 1 else "")] = row
+            show("18f.timing", kernel=kname, matrix=f"random band K={k}", **row)
+        del data
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2175,7 +2620,7 @@ def main() -> int:
     max_abs = phase_kernels(a, dev)
     show("3.seconds", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    counts, its_per_s = phase_main_path(a, dev)
+    counts, its_per_s, plain_solves = phase_main_path(a, dev)
     show("4.seconds", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     phase_halo(dev)
@@ -2225,6 +2670,12 @@ def main() -> int:
     show("17.seconds", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
+    amg_counts, amg_head = phase_amg(a, plain_solves, dev, max_abs)
+    for key, n in amg_counts.items():
+        counts[key] += n
+    show("18.seconds", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
     timing = phase_timing_all(a, times, a4, w4, a_fem, A_fem, dev)
     timing.update(phase_ds_timing(a, a4, w4ds, A_fem_ds, a_fem, dev))
     single_ms = {"dia_spmv": times["dia_spmv"][0], "dia_sym_spmv": times["dia_sym_spmv"][0],
@@ -2233,6 +2684,9 @@ def main() -> int:
                  "well_ds_spmv":
                      timing["well_ds_spmv"]["other_shapes"][f"bench {N_WELL}"]["ms"]}
     timing.update(phase_block_timing(a, d32, a4, w4, w4ds, single_ms, circuit_ops, dev))
+    for kname, shapes in phase_amg_timing(amg_head, dev, max_abs).items():
+        timing[kname].setdefault("other_shapes", {}).update(shapes)
+    del amg_head
     show("10.seconds", seconds=time.perf_counter() - t0,
          ds_launches_per_cg_iteration=per_iter)
 

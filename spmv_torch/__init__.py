@@ -30,11 +30,18 @@ io.matrix_market       io.matrix_market
 parallel.partition     parallel.partition
 parallel.comm_plan     parallel.comm_plan (shards stacked on one device)
 parallel.dist_matrix   parallel.dist_matrix (ell, dia, dia_ds, well,
-                       well_ds, auto; matvec_ds, matmat, matmat_ds)
+                       well_ds, auto; matvec_ds, matmat, matmat_ds;
+                       rectangular ELL, hub rows)
 solvers.cg             solvers.cg
 solvers.refine         solvers.refine (cg_refined, cg_refined_dist)
 solvers.block_cg       solvers.block_cg (block_cg, block_cg_dia,
-                       block_cg_refined, block_cg_refined_dist)
+                       block_cg_refined, block_cg_refined_dist; inner
+                       solver "cg" or "chebyshev")
+solvers.chebyshev      solvers.chebyshev
+solvers.lanczos        solvers.lanczos
+solvers.amg            solvers.amg   (numpy setup, cycle in plain torch
+                       around the level operators' kernels)
+solvers.precond        solvers.precond (block Jacobi)
 utils.timing           utils.timing  (CUDA events)
 demos.demo_cg          demos.demo_cg
 ====================  ===================================================
@@ -43,7 +50,7 @@ The package imports torch and numpy only — never jax or spmv_tpu.
 """
 
 from spmv_torch import corpus
-from spmv_torch.formats.csr import CSRHost
+from spmv_torch.formats.csr import CSRHost, csr_matmul
 from spmv_torch.formats.dia import DiaMatrix, csr_to_dia
 from spmv_torch.formats.well import (
     SymWellMatrix,
@@ -76,12 +83,29 @@ from spmv_torch.solvers.block_cg import (
     block_cg_refined,
     block_cg_refined_dist,
 )
+from spmv_torch.solvers.amg import AMGHierarchy, amg_preconditioner, amg_setup
 from spmv_torch.solvers.cg import CGResult, cg, cg_residual_history
+from spmv_torch.solvers.chebyshev import (
+    ChebyshevResult,
+    chebyshev,
+    chebyshev_adaptive,
+    chebyshev_bounds,
+    chebyshev_iterations_for,
+)
+from spmv_torch.solvers.lanczos import (
+    condition_estimate,
+    condition_interval,
+    lanczos_extreme,
+    lanczos_extreme_with_bounds,
+    lanczos_factorization,
+)
+from spmv_torch.solvers.precond import block_jacobi_preconditioner
 from spmv_torch.solvers.refine import RefineResult, cg_refined, cg_refined_dist
 
 __all__ = [
     "corpus",
     "CSRHost",
+    "csr_matmul",
     "DiaMatrix",
     "csr_to_dia",
     "WellMatrix",
@@ -121,4 +145,18 @@ __all__ = [
     "block_cg_dia",
     "block_cg_refined",
     "block_cg_refined_dist",
+    "AMGHierarchy",
+    "amg_setup",
+    "amg_preconditioner",
+    "ChebyshevResult",
+    "chebyshev",
+    "chebyshev_adaptive",
+    "chebyshev_bounds",
+    "chebyshev_iterations_for",
+    "condition_estimate",
+    "condition_interval",
+    "lanczos_extreme",
+    "lanczos_extreme_with_bounds",
+    "lanczos_factorization",
+    "block_jacobi_preconditioner",
 ]

@@ -32,7 +32,10 @@
 // Bound: bytes. One apply must move K*npad*itemsize of matrix (stored
 // diagonals: K_sym for symmetric storage) plus X and Y once, 2*nrhs*npad*
 // itemsize, per shard; with chunks the matrix moves ceil(nrhs/8) times.
-// Arithmetic is 2 flops per stored element and column. The shifted x reads
+// Arithmetic is 2 flops per stored element and column. bf16 storage
+// accumulates in fp32 and rounds y once, at the store, as dia_spmv does.
+// The offsets come from device memory (no cap on K), as in spmv_dia.cu.
+// The shifted x reads
 // (and the symmetric term's shifted data reads) touch lines that
 // neighbouring warps read too and are served from L1/L2. Shared-memory x
 // windows, TMA staging and register blocking over rows are later work.
@@ -41,20 +44,28 @@
 // (spmv_torch/ops/spmm_dia_cuda.py). Each entry launches on the given
 // stream, does not synchronise, and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#define SPMM_DIA_MAX_DIAGS 64
 #define SPMM_MAX_NR 8
 
-struct SpmmDiaOffsets {
-  long long off[SPMM_DIA_MAX_DIAGS];
-};
+// storage type -> accumulation type, and the conversions between them
+template <typename T> struct SpmmAcc { typedef T type; };
+template <> struct SpmmAcc<__nv_bfloat16> { typedef float type; };
+__device__ __forceinline__ float spmm_load(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float spmm_load(float v) { return v; }
+__device__ __forceinline__ double spmm_load(double v) { return v; }
+template <typename T> __device__ __forceinline__ T spmm_store(typename SpmmAcc<T>::type v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 spmm_store<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
 
 template <typename T, int NR>
 __global__ void dia_spmm_kernel(const T* __restrict__ data,
                                 const T* __restrict__ x, T* __restrict__ y,
                                 long long npad, int ndiags, int nrhs,
-                                SpmmDiaOffsets offs) {
+                                const long long* __restrict__ offs) {
+  typedef typename SpmmAcc<T>::type Acc;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= npad) return;
   const long long shard = blockIdx.y;
@@ -64,18 +75,18 @@ __global__ void dia_spmm_kernel(const T* __restrict__ data,
   const long long lanes = (long long)nrhs * 128;
   const T* xs = x + shard * npad * nrhs + c0 * 128;
   const T* drow = data + shard * npad * ndiags + (i >> 7) * row_stride + (i & 127);
-  T acc[NR];
+  Acc acc[NR];
 #pragma unroll
-  for (int c = 0; c < NR; ++c) acc[c] = T(0);
+  for (int c = 0; c < NR; ++c) acc[c] = Acc(0);
   for (int k = 0; k < ndiags; ++k) {
-    const long long j = i + offs.off[k];
+    const long long j = i + __ldg(offs + k);
     const bool in = j >= 0 && j < npad;
     const long long jo = in ? (j >> 7) * lanes + (j & 127) : 0;
-    const T d = drow[(long long)k * 128];
+    const Acc d = spmm_load(drow[(long long)k * 128]);
 #pragma unroll
     for (int c = 0; c < NR; ++c) {
       if (c < nc) {
-        const T xv = in ? xs[jo + c * 128] : T(0);
+        const Acc xv = in ? spmm_load(xs[jo + c * 128]) : Acc(0);
         acc[c] += d * xv;
       }
     }
@@ -83,7 +94,7 @@ __global__ void dia_spmm_kernel(const T* __restrict__ data,
   T* ys = y + shard * npad * nrhs + (i >> 7) * lanes + c0 * 128 + (i & 127);
 #pragma unroll
   for (int c = 0; c < NR; ++c) {
-    if (c < nc) ys[c * 128] = acc[c];
+    if (c < nc) ys[c * 128] = spmm_store<T>(acc[c]);
   }
 }
 
@@ -91,7 +102,8 @@ template <typename T, int NR>
 __global__ void dia_sym_spmm_kernel(const T* __restrict__ data,
                                     const T* __restrict__ x, T* __restrict__ y,
                                     long long npad, int ndiags, int nrhs,
-                                    SpmmDiaOffsets offs) {
+                                    const long long* __restrict__ offs) {
+  typedef typename SpmmAcc<T>::type Acc;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= npad) return;
   const long long shard = blockIdx.y;
@@ -102,19 +114,19 @@ __global__ void dia_sym_spmm_kernel(const T* __restrict__ data,
   const T* xs = x + shard * npad * nrhs + c0 * 128;
   const T* ds = data + shard * npad * ndiags;
   const T* drow = ds + (i >> 7) * row_stride + (i & 127);
-  T acc[NR];
+  Acc acc[NR];
 #pragma unroll
-  for (int c = 0; c < NR; ++c) acc[c] = T(0);
+  for (int c = 0; c < NR; ++c) acc[c] = Acc(0);
   for (int k = 0; k < ndiags; ++k) {
-    const long long o = offs.off[k];  // o <= 0
+    const long long o = __ldg(offs + k);  // o <= 0
     const long long j = i + o;
     const bool in = j >= 0;
     const long long jo = in ? (j >> 7) * lanes + (j & 127) : 0;
-    const T d = drow[(long long)k * 128];
+    const Acc d = spmm_load(drow[(long long)k * 128]);
 #pragma unroll
     for (int c = 0; c < NR; ++c) {
       if (c < nc) {
-        const T xv = in ? xs[jo + c * 128] : T(0);
+        const Acc xv = in ? spmm_load(xs[jo + c * 128]) : Acc(0);
         acc[c] += d * xv;
       }
     }
@@ -122,11 +134,11 @@ __global__ void dia_sym_spmm_kernel(const T* __restrict__ data,
       // transpose of the stored entry A[t, t+o] at t = i-o lands on row i
       const long long t = i - o;
       if (t < npad) {
-        const T dt = ds[(t >> 7) * row_stride + (long long)k * 128 + (t & 127)];
+        const Acc dt = spmm_load(ds[(t >> 7) * row_stride + (long long)k * 128 + (t & 127)]);
         const long long to = (t >> 7) * lanes + (t & 127);
 #pragma unroll
         for (int c = 0; c < NR; ++c) {
-          if (c < nc) acc[c] += dt * xs[to + c * 128];
+          if (c < nc) acc[c] += dt * spmm_load(xs[to + c * 128]);
         }
       }
     }
@@ -134,14 +146,14 @@ __global__ void dia_sym_spmm_kernel(const T* __restrict__ data,
   T* ys = y + shard * npad * nrhs + (i >> 7) * lanes + c0 * 128 + (i & 127);
 #pragma unroll
   for (int c = 0; c < NR; ++c) {
-    if (c < nc) ys[c * 128] = acc[c];
+    if (c < nc) ys[c * 128] = spmm_store<T>(acc[c]);
   }
 }
 
 template <typename T, bool kSymmetric, int NR>
 static void launch_nr(dim3 grid, int threads, cudaStream_t s, const void* data,
                       const void* x, void* y, long long npad, int ndiags,
-                      int nrhs, const SpmmDiaOffsets& offs) {
+                      int nrhs, const long long* offs) {
   if (kSymmetric) {
     dia_sym_spmm_kernel<T, NR><<<grid, threads, 0, s>>>(
         static_cast<const T*>(data), static_cast<const T*>(x),
@@ -157,26 +169,23 @@ template <typename T, bool kSymmetric>
 static int launch(const void* data, const void* x, void* y, long long npad,
                   int ndiags, const long long* offsets, int nrhs, int nshards,
                   void* stream) {
-  if (ndiags < 1 || ndiags > SPMM_DIA_MAX_DIAGS || npad < 1 || nrhs < 1 ||
-      nshards < 1 || nshards > 65535) {
+  if (ndiags < 1 || npad < 1 || nrhs < 1 || nshards < 1 || nshards > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  SpmmDiaOffsets offs = {};
-  for (int k = 0; k < ndiags; ++k) offs.off[k] = offsets[k];
   const int nr = nrhs < SPMM_MAX_NR ? nrhs : SPMM_MAX_NR;
   const int threads = 256;
   const dim3 grid((unsigned)((npad + threads - 1) / threads), (unsigned)nshards,
                   (unsigned)((nrhs + nr - 1) / nr));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nr) {
-    case 1: launch_nr<T, kSymmetric, 1>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offs); break;
-    case 2: launch_nr<T, kSymmetric, 2>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offs); break;
-    case 3: launch_nr<T, kSymmetric, 3>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offs); break;
-    case 4: launch_nr<T, kSymmetric, 4>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offs); break;
-    case 5: launch_nr<T, kSymmetric, 5>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offs); break;
-    case 6: launch_nr<T, kSymmetric, 6>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offs); break;
-    case 7: launch_nr<T, kSymmetric, 7>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offs); break;
-    default: launch_nr<T, kSymmetric, 8>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offs); break;
+    case 1: launch_nr<T, kSymmetric, 1>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    case 2: launch_nr<T, kSymmetric, 2>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    case 3: launch_nr<T, kSymmetric, 3>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    case 4: launch_nr<T, kSymmetric, 4>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    case 5: launch_nr<T, kSymmetric, 5>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    case 6: launch_nr<T, kSymmetric, 6>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    case 7: launch_nr<T, kSymmetric, 7>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    default: launch_nr<T, kSymmetric, 8>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
   }
   return (int)cudaGetLastError();
 }
@@ -189,9 +198,12 @@ static int launch(const void* data, const void* x, void* y, long long npad,
                           stream);                                            \
   }
 
+// `offsets`: a device pointer to ndiags int64 offsets
 extern "C" {
 DIA_SPMM_ENTRY(dia_spmm_f32, float, false)
 DIA_SPMM_ENTRY(dia_spmm_f64, double, false)
+DIA_SPMM_ENTRY(dia_spmm_bf16, __nv_bfloat16, false)
 DIA_SPMM_ENTRY(dia_sym_spmm_f32, float, true)
 DIA_SPMM_ENTRY(dia_sym_spmm_f64, double, true)
+DIA_SPMM_ENTRY(dia_sym_spmm_bf16, __nv_bfloat16, true)
 }  // extern "C"

@@ -15,6 +15,8 @@ Usage:
   python -m spmv_torch.demos.demo_cg --lap2d 3200 --format auto --kmax 20000 \
       --rtol 1e-6                    # float64: auto picks double-single dia_ds
   python -m spmv_torch.demos.demo_cg --lap2d 1024 --refine --kmax 20000
+  python -m spmv_torch.demos.demo_cg --lap2d 3200 --dia --fp32 --amg --rtol 1e-6
+  python -m spmv_torch.demos.demo_cg --lap2d 1024 --refine --amg --rtol 1e-12
   python -m spmv_torch.demos.demo_cg --lap2d 48 --device cpu
 """
 from __future__ import annotations
@@ -35,8 +37,6 @@ _NOT_PORTED = {
     "--newton": dict(type=int, default=0),
     "--fsai": dict(action="store_true"),
     "--deflated": dict(type=int, default=0),
-    "--amg": dict(action="store_true"),
-    "--amg-aggregate": dict(default="auto"),
     "--cpu": dict(action="store_true"),
 }
 
@@ -71,6 +71,17 @@ def main(argv=None) -> int:
                     help="mixed-precision iterative refinement: fp32 inner "
                          "CG (--kmax iterations each) with double-single "
                          "residuals, to a float64-class true residual")
+    ap.add_argument("--amg", action="store_true",
+                    help="smoothed-aggregation algebraic-multigrid "
+                         "preconditioning (mesh-independent iteration "
+                         "counts on SPD operators; setup timed separately)")
+    ap.add_argument("--amg-aggregate",
+                    choices=["auto", "match", "interval", "interval2d"],
+                    default="auto",
+                    help="AMG aggregation: 'auto' picks interval2d (4x4 "
+                         "grid blocks + W-cycle, mesh-independent, banded "
+                         "coarse grids) when a grid stride is detected, "
+                         "else graph matching")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the operator and vectors live (default cuda)")
     for flag, kw in _NOT_PORTED.items():
@@ -137,18 +148,20 @@ def main(argv=None) -> int:
 
         b64 = b_host.astype(np.float64)
         t0 = time.perf_counter()
-        if args.devices and args.devices > 1:
-            res = cg_refined_dist(a, b64, n_devices=args.devices,
+        if (args.devices and args.devices > 1) or args.amg:
+            # --refine --amg: AMG-preconditioned fp32 inner solves
+            res = cg_refined_dist(a, b64, n_devices=args.devices or 1,
                                   rtol=args.rtol, inner_kmax=args.kmax,
-                                  jacobi=args.jacobi, device=device)
+                                  jacobi=args.jacobi, amg=args.amg,
+                                  device=device)
         else:
             res = cg_refined(a, b64, rtol=args.rtol, inner_kmax=args.kmax,
                              device=device)
         timer.add("1.Solve", time.perf_counter() - t0)
         r = a.matvec(res.x) - b64
         print(f"device: {name}, {args.devices or 1} stacked shard(s), "
-              "refinement: fp32 inner CG, double-single residuals",
-              file=sys.stderr)
+              f"refinement: fp32 inner {'AMG-P' if args.amg else ''}CG, "
+              "double-single residuals", file=sys.stderr)
         print(timer.report())
         print(f"Converged: {res.converged} in {res.outer_iterations} outer / "
               f"{res.inner_iterations} inner iterations")
@@ -164,6 +177,26 @@ def main(argv=None) -> int:
         ap.error(str(e))
     b = A.to_dist(b_host)
     precond = A.jacobi_preconditioner() if args.jacobi else None
+    if args.amg:
+        from spmv_torch.solvers.amg import _detect_strides, amg_setup
+
+        agg = args.amg_aggregate
+        amg_kw = {}
+        if agg == "auto":
+            # grid-like operators get the headline configuration (4x4 grid
+            # blocks, W-cycle); pattern-free ones graph matching
+            if _detect_strides(a):
+                agg, amg_kw = "interval2d", dict(interval_size=4, cycle=2)
+            else:
+                agg = "match"
+        elif agg == "interval2d":
+            amg_kw = dict(interval_size=4, cycle=2)
+        t0 = time.perf_counter()
+        hier = amg_setup(a, A, aggregate=agg, **amg_kw)
+        timer.add("0.AMGSetup", time.perf_counter() - t0)
+        print(f"AMG: {hier.n_levels} levels, grid complexity "
+              f"{hier.grid_complexity():.2f}", file=sys.stderr)
+        precond = hier.as_preconditioner()
     device_sync(A.matvec(b))  # warm-up: builds the CUDA kernels on first use
 
     t0 = time.perf_counter()

@@ -2,8 +2,9 @@
 host oracle.
 
 Carried across from ``spmv_tpu.formats.csr`` (which cannot be imported here:
-its package imports jax). Only the numpy tier of ``from_coo`` comes along;
-the native C++ host tier is still to port (ROADMAP.md). ``coo_ell`` and
+its package imports jax). Only the numpy tiers of ``from_coo`` and
+``csr_matmul`` come along; the native C++ host tier is still to port
+(ROADMAP.md). ``coo_ell`` and
 ``ell_transpose`` build the stacked ELL rectangles through which the
 port applies its far remainders and transpose terms as gathers.
 """
@@ -158,6 +159,29 @@ class CSRHost:
             rows[keep], self.colind[keep], self.values[keep], self.nrows,
             self.ncols, sum_duplicates=False)
         return lower, diag
+
+
+def csr_matmul(a: CSRHost, b: CSRHost) -> CSRHost:
+    """C = A @ B on host CSR, float64 values out: the reference's numpy ESC
+    tier (expand every A nonzero against its matching B row, lexsort,
+    compress). Setup-time products (the AMG Galerkin triple products) on
+    stencil-width rows."""
+    if a.ncols != b.nrows:
+        raise ValueError(f"shape mismatch: ({a.nrows},{a.ncols}) @ "
+                         f"({b.nrows},{b.ncols})")
+    lens_a = a.row_nnz().astype(np.int64)
+    rows_a = np.repeat(np.arange(a.nrows, dtype=np.int64), lens_a)
+    cols_a = a.colind.astype(np.int64)
+    rep = (b.rowptr[cols_a + 1] - b.rowptr[cols_a]).astype(np.int64)
+    total = int(rep.sum())
+    out_rows = np.repeat(rows_a, rep)
+    grp_off = np.zeros(len(rep), np.int64)
+    np.cumsum(rep[:-1], out=grp_off[1:])
+    inner = (np.arange(total, dtype=np.int64) - np.repeat(grp_off, rep)
+             + np.repeat(b.rowptr[cols_a], rep))
+    out_vals = np.repeat(a.values.astype(np.float64), rep) * b.values[inner]
+    return CSRHost.from_coo(out_rows, b.colind[inner].astype(np.int64),
+                            out_vals, a.nrows, b.ncols)
 
 
 def coo_ell(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,

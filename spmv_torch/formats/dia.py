@@ -110,7 +110,8 @@ def csr_to_dia(
     device="cuda",
 ) -> DiaMatrix:
     """Convert host CSR to DIA on ``device`` (the card unless the caller asks
-    for another). Raises if the matrix has more
+    for another); ``dtype`` may be ``torch.bfloat16`` (values rounded once
+    from float32). Raises if the matrix has more
     than ``max_diags`` distinct diagonals. Rows pad to a multiple of 128
     (the lane layout of ``DiaMatrix.data``).
 
@@ -118,11 +119,15 @@ def csr_to_dia(
     symmetric), only diagonals with offset <= 0 are stored; the transpose
     of diagonal o is diagonal -o with the same data shifted by -o.
     """
-    flat, offsets, nnz = _csr_to_dia_host(a, row_align, max_diags, dtype,
+    # numpy has no bfloat16: pack in float32 and round once on the way out
+    bf16 = dtype == torch.bfloat16
+    flat, offsets, nnz = _csr_to_dia_host(a, row_align, max_diags,
+                                          np.float32 if bf16 else dtype,
                                           symmetric)
-    data = flat_to_interleaved(flat, flat.shape[0])
+    data = torch.as_tensor(np.ascontiguousarray(
+        flat_to_interleaved(flat, flat.shape[0])), device=device)
     return DiaMatrix(
-        data=torch.as_tensor(np.ascontiguousarray(data), device=device),
+        data=data.to(torch.bfloat16) if bf16 else data,
         offsets=offsets,
         nrows=a.nrows,
         ncols=a.ncols,

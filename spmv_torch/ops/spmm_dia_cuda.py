@@ -11,12 +11,11 @@ tensor launches the kernel or raises. ``launches`` counts kernel launches
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from spmv_torch.formats.dia import LANES
 from spmv_torch.ops.spmm_dia import spmm_dia_stacked_plain
-from spmv_torch.ops.spmv_dia_cuda import _check
+from spmv_torch.ops.spmv_dia_cuda import DTYPES, _check, device_offsets
 
 launches = {"dia_spmm": 0, "dia_sym_spmm": 0}
 
@@ -41,13 +40,13 @@ def spmm_dia_stacked(data: torch.Tensor, x2: torch.Tensor,
     lib = load_library()
     nd, nr = data.shape[0], data.shape[1]
     y2 = torch.empty_like(x2)
-    offs = np.ascontiguousarray(offsets, dtype=np.int64)
+    offs = device_offsets(tuple(offsets), x2.device)
     key = "dia_sym_spmm" if symmetric else "dia_spmm"
-    name = key + ("_f64" if data.dtype == torch.float64 else "_f32")
+    name = f"{key}_{DTYPES[data.dtype]}"
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         rc = getattr(lib, name)(data.data_ptr(), x2.data_ptr(), y2.data_ptr(),
-                                nr * LANES, len(offsets), offs.ctypes.data,
+                                nr * LANES, len(offsets), offs.data_ptr(),
                                 x2.shape[1] // LANES, nd, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")

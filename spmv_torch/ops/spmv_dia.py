@@ -8,6 +8,8 @@ ascending, each o < 0 transpose term right after its forward term).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from spmv_torch.formats.dia import LANES, DiaMatrix
@@ -25,7 +27,13 @@ def spmv_dia(
 
     Symmetric storage adds the transpose of each stored o < 0 diagonal as a
     gather: y[i] += d_o[i-o] * x[i-o], zero where i-o >= nrows_pad.
+    bfloat16 storage accumulates in float32 and returns x's dtype, as the
+    kernels do.
     """
+    if torch.bfloat16 in (a.data.dtype, x.dtype):
+        a32 = dataclasses.replace(a, data=a.data.to(torch.float32))
+        y32 = None if y is None else y.to(torch.float32)
+        return spmv_dia(a32, x.to(torch.float32), alpha, beta, y32).to(x.dtype)
     npad = a.nrows_pad
     nr = npad // LANES
     omin = min(min(a.offsets), 0)

@@ -9,18 +9,32 @@ A CPU tensor takes the plain torch version (``ops/spmv_dia.py``); a CUDA
 tensor launches the kernel or raises. ``launches`` counts kernel launches
 (one per call on a CUDA tensor, none on the plain path), so a run can show
 that its path went through the kernels.
+
+The kernels take float32, float64 and bfloat16 storage (bf16 accumulates
+in float32 and stores y in bf16) and any number of diagonals: the offsets
+reach them as an int64 array on the card, made once per (offsets, device)
+and kept (``device_offsets``).
 """
 from __future__ import annotations
 
-import numpy as np
+import functools
+
 import torch
 
 from spmv_torch.formats.dia import LANES, DiaMatrix
 from spmv_torch.ops.spmv_dia import spmv_dia_stacked_plain
 
-MAX_DIAGS = 64  # SPMV_DIA_MAX_DIAGS in csrc/spmv_dia.cu
+DTYPES = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 
 launches = {"dia": 0, "dia_sym": 0}
+
+
+@functools.lru_cache(maxsize=256)
+def device_offsets(offsets: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The diagonal offsets as an int64 tensor on ``device``, which the
+    kernels read; one copy per (offsets, device) is kept, so repeated
+    applies make no host-to-device transfer."""
+    return torch.tensor(offsets, dtype=torch.int64, device=device)
 
 
 def reset_launches() -> None:
@@ -38,14 +52,12 @@ def _check(data: torch.Tensor, x2: torch.Tensor, offsets, symmetric: bool,
            block: bool = False):
     if data.device != x2.device:
         raise ValueError(f"data on {data.device} but x on {x2.device}")
-    if data.dtype == torch.bfloat16 or x2.dtype == torch.bfloat16:
-        raise TypeError("bf16 DIA storage is not ported yet (ROADMAP.md)")
-    if data.dtype not in (torch.float32, torch.float64) or x2.dtype != data.dtype:
-        raise TypeError(f"DIA apply takes float32 or float64 data and x of "
-                        f"the same dtype, got {data.dtype} and {x2.dtype}")
+    if data.dtype not in DTYPES or x2.dtype != data.dtype:
+        raise TypeError(f"DIA apply takes float32, float64 or bfloat16 data "
+                        f"and x of the same dtype, got {data.dtype} and {x2.dtype}")
     k = len(offsets)
-    if not 1 <= k <= MAX_DIAGS:
-        raise ValueError(f"{k} diagonals; the kernels take 1..{MAX_DIAGS}")
+    if k < 1:
+        raise ValueError("a DIA apply needs at least one diagonal")
     if symmetric and max(offsets) > 0:
         raise ValueError("symmetric DIA stores offsets <= 0 only")
     if data.dim() != 3 or data.shape[2] != k * LANES:
@@ -77,13 +89,12 @@ def spmv_dia_stacked(
     lib = load_library()
     nd, nr = data.shape[0], data.shape[1]
     y2 = torch.empty_like(x2)
-    offs = np.ascontiguousarray(offsets, dtype=np.int64)
-    name = (("dia_sym_spmv_" if symmetric else "dia_spmv_")
-            + ("f64" if data.dtype == torch.float64 else "f32"))
+    offs = device_offsets(tuple(offsets), x2.device)
+    name = ("dia_sym_spmv_" if symmetric else "dia_spmv_") + DTYPES[data.dtype]
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         rc = getattr(lib, name)(data.data_ptr(), x2.data_ptr(), y2.data_ptr(),
-                                nr * LANES, len(offsets), offs.ctypes.data,
+                                nr * LANES, len(offsets), offs.data_ptr(),
                                 nd, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")

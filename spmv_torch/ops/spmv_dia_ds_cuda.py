@@ -19,11 +19,13 @@ import numpy as np
 import torch
 
 from spmv_torch.formats.dia import LANES
-from spmv_torch.ops.spmv_dia_cuda import MAX_DIAGS, _lanes_ok
+from spmv_torch.ops.spmv_dia_cuda import _lanes_ok
 from spmv_torch.ops.spmv_dia_ds import (
     spmm_dia_ds_stacked_plain,
     spmv_dia_ds_stacked_plain,
 )
+
+MAX_DIAGS = 64  # SPMV_DIA_DS_MAX_DIAGS / SPMM_DIA_DS_MAX_DIAGS in csrc/
 
 launches = {"dia_ds": 0, "dia_ds_spmm": 0}
 

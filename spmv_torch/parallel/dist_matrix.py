@@ -47,7 +47,8 @@ from spmv_torch.formats.well import _build_arrays, _pack, pack_rows, split_windo
 from spmv_torch.ops.spmm_dia import spmm_from_layout, to_lanes
 from spmv_torch.ops.spmm_dia_cuda import spmm_dia_stacked
 from spmv_torch.ops.spmm_well_cuda import spmm_well_ds_stacked, spmm_well_stacked
-from spmv_torch.ops.spmv_dia_cuda import MAX_DIAGS, spmv_dia_stacked
+from spmv_torch.ops.spmv_dia_cuda import spmv_dia_stacked
+from spmv_torch.ops.spmv_dia_ds_cuda import MAX_DIAGS as DS_MAX_DIAGS
 from spmv_torch.ops.spmv_dia_ds_cuda import spmm_dia_ds_stacked, spmv_dia_ds_stacked
 from spmv_torch.ops.spmv_well_cuda import spmv_well_stacked
 from spmv_torch.ops.spmv_well_ds_cuda import spmv_well_ds_stacked
@@ -71,6 +72,10 @@ ELL_BYTES_CAP = 4e9
 # segments form the far remainder; a group may hold at most this many slots
 WELL_WSEG_CAP = 512
 WELL_MAX_K = 64
+# "auto" picks DIA for at most this many distinct diagonals
+DIA_MAX_DIAGS = 64
+# hub rows are summed in chunks of this many entries (``_attach_hubs``)
+HUB_CHUNK = 64
 
 
 def _round_up(x: int, m: int) -> int:
@@ -122,6 +127,18 @@ class DistMatrix:
     remoteT_colind/remoteT_vals: (D, nghost_pad, Kg) ELL of the remote
         block's transpose over the ghost slots (every symmetric operator
         with ghosts), the gather form of the ghost-column contributions
+
+    hub_colind/hub_values: (D, Cn, Kc) ELL over chunks of at most
+        HUB_CHUNK entries of the hub rows (rows with more nonzeros than the
+        hub cap, split out of the row-uniform formats), columns in the
+        padded-global input numbering (shard*col_pad + local column);
+        hub_chunks: (D, H, C) int64 each hub row's chunks (pad = Cn);
+        hub_slot: (D, R) int64 row -> hub-row slot (H = none); hub_nnz
+        counts the hub entries
+
+    Rectangular operators ("ell" only) partition columns by
+    ``owner_ranges(ncols, D)``: x has ``col_pad`` entries per shard and y
+    ``row_pad``.
 
     Double-single ("dia_ds", "well_ds"): every value array above holds the
     float32 hi plane and ``<name>_lo`` the lo plane. "well_ds" keeps its
@@ -186,6 +203,11 @@ class DistMatrix:
     remoteT_colind: torch.Tensor | None = None
     remoteT_vals: torch.Tensor | None = None
     remoteT_vals_lo: torch.Tensor | None = None
+    hub_slot: torch.Tensor | None = None
+    hub_chunks: torch.Tensor | None = None
+    hub_colind: torch.Tensor | None = None
+    hub_values: torch.Tensor | None = None
+    hub_nnz: int = 0
 
     @property
     def n_devices(self) -> int:
@@ -220,29 +242,47 @@ class DistMatrix:
         """Per-shard output-vector rows in the (rows, 128) lane layout."""
         return self.row_pad // LANES
 
-    # ----- vector layout (square: the row and column sides coincide) -----
-    def to_dist(self, x_global: np.ndarray) -> torch.Tensor:
+    @property
+    def lane_rows(self) -> int:
+        """Per-shard input-vector rows in the (rows, 128) lane layout."""
+        return self.col_pad // LANES
+
+    # ----- vector layout: matvec reads the column side, writes the row side -----
+    def _side(self, side: str) -> tuple[int, int]:
+        if side == "col":
+            return self.ncols_global, self.col_pad
+        if side == "row":
+            return self.nrows_global, self.row_pad
+        raise ValueError(f"side must be 'row' or 'col', got {side!r}")
+
+    def to_dist(self, x_global: np.ndarray, side: str = "col") -> torch.Tensor:
         """Scatter a host global vector into the stacked lane layout
-        (D*pad/128, 128) on this matrix's device."""
-        ranges = owner_ranges(self.nrows_global, self.n_devices)
-        out = np.zeros((self.n_devices, self.row_pad), dtype=x_global.dtype)
+        (D*pad/128, 128) on this matrix's device: ``side="col"`` (default)
+        makes a matvec input, ``"row"`` an output-side vector."""
+        n_glob, pad = self._side(side)
+        ranges = owner_ranges(n_glob, self.n_devices)
+        out = np.zeros((self.n_devices, pad), dtype=x_global.dtype)
         for s in range(self.n_devices):
             r0, r1 = int(ranges[s]), int(ranges[s + 1])
             out[s, : r1 - r0] = x_global[r0:r1]
-        arr = out.reshape(self.n_devices * self.row_lane_rows, LANES)
+        arr = out.reshape(self.n_devices * (pad // LANES), LANES)
         return torch.as_tensor(arr, device=self.device)
 
-    def from_dist(self, x: torch.Tensor) -> np.ndarray:
-        """Gather the stacked lane layout back to a host global vector."""
-        ranges = owner_ranges(self.nrows_global, self.n_devices)
-        mat = x.detach().cpu().numpy().reshape(self.n_devices, self.row_pad)
+    def from_dist(self, x: torch.Tensor, side: str = "row") -> np.ndarray:
+        """Gather the stacked lane layout back to a host global vector:
+        ``side="row"`` (default) reads a matvec output, ``"col"`` an
+        input-side vector."""
+        n_glob, pad = self._side(side)
+        ranges = owner_ranges(n_glob, self.n_devices)
+        mat = x.detach().cpu().numpy().reshape(self.n_devices, pad)
         return np.concatenate(
             [mat[s, : int(ranges[s + 1] - ranges[s])] for s in range(self.n_devices)]
         )
 
     # ----- distributed SpMV -----
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A @ x: x and y in the stacked lane layout (D*pad/128, 128).
+        """y = A @ x: x in the stacked lane layout (D*col_pad/128, 128), y
+        in (D*row_pad/128, 128).
 
         A double-single operator takes a float64 x: it is split into an
         error-free hi/lo float32 pair, applied through ``matvec_ds`` and
@@ -258,7 +298,10 @@ class DistMatrix:
             xl = (x - xh.to(torch.float64)).to(torch.float32)
             yh, yl = self.matvec_ds(xh, xl)
             return yh.to(torch.float64) + yl.to(torch.float64)
-        return _stacked_mult(self, x)
+        y = _stacked_mult(self, x)
+        if self.hub_nnz > 0:
+            y = y + _hub_apply(self, x)
+        return y
 
     def matvec_ds(self, xh: torch.Tensor, xl: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -273,24 +316,25 @@ class DistMatrix:
         return _stacked_mult_ds(self, xh, xl)
 
     # ----- block (multi-RHS) layout and apply -----
-    def to_dist_block(self, x_global: np.ndarray) -> torch.Tensor:
+    def to_dist_block(self, x_global: np.ndarray, side: str = "col") -> torch.Tensor:
         """Scatter a host (n, nrhs) column block into the stacked SpMM lane
         layout (D*pad/128, nrhs*128) on this matrix's device: element
         (i, r*128 + j) is flat element i*128 + j of column r on the owning
-        shard."""
+        shard (``side`` as in ``to_dist``)."""
         n, nrhs = x_global.shape
-        ranges = owner_ranges(self.nrows_global, self.n_devices)
-        out = np.zeros((self.n_devices, self.row_pad, nrhs), dtype=x_global.dtype)
+        n_glob, pad = self._side(side)
+        ranges = owner_ranges(n_glob, self.n_devices)
+        out = np.zeros((self.n_devices, pad, nrhs), dtype=x_global.dtype)
         for s in range(self.n_devices):
             r0, r1 = int(ranges[s]), int(ranges[s + 1])
             out[s, : r1 - r0] = x_global[r0:r1]
         return _block_to_lanes(torch.as_tensor(out, device=self.device))
 
-    def from_dist_block(self, x: torch.Tensor) -> np.ndarray:
+    def from_dist_block(self, x: torch.Tensor, side: str = "row") -> np.ndarray:
         """Gather the stacked SpMM lane layout back to a host (n, nrhs)
-        block."""
+        block (``side`` as in ``from_dist``)."""
         nrhs = x.shape[1] // LANES
-        ranges = owner_ranges(self.nrows_global, self.n_devices)
+        ranges = owner_ranges(self._side(side)[0], self.n_devices)
         mat = _lanes_to_block(x.detach(), self.n_devices, nrhs).cpu().numpy()
         return np.concatenate(
             [mat[s, : int(ranges[s + 1] - ranges[s])] for s in range(self.n_devices)]
@@ -308,7 +352,11 @@ class DistMatrix:
         if self.local_format.endswith("_ds"):
             raise ValueError("double-single operators apply blocks via "
                              "matmat_ds (hi/lo pair blocks)")
-        return _stacked_matmat(self, x)
+        y = _stacked_matmat(self, x)
+        if self.hub_nnz > 0:
+            nd, nrhs = self.n_devices, x.shape[1] // LANES
+            y = y + _block_to_lanes(_hub_apply(self, _lanes_to_block(x, nd, nrhs)))
+        return y
 
     def matmat_ds(self, xh: torch.Tensor, xl: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -576,6 +624,30 @@ def _ell_apply(colind: torch.Tensor, values: torch.Tensor,
     return (values * g).sum(-1)
 
 
+def _hub_apply(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
+    """The hub-row term y_hub = H x (the reference's ``_hub_apply``): every
+    shard's hub rows read the whole input vector (all shards' x,
+    flattened). Three gathers and no scatter-add: the chunk ELL sums
+    ``HUB_CHUNK``-long pieces of the hub rows, ``hub_chunks`` sums each hub
+    row's chunks, and ``hub_slot`` hands each output row its hub row's sum
+    (rows with no hub entry read a zero). x2 is a vector (D*col_pad/128,
+    128) or a column block (D, col_pad, nrhs); the result has y's shape."""
+    nd = A.n_devices
+    block = x2.dim() == 3
+    tail = x2.shape[2:] if block else ()
+    xg = x2.reshape(1, nd * A.col_pad, *tail).expand(nd, -1, *tail)
+
+    def with_zero(v):  # a zero slot at the end, where padding indices point
+        return torch.cat([v, v.new_zeros((nd, 1, *tail))], dim=1)
+
+    yc = with_zero(_ell_apply(A.hub_colind, A.hub_values, xg))   # chunk sums
+    nh, kc = A.hub_chunks.shape[1:]
+    yh = torch.gather(yc, 1, expand_index(A.hub_chunks.reshape(nd, nh * kc), yc))
+    yh = with_zero(yh.reshape(nd, nh, kc, *tail).sum(2))          # hub-row sums
+    y = torch.gather(yh, 1, expand_index(A.hub_slot, yh))         # (D, R[, nrhs])
+    return y if block else y.reshape(nd * A.row_lane_rows, LANES)
+
+
 def _assemble(
     shards: list[ShardCSR],
     col_ranges: np.ndarray,
@@ -587,6 +659,8 @@ def _assemble(
     row_align: int,
     local_format: str,
     device,
+    dia_max_diags: int = DIA_MAX_DIAGS,
+    well_max_k: int = WELL_MAX_K,
 ) -> DistMatrix:
     """Compile the (column-side) CommPlan, stack the ELL/DIA/WELL blocks on
     the host, and move everything to ``device`` once, except the WELL
@@ -606,7 +680,7 @@ def _assemble(
 
     well = None
     if local_format in ("well", "well_ds"):
-        well = _stack_well(shards, symmetric, pack_dtype)
+        well = _stack_well(shards, symmetric, pack_dtype, well_max_k)
         # the shared per-shard pad is exactly the WELL geometry's G*128
         row_align = well["gt"] * LANES
     plan = compile_plan(col_ranges, [s.ghosts for s in shards],
@@ -619,7 +693,8 @@ def _assemble(
 
     if local_format in ("dia", "dia_ds"):
         data, host["dia_offsets"] = _stack_dia(
-            shards, symmetric, r, pack_dtype or shards[0].local.dtype)
+            shards, symmetric, r, pack_dtype or shards[0].local.dtype,
+            DS_MAX_DIAGS if ds else dia_max_diags)
         planes("local_dia_data", data)
 
     kl = max(max((int(s.local.row_nnz().max()) if s.local.nnz else 0) for s in shards), 1)
@@ -744,12 +819,13 @@ HOST_FIELDS = tuple(f"local_well{t}_{f}" for t in ("", "T")
 
 
 
-def _stack_dia(shards: list[ShardCSR], symmetric: bool, r: int, dtype
-               ) -> tuple[np.ndarray, tuple[int, ...]]:
+def _stack_dia(shards: list[ShardCSR], symmetric: bool, r: int, dtype,
+               max_diags: int) -> tuple[np.ndarray, tuple[int, ...]]:
     """The union of the shards' diagonal offsets and the local blocks
     stacked on it, (D, R/128, Kd*128) in the interleaved DIA layout (absent
-    diagonals all-zero). Symmetric shards keep the diagonal separately;
-    it is folded in as offset 0, so the block holds offsets <= 0."""
+    diagonals all-zero); raises past ``max_diags`` distinct offsets.
+    Symmetric shards keep the diagonal separately; it is folded in as
+    offset 0, so the block holds offsets <= 0."""
     nd = len(shards)
     per_shard = []
     all_offs = []
@@ -767,11 +843,12 @@ def _stack_dia(shards: list[ShardCSR], symmetric: bool, r: int, dtype
         per_shard.append((rows, offs, vals))
         all_offs.append(np.unique(offs))
     union = np.unique(np.concatenate(all_offs)) if all_offs else np.array([0])
-    if len(union) > MAX_DIAGS:
+    if len(union) > max_diags:
         raise ValueError(
             f"local blocks have {len(union)} distinct diagonals "
-            f"(> {MAX_DIAGS}, the DIA kernels' limit); local_format='dia' "
-            "is for banded/stencil operators"
+            f"(> dia_max_diags={max_diags}); local_format='dia' is for "
+            "banded/stencil operators — raise dia_max_diags only when the "
+            "band is dense (storage is ndiags * nrows)"
         )
     kd = max(len(union), 1)
     dd = np.zeros((nd, kd, r), dtype=dtype)
@@ -810,7 +887,8 @@ def _far_coo_stack(blocks: list[CSRHost], dtype):
     return rows, cols, vals
 
 
-def _stack_well(shards: list[ShardCSR], symmetric: bool, dtype) -> dict:
+def _stack_well(shards: list[ShardCSR], symmetric: bool, dtype,
+                max_k: int = WELL_MAX_K) -> dict:
     """The WELL branch of the reference's ``_assemble`` (plain "well"):
     per shard, split the local block into its near window and far
     remainder, pack the near part, and stack every shard on one padded
@@ -833,7 +911,7 @@ def _stack_well(shards: list[ShardCSR], symmetric: bool, dtype) -> dict:
         for tag, bl in blocks.items():
             splits = [split_window(b, tile_groups=tg, wseg_cap=WELL_WSEG_CAP)
                       for b in bl]
-            packed[tag] = ([_build_arrays(near, tg, WELL_MAX_K, dtype)
+            packed[tag] = ([_build_arrays(near, tg, max_k, dtype)
                             for near, _ in splits],
                            [far for _, far in splits])
         k_all = max(v.shape[0] for ws, _ in packed.values() for v, *_ in ws)
@@ -865,25 +943,113 @@ def _stack_well(shards: list[ShardCSR], symmetric: bool, dtype) -> dict:
     return out
 
 
-def _hub_split(a: CSRHost) -> CSRHost:
-    """The reference's ``hub_cap="auto"`` degree-skew decision
-    (``_hub_split``): rows whose nnz exceeds the cap would leave the
-    row-uniform formats. The hub block is not ported yet, so a matrix that
-    would split raises; near-uniform degrees (every Laplacian) never split
-    and pass through unchanged."""
+def _hub_split(a: CSRHost, hub_cap):
+    """Whole-row degree-skew split (the reference's ``_hub_split``): rows
+    whose nnz exceeds the cap leave ``a`` entirely; their entries return as
+    global COO. Returns (body, hubs) with hubs = (rows_g, cols_g, vals) or
+    None. ``hub_cap="auto"`` skips near-uniform degree distributions
+    (kmax <= max(64, 4*p99)) and otherwise picks the power-of-two cap that
+    minimizes nrows*cap body slots plus 2*hub_nnz hub elements; an int is
+    the cap itself."""
     if a.nnz == 0:
-        return a
+        return a, None
     d = a.row_nnz()
     kmax = int(d.max())
-    p99 = float(np.percentile(d, 99)) if a.nrows else 0.0
-    if kmax <= max(64, 4 * p99):
-        return a
-    # past this gate the reference's cost model always finds a cap below
-    # kmax (its smallest candidate is 8), so it splits
-    raise NotImplementedError(
-        f"a row with {kmax} nonzeros would move to a hub block, which is not "
-        "ported yet (ROADMAP.md); pass hub_cap=None to keep every row in the "
-        "row-uniform format")
+    if hub_cap == "auto":
+        p99 = float(np.percentile(d, 99)) if a.nrows else 0.0
+        if kmax <= max(64, 4 * p99):
+            return a, None
+        # hub_nnz(c) for every candidate in one histogram pass
+        hist = np.bincount(np.minimum(d, 1 << 20))
+        nnz_le = np.cumsum(hist * np.arange(len(hist), dtype=np.int64))
+        best_cost, cap = None, None
+        for c in (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096):
+            if c >= kmax:
+                break
+            hub_nnz = a.nnz - int(nnz_le[min(c, len(nnz_le) - 1)])
+            cost = a.nrows * c + 2 * hub_nnz
+            if best_cost is None or cost < best_cost:
+                best_cost, cap = cost, c
+        if cap is None:
+            return a, None
+    else:
+        cap = int(hub_cap)
+        if kmax <= cap:
+            return a, None
+    hub_row = d > cap
+    rows_g = np.repeat(np.arange(a.nrows, dtype=np.int64), d)
+    m = hub_row[rows_g]
+    body = CSRHost.from_coo(rows_g[~m], a.colind[~m].astype(np.int64),
+                            a.values[~m], a.nrows, a.ncols,
+                            sum_duplicates=False)
+    return body, (rows_g[m], a.colind[m].astype(np.int64), a.values[m])
+
+
+def _attach_hubs(A: DistMatrix, hubs, dtype) -> DistMatrix:
+    """Stack the hub COO per shard for ``_hub_apply`` and fold hub diagonal
+    entries into ``jacobi_diag`` (square operators), as the reference's
+    ``_attach_hubs`` does. Each hub row's entries, in their COO order, are
+    cut into chunks of ``HUB_CHUNK``, stored as an ELL over the chunks
+    (columns in the padded-global input numbering, shard*col_pad + local
+    column); ``hub_chunks`` (D, H, C) lists each hub row's chunks (padding
+    points one past the last chunk) and ``hub_slot`` (D, R) each row's hub
+    slot (H = none). Chunks bound the padding of rows of very different
+    lengths: storage is about hub_nnz + H * (HUB_CHUNK + C) per shard."""
+    rows_g, cols_g, vals = hubs
+    nd, cp, rp = A.n_devices, A.col_pad, A.row_pad
+    row_ranges = owner_ranges(A.nrows_global, nd)
+    col_ranges = owner_ranges(A.ncols_global, nd)
+    cshard = np.searchsorted(col_ranges, cols_g, side="right") - 1
+    pg_cols = cshard * np.int64(cp) + (cols_g - col_ranges[cshard])
+    rshard = np.searchsorted(row_ranges, rows_g, side="right") - 1
+    lrow = rows_g - row_ranges[rshard]
+    vdtype = dtype or vals.dtype
+    per_shard = []
+    for s in range(nd):
+        sel = np.flatnonzero(rshard == s)
+        hub_rows, slot = np.unique(lrow[sel], return_inverse=True)
+        order = np.argsort(slot, kind="stable")       # by hub row, COO order
+        sel, slot = sel[order], slot[order]
+        counts = np.bincount(slot, minlength=len(hub_rows))
+        first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        rank = np.arange(len(sel)) - first[slot]
+        nchunk = -(-counts // HUB_CHUNK)
+        chunk0 = np.concatenate([[0], np.cumsum(nchunk)[:-1]])
+        per_shard.append((hub_rows, sel, chunk0[slot] + rank // HUB_CHUNK,
+                          nchunk, chunk0))
+    nh = max(max(len(p[0]) for p in per_shard), 1)
+    ncm = max(max(int(p[3].sum()) for p in per_shard), 1)
+    cmax = max(max((int(p[3].max()) if len(p[3]) else 0) for p in per_shard), 1)
+    f_max = max(max(len(p[1]) for p in per_shard), 1)
+    crow = np.zeros((nd, f_max), np.int64)
+    ccol = np.zeros((nd, f_max), np.int64)
+    cval = np.zeros((nd, f_max), vdtype)
+    slot_map = np.full((nd, rp), nh, dtype=np.int64)
+    chunks = np.full((nd, nh, cmax), ncm, dtype=np.int64)
+    for s, (hub_rows, sel, chunk, nchunk, chunk0) in enumerate(per_shard):
+        ns = len(sel)
+        crow[s, :ns], ccol[s, :ns], cval[s, :ns] = chunk, pg_cols[sel], vals[sel]
+        slot_map[s, hub_rows] = np.arange(len(hub_rows))
+        owner = np.repeat(np.arange(len(hub_rows)), nchunk)  # each chunk's row
+        c = np.arange(len(owner))
+        chunks[s, owner, c - chunk0[owner]] = c
+    # padding entries (value 0) are dropped by coo_ell
+    ci, cv = coo_ell(crow, ccol, cval, ncm)
+    dev = A.device
+    A.hub_slot = torch.as_tensor(slot_map, device=dev)
+    A.hub_chunks = torch.as_tensor(chunks, device=dev)
+    A.hub_colind = torch.as_tensor(ci, device=dev)
+    A.hub_values = torch.as_tensor(cv, device=dev)
+    A.hub_nnz = int(len(rows_g))
+    A.nnz_global += int(len(rows_g))
+    if A.nrows_global == A.ncols_global:
+        on_diag = rows_g == cols_g
+        if on_diag.any():
+            jd = A.jacobi_diag.cpu().numpy().copy()
+            np.add.at(jd, (rshard[on_diag], lrow[on_diag]),
+                      vals[on_diag].astype(jd.dtype))
+            A.jacobi_diag = torch.as_tensor(jd, device=dev)
+    return A
 
 
 def _wants_ds(a: CSRHost, dtype) -> bool:
@@ -913,7 +1079,7 @@ def select_local_format(a: CSRHost, symmetric: bool = False,
         return "ell"
     rows = np.repeat(np.arange(a.nrows, dtype=np.int64), a.row_nnz())
     offs = a.colind.astype(np.int64) - rows
-    if a.nrows == a.ncols and len(np.unique(offs)) <= MAX_DIAGS:
+    if a.nrows == a.ncols and len(np.unique(offs)) <= DIA_MAX_DIAGS:
         return "dia_ds" if want_ds and not symmetric else "dia"
     try:
         near, far = split_window(a, tile_groups=8, wseg_cap=WELL_WSEG_CAP)
@@ -955,33 +1121,45 @@ def build_dist_matrix(
     local_format: str = "ell",
     hub_cap="auto",
     *,
+    dia_max_diags: int = DIA_MAX_DIAGS,
+    well_max_k: int = WELL_MAX_K,
     device="cuda",
 ) -> DistMatrix:
-    """Assemble a DistMatrix from a global host CSR: partition rows into
-    ``n_devices`` shards, classify local/remote(/diagonal) entries, compile
-    the halo plan, and move the stacked blocks to ``device`` (the card
-    unless the caller asks for another).
+    """Assemble a DistMatrix from a global host CSR: partition rows (and,
+    for a rectangular matrix, columns) into ``n_devices`` shards, classify
+    local/remote(/diagonal) entries, compile the halo plan, and move the
+    stacked blocks to ``device`` (the card unless the caller asks for
+    another).
 
-    ``local_format``: "ell", "dia" (square only), "well" (square only),
-    their double-single variants "dia_ds" (vanilla only) and "well_ds"
-    (float64-class values as hi/lo float32 planes, applied by
-    ``matvec_ds``), or "auto" (``select_local_format``; float64 input
-    selects the double-single formats). ``dtype``: value dtype (numpy or
-    torch), default the CSR's; the double-single formats ignore it. ``hub_cap="auto"``
-    runs the reference's degree-skew decision and raises where it would
-    split (not ported); ``None`` keeps every row in the row-uniform format.
+    ``local_format``: "ell" (square or rectangular), "dia" (square only),
+    "well" (square only), their double-single variants "dia_ds" (vanilla
+    only) and "well_ds" (float64-class values as hi/lo float32 planes,
+    applied by ``matvec_ds``), or "auto" (``select_local_format``; float64
+    input selects the double-single formats). ``dtype``: value dtype (numpy
+    or torch), default the CSR's; the double-single formats ignore it.
+    ``dia_max_diags`` caps the distinct diagonals a DIA block may store and
+    ``well_max_k`` the slots of a WELL group; past either, assembly raises
+    ValueError, as the reference's does. ``hub_cap`` (vanilla real
+    "ell"/"dia"/"well", and "auto" on float32 input): rows with more
+    nonzeros than the cap leave the row-uniform format for a hub block
+    applied as a gather over the whole input vector; "auto" picks the cap
+    and skips near-uniform degrees, an int is the cap, None keeps every row
+    in the row-uniform format.
     """
     if local_format not in LOCAL_FORMATS:
         raise ValueError(f"unknown local_format {local_format!r} (one of "
                          f"{', '.join(LOCAL_FORMATS)})")
-    if hub_cap not in ("auto", None):
-        raise ValueError(f"hub_cap must be 'auto' or None, got {hub_cap!r}")
+    if hub_cap is not None and hub_cap != "auto" and not isinstance(
+            hub_cap, (int, np.integer)):
+        raise ValueError(f"hub_cap must be 'auto', None or an int, got {hub_cap!r}")
     dtype = host_dtype(dtype)
+    hubs = None
     # the double-single formats keep every row in their own format, as in
     # the reference
-    if (hub_cap == "auto" and not symmetric and not local_format.endswith("_ds")
-            and (local_format != "auto" or not _wants_ds(a, dtype))):
-        a = _hub_split(a)
+    if (hub_cap is not None and not symmetric
+            and (local_format in ("ell", "dia", "well")
+                 or (local_format == "auto" and not _wants_ds(a, dtype)))):
+        a, hubs = _hub_split(a, hub_cap)
     if local_format == "auto":
         local_format = select_local_format(a, symmetric=symmetric, dtype=dtype)
     if local_format in ("dia", "dia_ds") and a.nrows != a.ncols:
@@ -989,12 +1167,20 @@ def build_dist_matrix(
     if local_format == "dia_ds" and symmetric:
         raise ValueError("local_format='dia_ds' stores the full matrix (no "
                          "symmetric lower-triangle variant)")
-    if a.nrows != a.ncols:
-        raise NotImplementedError("rectangular operators are not ported yet "
-                                  "(ROADMAP.md)")
+    if a.nrows != a.ncols and local_format != "ell":
+        # the reference's rectangular WELL is not ported; a ValueError, so
+        # that AMG's per-level ELL fallback (solvers/amg._build_op) fires
+        raise ValueError(f"rectangular operators take local_format='ell' "
+                         f"here, got {local_format!r}")
+    if a.nrows != a.ncols and symmetric:
+        raise ValueError("symmetric storage requires a square matrix")
     row_align = _dia_row_align(local_format, -(-a.nrows // n_devices))
     shards = partition_csr(a, n_devices, symmetric=symmetric)
-    return _assemble(
-        shards, owner_ranges(a.nrows, n_devices), a.nrows, a.ncols, a.nnz,
-        symmetric, dtype, row_align, local_format, device,
+    A = _assemble(
+        shards, owner_ranges(a.ncols, n_devices), a.nrows, a.ncols, a.nnz,
+        symmetric, dtype, row_align, local_format, device, dia_max_diags,
+        well_max_k,
     )
+    if hubs is not None:
+        A = _attach_hubs(A, hubs, dtype)
+    return A

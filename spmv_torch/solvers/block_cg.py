@@ -31,6 +31,7 @@ from spmv_torch.ds import ds_add, ds_from_f64
 from spmv_torch.formats.csr import CSRHost
 from spmv_torch.formats.dia import LANES, csr_to_dia
 from spmv_torch.ops.spmm_dia import spmm_dia_2d, spmm_from_layout, spmm_to_layout
+from spmv_torch.ops.spmv_dia_cuda import spmv_dia_2d
 from spmv_torch.ops.spmv_dia_ds import csr_to_dia_ds, spmm_dia_ds_2d
 
 
@@ -165,21 +166,33 @@ def block_cg_dia(a, B, kmax: int = 100, rtol: float = 1e-10
 
 
 def _check_inner(inner_solver: str) -> None:
-    if inner_solver == "chebyshev":
-        raise NotImplementedError("inner_solver='chebyshev' needs "
-                                  "solvers/chebyshev.py, which is not ported "
-                                  "yet (ROADMAP.md)")
-    if inner_solver != "cg":
+    if inner_solver not in ("cg", "chebyshev"):
         raise ValueError(f"unknown inner_solver {inner_solver!r}")
 
 
-def _refine_block(matmat, matmat_ds, bh, bl, bnorm, rtol, max_outer,
-                  inner_kmax, inner_rtol):
+def _inner(inner_solver: str, matvec, v0: torch.Tensor, inner_kmax: int,
+           inner_rtol: float):
+    """The refinement's inner block solve, ``(matmat, r2, nrhs) ->
+    result``: independent block CG, or (``"chebyshev"``) the reference's
+    reduction-free adaptive Chebyshev sweeps, 16 steps a sweep, between
+    bounds from a 48-step Lanczos run of ``matvec`` from ``v0``."""
+    if inner_solver == "cg":
+        return lambda matmat, r2, nrhs: block_cg(
+            matmat, r2, nrhs, kmax=inner_kmax, rtol=inner_rtol, independent=True)
+    from spmv_torch.solvers.chebyshev import chebyshev_adaptive, chebyshev_bounds
+
+    lo, hi = (float(t) for t in chebyshev_bounds(matvec, v0, m=48))
+    return lambda matmat, r2, nrhs: chebyshev_adaptive(
+        matmat, r2, lo, hi, rtol=inner_rtol, sweep_iters=16,
+        max_sweeps=-(-inner_kmax // 16))
+
+
+def _refine_block(matmat, matmat_ds, bh, bl, bnorm, rtol, max_outer, inner):
     """The reference's block refinement loop (``block_cg.py:367-393``) over
     an fp32 block apply ``matmat`` and its double-single twin ``matmat_ds``,
     for the (hi, lo) right-hand-side blocks ``bh``, ``bl`` in the lane
-    layout. Returns ((xh, xl), outer passes, inner iterations, final
-    per-column |r|)."""
+    layout, with the inner solver ``inner`` (``_inner``). Returns
+    ((xh, xl), outer passes, inner iterations, final per-column |r|)."""
     nrhs = bh.shape[1] // LANES
     x = [torch.zeros_like(bh), torch.zeros_like(bh)]
 
@@ -202,8 +215,8 @@ def _refine_block(matmat, matmat_ds, bh, bl, bnorm, rtol, max_outer,
         if len(history) > 1 and np.all(rnorms > 0.5 * history[-2]):
             break  # stalled at the kappa * eps_ds floor
         # each column scaled to unit norm for the fp32 inner solve
-        res = block_cg(matmat, _scaled(rh, 1.0 / np.maximum(rnorms, 1e-300), nrhs),
-                       nrhs, kmax=inner_kmax, rtol=inner_rtol, independent=True)
+        res = inner(matmat, _scaled(rh, 1.0 / np.maximum(rnorms, 1e-300), nrhs),
+                    nrhs)
         inner_total += res.iterations
         dh = _scaled(res.x, rnorms, nrhs)
         x[:] = ds_add(*x, dh, torch.zeros_like(dh))
@@ -247,7 +260,9 @@ def block_cg_refined(
     every column) restore accuracy to the kappa * 2^-48 floor, and each
     outer pass restarts the inner simultaneous CG (``dia_spmm``, one
     launch per inner iteration). ``a``: host CSR, banded (DIA-convertible)
-    and SPD; ``B``: (n, nrhs). For general sparsity use
+    and SPD; ``B``: (n, nrhs). ``inner_solver="chebyshev"`` replaces the
+    inner CG by reduction-free adaptive Chebyshev sweeps (``dia_spmm`` as
+    well). For general sparsity use
     ``block_cg_refined_dist(..., local_format="well")``. Returns
     (X (n, nrhs) float64, outer passes, inner iterations, final per-column
     true residual norms)."""
@@ -259,9 +274,14 @@ def block_cg_refined(
     npad = dds.nrows_pad
     bh, bl = (spmm_to_layout(dds, p)
               for p in ds_from_f64(np.pad(B, ((0, npad - n), (0, 0)))))
+    v0 = np.zeros(npad, np.float32)
+    v0[:n] = np.random.default_rng(0).standard_normal(n)
+    solver = _inner(inner_solver, lambda u: spmv_dia_2d(d32, u),
+                    torch.as_tensor(v0.reshape(-1, LANES), device=device),
+                    inner_kmax, inner_rtol)
     x, outer, inner, rnorms = _refine_block(
         lambda v: spmm_dia_2d(d32, v), lambda h, lo: spmm_dia_ds_2d(dds, h, lo),
-        bh, bl, np.linalg.norm(B, axis=0), rtol, max_outer, inner_kmax, inner_rtol)
+        bh, bl, np.linalg.norm(B, axis=0), rtol, max_outer, solver)
     X = sum(spmm_from_layout(t, nrhs).cpu().numpy().astype(np.float64) for t in x)
     return X[:n], outer, inner, rnorms
 
@@ -285,6 +305,8 @@ def block_cg_refined_dist(
     ``n_devices`` stacked shards (``matmat``: one block kernel launch and
     one block halo per iteration); true residuals run its double-single
     twin's ``matmat_ds`` (the DS block kernel, the DS block halo).
+    ``inner_solver``: "cg" or "chebyshev" (as in ``block_cg_refined``;
+    its bounds from a Lanczos run of ``matvec``).
     ``local_format``: "dia" (banded operators) or "well" (general
     sparsity; RCM-reorder first to keep the window split tight). ``a``:
     global host CSR (SPD); ``B``: (n, nrhs) float64. Returns
@@ -304,8 +326,11 @@ def block_cg_refined_dist(
     if a32.col_pad != ads.col_pad:
         raise AssertionError("fp32/DS layouts must coincide")
     bh, bl = (ads.to_dist_block(p) for p in ds_from_f64(B))
+    v0 = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+    solver = _inner(inner_solver, a32.as_linear_operator(), a32.to_dist(v0),
+                    inner_kmax, inner_rtol)
     x, outer, inner, rnorms = _refine_block(
         a32.matmat, ads.matmat_ds, bh, bl, np.linalg.norm(B, axis=0), rtol,
-        max_outer, inner_kmax, inner_rtol)
+        max_outer, solver)
     X = sum(ads.from_dist_block(t).astype(np.float64) for t in x)
     return X[:n], outer, inner, rnorms

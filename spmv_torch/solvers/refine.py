@@ -168,12 +168,11 @@ def cg_refined_dist(
     through its DS twin's ``matvec_ds`` (DS halo exchange + DS kernels).
     ``local_format``: "dia" for banded operators, "well" for general
     sparsity (RCM-reorder first for window locality). ``jacobi=True``
-    diagonal-scales the inner solves. ``amg`` (AMG-preconditioned inner
-    solves) is not ported yet."""
-    if amg:
-        raise NotImplementedError("cg_refined_dist(amg=...) needs the AMG "
-                                  "hierarchy, which is not ported yet "
-                                  "(ROADMAP.md)")
+    diagonal-scales the inner solves. ``amg`` preconditions the fp32 inner
+    solves with an AMG hierarchy built on the internal fp32 operator: True
+    picks the reference's configuration (interval2d 4x4 grid blocks and a
+    W-cycle where a grid stride is detected, matching otherwise); a dict
+    passes through to ``amg_setup``."""
     if local_format not in ("dia", "well"):
         raise ValueError("local_format must be 'dia' or 'well'")
     from spmv_torch.parallel.dist_matrix import build_dist_matrix
@@ -182,11 +181,22 @@ def cg_refined_dist(
                             local_format=local_format, device=device)
     ads = build_dist_matrix(a, n_devices=n_devices,
                             local_format=local_format + "_ds", device=device)
+    precond = a32.jacobi_preconditioner() if jacobi else None
+    if amg:
+        from spmv_torch.solvers.amg import _detect_strides, amg_setup
+
+        kw: dict = dict(local_format=local_format)
+        if isinstance(amg, dict):
+            kw.update(amg)
+        elif _detect_strides(a):
+            # grid-like operator: the mesh-independent 2-D grid-block
+            # configuration (demo_cg --amg-aggregate auto)
+            kw.update(aggregate="interval2d", interval_size=4, cycle=2)
+        precond = amg_setup(a, a32, **kw).as_preconditioner()
     n = a.nrows
     bh, bl = ds_from_f64(np.asarray(b, np.float64))
     bh_d, bl_d = a32.to_dist(bh), a32.to_dist(bl)
     bnorm = float(np.linalg.norm(b))
-    precond = a32.jacobi_preconditioner() if jacobi else None
     x = [torch.zeros_like(bh_d), torch.zeros_like(bh_d)]
 
     def residual():

@@ -257,10 +257,10 @@ def test_block_cg_refined_dist_well_matches_reference():
 def test_refined_solvers_refuse_what_is_not_ported():
     _, pt = _lap(8)
     B = np.ones((pt.nrows, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        block_cg_refined(pt, B, inner_solver="chebyshev", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        block_cg_refined_dist(pt, B, inner_solver="chebyshev", device="cpu")
+    # inner_solver="chebyshev" is ported (tests/test_torch_chebyshev.py);
+    # an unknown inner solver is refused by both
+    with pytest.raises(ValueError, match="inner_solver"):
+        block_cg_refined_dist(pt, B, inner_solver="gmres", device="cpu")
     with pytest.raises(ValueError, match="inner_solver"):
         block_cg_refined(pt, B, inner_solver="gmres", device="cpu")
     with pytest.raises(ValueError, match="local_format"):

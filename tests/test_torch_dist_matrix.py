@@ -187,32 +187,45 @@ def test_unported_options_raise():
     _, pt = _pair()
     with pytest.raises(ValueError, match="unknown local_format"):
         build_dist_matrix(pt, local_format="csr", device="cpu")
-    # rectangular operators are not ported yet
+    # rectangular operators take the ELL format only (the reference's
+    # rectangular WELL is not ported); DIA is square-only in both
     rect = pt_csr.CSRHost.from_coo(np.arange(10), np.arange(10) * 2,
                                    np.ones(10), 10, 20)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_dist_matrix(rect, local_format="ell", device="cpu")
-    # a hub row: the reference's degree-skew decision would split it out
+    for fmt in ("well", "dia"):
+        with pytest.raises(ValueError, match="rectangular|square"):
+            build_dist_matrix(rect, local_format=fmt, device="cpu")
+    R = build_dist_matrix(rect, local_format="ell", device="cpu")
+    x = np.random.default_rng(1).standard_normal(20)
+    assert _rel(R.from_dist(R.matvec(R.to_dist(x))), rect.matvec(x)) <= 1e-13
+    # a hub row: the reference's degree-skew decision splits it out, and
+    # the port applies it as a gather over the whole input vector
     rows = np.concatenate([np.arange(400), np.zeros(200, np.int64)])
     cols = np.concatenate([np.arange(400), np.arange(1, 201)])
     hub = pt_csr.CSRHost.from_coo(rows, cols, np.ones(600), 400, 400)
-    with pytest.raises(NotImplementedError, match="hub"):
-        build_dist_matrix(hub, n_devices=2, device="cpu")
+    x = np.random.default_rng(0).standard_normal(400)
+    H = build_dist_matrix(hub, n_devices=2, device="cpu")
+    assert H.hub_nnz == 201
+    assert _rel(H.from_dist(H.matvec(H.to_dist(x))), hub.matvec(x)) <= 1e-13
     # hub_cap=None keeps every row in the row-uniform format
     A = build_dist_matrix(hub, n_devices=2, hub_cap=None, device="cpu")
-    x = np.random.default_rng(0).standard_normal(400)
+    assert A.hub_nnz == 0
     assert _rel(A.from_dist(A.matvec(A.to_dist(x))), hub.matvec(x)) <= 1e-13
     with pytest.raises(ValueError, match="hub_cap"):
-        build_dist_matrix(pt, hub_cap=8, device="cpu")
+        build_dist_matrix(pt, hub_cap="always", device="cpu")
 
 
 def test_dia_diagonal_limit_is_the_kernels():
-    # 65 distinct diagonals: one more than the DIA kernels take
+    # 65 distinct diagonals: one more than dia_max_diags' default admits;
+    # the kernels take any count, so raising the cap assembles them as DIA
     n = 200
     offs = np.arange(-32, 33)
     rows = np.concatenate([np.arange(max(0, -o), min(n, n - o)) for o in offs])
     cols = np.concatenate([np.arange(max(0, -o), min(n, n - o)) + o for o in offs])
     wide = pt_csr.CSRHost.from_coo(rows, cols, np.ones(len(rows)), n, n)
-    with pytest.raises(ValueError, match="64, the DIA kernels' limit"):
+    with pytest.raises(ValueError, match="dia_max_diags=64"):
         build_dist_matrix(wide, local_format="dia", device="cpu")
     build_dist_matrix(wide, local_format="ell", device="cpu")
+    A = build_dist_matrix(wide, local_format="dia", dia_max_diags=65, device="cpu")
+    assert len(A.dia_offsets) == 65
+    x = np.random.default_rng(3).standard_normal(n)
+    assert _rel(A.from_dist(A.matvec(A.to_dist(x))), wide.matvec(x)) <= 1e-13

@@ -137,11 +137,11 @@ def _inputs(dtype=torch.float32, k=3, nd=2, nr=4):
 
 
 @pytest.mark.parametrize("case,exc", [
-    ("bf16", TypeError),
+    ("f16", TypeError),
     ("int", TypeError),
     ("mixed", TypeError),
     ("no_diags", ValueError),
-    ("too_many_diags", ValueError),
+    ("diags_vs_width", ValueError),
     ("positive_sym", ValueError),
     ("data_shape", ValueError),
     ("x_shape", ValueError),
@@ -150,16 +150,18 @@ def _inputs(dtype=torch.float32, k=3, nd=2, nr=4):
 def test_wrapper_rejects_bad_input(case, exc):
     data, x2, offs = _inputs()
     sym = True
-    if case == "bf16":
-        data, x2 = data.bfloat16(), x2.bfloat16()
+    if case == "f16":
+        data, x2 = data.half(), x2.half()
     elif case == "int":
         data, x2 = data.int(), x2.int()
     elif case == "mixed":
         x2 = x2.double()
     elif case == "no_diags":
         offs = ()
-    elif case == "too_many_diags":
+    elif case == "diags_vs_width":
+        # 65 offsets for data 64 diagonals wide (any K is taken when they agree)
         data, x2, offs = _inputs(k=65)
+        data = data[:, :, :64 * 128].contiguous()
     elif case == "positive_sym":
         offs = (-1, 0, 1)
     elif case == "data_shape":
@@ -282,7 +284,7 @@ def test_demo_refuses_missing_cuda_and_unported_flags():
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit):
             demo_cg.main(["--lap2d", "8"])
-    for flag in (["--amg"], ["--refine", "--amg"], ["--solver", "gmres"],
+    for flag in (["--fsai"], ["--deflated", "2"], ["--solver", "gmres"],
                  ["--cpu"], ["--sstep", "4"]):
         with pytest.raises(SystemExit):
             demo_cg.main(["--lap2d", "8", "--device", "cpu", *flag])
@@ -754,3 +756,94 @@ def test_dist_matrix_keeps_well_arrays_on_host_on_cuda(cuda):
     assert np.linalg.norm(A.from_dist_block(Y) - want) <= 1e-12 * np.linalg.norm(want)
     assert spmv_well_cuda.launches["well"] == 4
     assert spmm_well_cuda.launches["well_spmm"] == 4
+
+
+def _wide_dia_args(rng, dtype, symmetric, k, nrhs, dev):
+    """D=2 stacked shards with k distinct offsets (beyond the 64 of the
+    reference's default cap) and random data and x."""
+    offs = tuple(range(-k + 1, 1)) if symmetric else tuple(range(-(k // 2), k - k // 2))
+    nd, nr = 2, 12
+    data = torch.as_tensor(rng.standard_normal((nd, nr, k * 128)), dtype=dtype, device=dev)
+    x2 = torch.as_tensor(rng.standard_normal((nd * nr, nrhs * 128)), dtype=dtype,
+                         device=dev)
+    return data, x2, offs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [65, 297])
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_dia_kernels_take_many_diagonals_on_cuda(cuda, symmetric, k):
+    """K = 65 and 297 (the 1-D interval AMG levels' widths): dia_spmv and
+    dia_spmm vs their plain versions, fp32 (relative L2 <= 1e-6)."""
+    rng = np.random.default_rng(k)
+    data, x2, offs = _wide_dia_args(rng, torch.float32, symmetric, k, 3, cuda)
+    y = spmm_dia_cuda.spmm_dia_stacked(data, x2, offs, symmetric)
+    c = columns(x2)[1]
+    y1 = spmv_dia_cuda.spmv_dia_stacked(data, c, offs, symmetric)
+    torch.cuda.synchronize()
+    for got, want in ((y, spmm_dia_stacked_plain(data, x2, offs, symmetric)),
+                      (y1, spmv_dia_stacked_plain(data, c, offs, symmetric))):
+        err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+        assert err <= 1e-6, err
+    assert torch.equal(columns(y)[1], y1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrhs", [1, 3])
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_dia_bf16_kernels_match_plain_on_cuda(cuda, symmetric, nrhs):
+    """bf16 storage (f32 accumulation, y rounded once to bf16): the kernel
+    and the plain version differ by the contraction of the f32 sums, which
+    can move a rounding to bf16 by one ulp (2^-8 relative): relative L2
+    <= 8e-3."""
+    rng = np.random.default_rng(5 + nrhs)
+    data, x2, offs = _wide_dia_args(rng, torch.bfloat16, symmetric, 9, nrhs, cuda)
+    if nrhs == 1:
+        y = spmv_dia_cuda.spmv_dia_stacked(data, x2, offs, symmetric)
+        want = spmv_dia_stacked_plain(data, x2, offs, symmetric)
+    else:
+        y = spmm_dia_cuda.spmm_dia_stacked(data, x2, offs, symmetric)
+        want = spmm_dia_stacked_plain(data, x2, offs, symmetric)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    err = float(torch.linalg.vector_norm((y - want).float())
+                / torch.linalg.vector_norm(want.float()))
+    assert err <= 8e-3, err
+
+
+def test_dia_bf16_plain_accumulates_in_f32():
+    """The plain bf16 DIA apply equals the f32 apply of the same (bf16)
+    values rounded once to bf16."""
+    rng = np.random.default_rng(2)
+    for symmetric in (False, True):
+        data, x2, offs = _wide_dia_args(rng, torch.bfloat16, symmetric, 9, 1, "cpu")
+        y = spmv_dia_cuda.spmv_dia_stacked(data, x2, offs, symmetric)
+        want = spmv_dia_stacked_plain(data.float(), x2.float(), offs, symmetric)
+        assert y.dtype == torch.bfloat16
+        assert torch.equal(y, want.to(torch.bfloat16))
+    assert spmv_dia_cuda.launches == {"dia": 0, "dia_sym": 0}
+
+
+@pytest.mark.cuda
+def test_amg_cycle_on_cuda_matches_cpu(cuda):
+    """One interval2d W-cycle on the card (DIA kernels on every level) vs
+    the same hierarchy's cycle on the CPU (plain versions): relative L2 <=
+    1e-5 (f32 sums in another order, through 3 levels)."""
+    from spmv_torch.gen import gaussian_bump
+    from spmv_torch.parallel.dist_matrix import build_dist_matrix
+    from spmv_torch.solvers.amg import amg_setup
+
+    a = create_laplace_2d(96, 96)
+    kw = dict(aggregate="interval2d", interval_size=4, cycle=2, local_format="dia",
+              coarse_max=256)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        A = build_dist_matrix(a, n_devices=2, dtype=np.float32, local_format="dia",
+                              device=dev)
+        h = amg_setup(a, A, **kw)
+        out.append(h.as_preconditioner()(A.to_dist(gaussian_bump(a.nrows,
+                                                                  dtype=np.float32))))
+    assert spmv_dia_cuda.launches["dia"] > 0
+    got, want = out[0].cpu(), out[1]
+    err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    assert err <= 1e-5, err

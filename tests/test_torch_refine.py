@@ -236,9 +236,14 @@ def test_distributed_refinement_jacobi():
 
 @pytest.mark.parametrize("amg", [True, {"aggregate": "interval2d"}])
 def test_amg_inner_solves_raise(amg):
+    """AMG-preconditioned inner solves are ported: they reach a float64-
+    class true residual; an unknown aggregation raises amg_setup's error."""
     a = pt_gen.create_laplace_2d(16, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cg_refined_dist(a, pt_gen.gaussian_bump(a.nrows), amg=amg, device="cpu")
+    b = pt_gen.gaussian_bump(a.nrows)
+    res = cg_refined_dist(a, b, amg=amg, device="cpu")
+    assert res.converged and _rel(a, res.x, b) < 1e-11
+    with pytest.raises(ValueError, match="aggregate"):
+        cg_refined_dist(a, b, amg={"aggregate": "blocks"}, device="cpu")
 
 
 def test_unknown_local_format_raises():
@@ -282,8 +287,13 @@ def test_demo_refine(devices, capsys, monkeypatch):
     assert abs(got["x"] - want["x"]) <= 1e-10 * want["x"]
 
 
-def test_demo_refine_amg_still_exits():
+def test_demo_refine_amg_still_exits(capsys):
+    """--refine --amg runs (cg_refined_dist with AMG inner solves) and
+    exits 0 with a float64-class true residual."""
     from spmv_torch.demos import demo_cg as pt_demo
 
-    with pytest.raises(SystemExit):
-        pt_demo.main(["--lap2d", "16", "--refine", "--amg", "--device", "cpu"])
+    assert pt_demo.main(["--lap2d", "16", "--refine", "--amg", "--device", "cpu",
+                         "--rtol", "1e-12"]) == 0
+    got = _lines(capsys.readouterr().out)
+    assert got["converged"]
+    assert got["r"] < 1e-11 * np.linalg.norm(pt_gen.gaussian_bump(16 * 16))

@@ -37,7 +37,7 @@ from spmv_torch.convert import dist_matrix_from_numpy
 from spmv_torch.ds import ds_from_f64, ds_to_f64
 from spmv_torch.formats.dia import csr_to_dia
 from spmv_torch.formats.well import csr_to_well
-from spmv_torch.ops import spmm_dia_cuda, spmm_well_cuda, spmv_dia_ds_cuda
+from spmv_torch.ops import spmm_dia_cuda, spmm_well_cuda, spmv_dia_cuda, spmv_dia_ds_cuda
 from spmv_torch.ops.spmm_dia import (
     columns,
     spmm_dia,
@@ -171,6 +171,46 @@ def test_plain_spmm_dia_matches_reference_kernel(kind, dtype, symmetric):
         assert got.dtype == dtype and got.shape == (p.nrows_pad, nrhs)
         assert _rel(got, want[:, :nrhs]) <= TOL[dtype]
         assert _rel(got[: pt.nrows], oracle[:, :nrhs]) <= 10 * TOL[dtype]
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("nrhs", [1, 3])
+def test_plain_bf16_dia_matches_reference_kernels(nrhs, symmetric):
+    """bf16 DIA storage (the reference's ``test_bf16_storage_ell_and_dia``
+    and ``test_dia_sym_pallas_bf16_interpret`` cases): the plain applies
+    accumulate in float32 and round y once to bf16, as the reference's
+    ``_dia_kernel``, ``_dia_sym_kernel`` and ``_dia_mrhs_kernel`` do in
+    interpret mode (nrhs 1 through ``spmv_dia_pallas_2d``, nrhs 3 through
+    ``spmm_dia``). The same bf16 inputs on both sides; the float32 sums
+    run in another order, which can move a bf16 rounding by one ulp
+    (2^-8): relative L2 <= 4e-3; both within the reference's 4e-2 of the
+    float64 oracle."""
+    from spmv_tpu.ops.spmv_dia_pallas import dia_to_2d, spmv_dia_pallas_2d
+
+    ref, pt = _dia_pair("lap2d")
+    r = ref_csr_to_dia(ref, dtype=jnp.bfloat16, row_align=4096, symmetric=symmetric)
+    p = csr_to_dia(pt, dtype=torch.bfloat16, row_align=4096, symmetric=symmetric,
+                   device="cpu")
+    assert np.array_equal(p.data.float().numpy(), np.asarray(r.data, np.float32))
+    X = _block(pt.nrows, nrhs, 6, np.float32)
+    Xb = np.asarray(jnp.asarray(X, jnp.bfloat16), np.float32)  # the bf16 inputs
+    if nrhs == 1:
+        x = np.pad(X[:, 0], (0, r.nrows_pad - pt.nrows))
+        want = np.asarray(spmv_dia_pallas_2d(
+            r, dia_to_2d(r, jnp.asarray(x)).astype(jnp.bfloat16), interpret=True),
+            np.float32).reshape(-1, 1)
+        got = spmv_dia_cuda.spmv_dia_2d(
+            p, torch.as_tensor(x).to(torch.bfloat16).view(-1, 128)).reshape(-1, 1)
+    else:
+        want = np.asarray(ref_spmm_dia.spmm_dia(r, jnp.asarray(X, jnp.bfloat16),
+                                                interpret=True), np.float32)
+        got = spmm_dia(p, torch.as_tensor(X).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert _rel(got, want) <= 4e-3
+    oracle = np.stack([pt.matvec(c.astype(np.float64)) for c in Xb.T], axis=1)
+    for y in (got, want):
+        assert _rel(y[: pt.nrows], oracle) <= 4e-2
 
 
 def test_plain_spmm_dia_columns_equal_single_rhs():
