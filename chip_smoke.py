@@ -9,10 +9,14 @@ Run from the repository root with no arguments:
 Phases (any failure exits non-zero; nothing is caught and continued):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernels (csrc/*.cu) with nvcc, print the build seconds;
-  3. each kernel vs its plain torch version on the card, fp32 and fp64,
-     vanilla and symmetric: the 3200^2 Laplacian, and a random banded
+  3. each kernel vs its plain torch version on the card, fp32, fp64 and
+     bf16, vanilla and symmetric: the 3200^2 Laplacian, and a random banded
      matrix with odd offsets on D=3 stacked shards (relative L2 <= 1e-6
-     fp32, <= 1e-13 fp64); fp32 also vs the host f64 CSR oracle (<= 2e-5);
+     fp32, <= 1e-13 fp64, <= 8e-3 bf16, and bf16 on the Laplacian bit for
+     bit); a second apply gives the same bits; fp32 also vs the host f64
+     CSR oracle (<= 2e-5); each dia_sym_spmv apply prints its window plan
+     (tile rows, intervals, x windows, shared bytes, any interval read
+     from global memory);
   4. the main path at 3200^2 (10.24M rows): build_dist_matrix(dia) then
      cg(kmax=20000, rtol=1e-6) — symmetric fp64 (the correctness gate: the
      host-recomputed residual agrees with the reported one to 1e-8),
@@ -23,8 +27,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      as a second witness (same iteration count within 1%);
   5. the halo path: 512^2 on D=4 stacked shards, dia and ell, symmetric and
      vanilla, fp32 and fp64 — one matvec vs the host oracle and a short CG;
-  6. ms per apply of each kernel and its plain version at 3200^2 fp32
-     (CUDA events, chained applies), each as a fraction of a device copy
+  6. ms per apply of each kernel and its plain version at 3200^2, fp32
+     and fp64 (CUDA events, chained applies; the kernel's device time from
+     torch.profiler beside it), each as a fraction of a device copy
      measured in the same run, and CG iterations/s;
   7. the WELL kernel, which reads each stack's warp-sliced row lists, vs
      their plain torch version, fp32 and fp64 (and that plain version vs
@@ -90,9 +95,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
  15. the five block (SpMM) kernels vs their plain versions on the card
      (fp32/fp64 within TOL_KERNEL, double-single both planes bit for bit),
      every column bit-equal to the single-RHS kernel on that column:
-     dia_spmm and dia_sym_spmm at 3200^2 fp32 and fp64 and dia_ds_spmm at
-     3200^2, nrhs 1, 3, 8 and 11 (11 = a chunk of 8 columns and one of 3),
-     and on a random banded D=3 stack; well_spmm and well_ds_spmm, which
+     dia_spmm and dia_sym_spmm at 3200^2 fp32, fp64 and bf16 (<= 8e-3) and
+     dia_ds_spmm at 3200^2, nrhs 1, 3, 8 and 11 (11 = a chunk of 8 columns
+     and one of 3), and on a random banded D=3 stack (the DIA kernels at
+     nrhs 1, 3, 8 and 11), each apply twice with the same bits and each
+     dia_spmm apply with its window plan; well_spmm and well_ds_spmm, which
      read the stacks' row lists as the single-RHS WELL kernels do, on the
      4M bench matrix, a paired and an int32-pos packing of 200k rows and a
      D=3 stack, nrhs 1, 8 and 11;
@@ -136,13 +143,17 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      (e) block_cg_refined_dist(inner_solver="chebyshev") at 512^2 x 8,
      every column < 1e-9, exact dia_spmm / dia_ds_spmm / Lanczos launches;
      (f, with phase 10) device ms of dia_spmv on AMG levels 1 and 2 with
-     cuSPARSE and the bound, the bf16 DIA kernels at 3200^2 and the K=65
-     and K=297 kernels, each first vs its plain version (bf16 <= 8e-3);
+     cuSPARSE and the bound, the bf16 DIA kernels at 3200^2 (bit for bit
+     against their plain versions; the yardstick a bf16 torch CSR @ x, or
+     torch's refusal), and dia_spmv, dia_spmm (nrhs 8) and dia_sym_spmv (the
+     band's lower half) at K=65 and K=297 in fp32, fp64 and bf16, each
+     first vs its plain version and applied twice with the same bits;
  10. (run last) ms per apply of every ported kernel, kernel and plain in
      turns, with the library yardstick (one torch CSR @ x call, cuSPARSE,
      float64 for the DS kernels; the port never calls it) and the bytes
      bound at 3.35 TB/s (the H100 SXM's published HBM rate): the DIA
-     kernels and dia_ds_spmv at 3200^2, spmv_well and well_ds_spmv on the
+     kernels and dia_ds_spmv at 3200^2 (fp32; fp64 beside it for dia_spmv,
+     dia_sym_spmv and dia_spmm), spmv_well and well_ds_spmv on the
      4M bench matrix and on the 800k FEM's lower-triangle stack (with the
      row lists' occupancy and stored bytes beside the WELL stack's); the block
      kernels at nrhs 8 (DIA and DS DIA at 3200^2, WELL and DS WELL on the
@@ -154,16 +165,26 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      by device time from torch.profiler (kernel, plain and cuSPARSE), the
      chained time beside it.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
+
+    python3 chip_smoke.py --parent DIR
+
+runs one phase instead: the DIA tile kernels (dia_sym_spmv, dia_spmm)
+against the one-thread-a-row kernels of the tree before them, a checkout
+in DIR (for example `git archive` of that commit unpacked under build/),
+in turns on the main path's shapes (``phase_parent``).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import functools
+import importlib.util
 import json
 import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -286,12 +307,27 @@ def check_close(name, y_k, y_p, tol):
     return y_k, err, max_abs
 
 
+def plan_fields(data, offsets, symmetric: bool, nrhs: int) -> dict:
+    """The window plan of the tile kernels (dia_sym_spmv, dia_spmm) for an
+    apply on ``data``, as printed beside its checks; {} for the other DIA
+    kernels."""
+    if not symmetric and nrhs == 1:
+        return {}
+    return {"window_plan": spmv_dia_cuda.window_plan(
+        tuple(offsets), symmetric, nrhs, data.dtype).summary()}
+
+
 def compare(name, data, x2, offsets, symmetric, tol):
-    """One kernel launch vs the plain version on the same inputs."""
+    """One kernel launch vs the plain version on the same inputs (bf16
+    compared in float32), and a second launch with the same bits."""
     y_k = spmv_dia_cuda.spmv_dia_stacked(data, x2, offsets, symmetric)
     torch.cuda.synchronize()
+    if not torch.equal(spmv_dia_cuda.spmv_dia_stacked(data, x2, offsets, symmetric), y_k):
+        fail(f"{name}: a second apply gave other bits")
     y_p = spmv_dia_stacked_plain(data, x2, offsets, symmetric)
-    return check_close(name, y_k, y_p, tol)
+    if data.dtype == torch.bfloat16:
+        return (*check_close(name, y_k.float(), y_p.float(), tol), torch.equal(y_k, y_p))
+    return (*check_close(name, y_k, y_p, tol), None)
 
 
 def phase_kernels(a, dev):
@@ -299,23 +335,32 @@ def phase_kernels(a, dev):
     difference over all of its comparisons}."""
     rng = np.random.default_rng(0)
     max_abs = {"dia_spmv": 0.0, "dia_sym_spmv": 0.0}
-    for dt in (np.float32, np.float64):
-        dname = np.dtype(dt).name
+    tols = {**TOL_KERNEL, "bfloat16": BF16_TOL}
+    for dt in (torch.float32, torch.float64, torch.bfloat16):
+        dname = str(dt).split(".")[1]
         for sym in (False, True):
             kname = "dia_sym_spmv" if sym else "dia_spmv"
             d = csr_to_dia(a, row_align=ROW_ALIGN, dtype=dt, symmetric=sym,
                            device=dev)
-            x = np.zeros(d.nrows_pad, dt)
-            x[: a.nrows] = rng.standard_normal(a.nrows)
-            x2 = torch.as_tensor(x, device=dev).view(-1, 128)
-            y, err, mabs = compare(f"{kname} {dname} lap{NX}", d.data.unsqueeze(0),
-                                   x2, d.offsets, sym, TOL_KERNEL[dname])
+            x = torch.zeros(d.nrows_pad, dtype=torch.float64)
+            x[: a.nrows] = torch.as_tensor(rng.standard_normal(a.nrows))
+            x2 = x.to(dt).to(dev).view(-1, 128)
+            y, err, mabs, bits = compare(f"{kname} {dname} lap{NX}", d.data.unsqueeze(0),
+                                         x2, d.offsets, sym, tols[dname])
             fields = dict(kernel=kname, dtype=dname, matrix=f"laplace2d {NX}^2",
-                          rel_l2_vs_plain=err, max_abs_vs_plain=mabs)
+                          rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
+                          second_apply_same_bits=True,
+                          **plan_fields(d.data, d.offsets, sym, 1))
+            if dt == torch.bfloat16:
+                # the Laplacian's values and bf16 x make every product exact
+                # in fp32: kernel and plain round the same sums once
+                if not bits:
+                    fail(f"{kname} bf16 lap{NX}: not bit for bit the plain version")
+                fields["bit_equal_to_plain"] = True
             max_abs[kname] = max(max_abs[kname], mabs)
-            if dt == np.float32:
-                oerr = rel_l2(y.ravel()[: a.nrows],
-                              a.matvec(x[: a.nrows].astype(np.float64)))
+            if dt == torch.float32:
+                xh = x.numpy()[: a.nrows].astype(np.float32).astype(np.float64)
+                oerr = rel_l2(y.ravel()[: a.nrows], a.matvec(xh))
                 if oerr > TOL_ORACLE[dname]:
                     fail(f"{kname} fp32 vs host CSR oracle {oerr:.3e}")
                 fields["rel_l2_vs_host_csr"] = oerr
@@ -326,22 +371,21 @@ def phase_kernels(a, dev):
     # past its shard's rows would pick up the neighbour's nonzero x
     nd, nr = 3, 1000
     full = (-301, -37, -5, -1, 0, 1, 5, 37, 301)
-    for dt in (np.float32, np.float64):
-        dname = np.dtype(dt).name
+    for dt in (torch.float32, torch.float64, torch.bfloat16):
+        dname = str(dt).split(".")[1]
         for sym in (False, True):
             offs = tuple(o for o in full if o <= 0) if sym else full
             kname = "dia_sym_spmv" if sym else "dia_spmv"
-            data = torch.as_tensor(
-                rng.standard_normal((nd, nr, len(offs) * 128)).astype(dt),
-                device=dev)
-            x2 = torch.as_tensor(
-                rng.standard_normal((nd * nr, 128)).astype(dt), device=dev)
-            _, err, mabs = compare(f"{kname} {dname} banded D={nd}", data, x2,
-                                   offs, sym, TOL_KERNEL[dname])
+            data = torch.as_tensor(rng.standard_normal((nd, nr, len(offs) * 128)),
+                                   device=dev).to(dt)
+            x2 = torch.as_tensor(rng.standard_normal((nd * nr, 128)), device=dev).to(dt)
+            _, err, mabs, _ = compare(f"{kname} {dname} banded D={nd}", data, x2,
+                                      offs, sym, tols[dname])
             max_abs[kname] = max(max_abs[kname], mabs)
             show("3.kernel", kernel=kname, dtype=dname,
                  matrix=f"random banded offsets {list(offs)}, D={nd}",
-                 rel_l2_vs_plain=err, max_abs_vs_plain=mabs)
+                 rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
+                 second_apply_same_bits=True, **plan_fields(data, offs, sym, 1))
     return max_abs
 
 
@@ -496,42 +540,50 @@ def phase_halo(dev):
 
 
 def phase_timing(a, dev):
-    """Phase 6: ms per apply at 3200^2 fp32, kernel and plain in turns
-    (plain, kernel, kernel, plain), against a same-run device copy."""
+    """Phase 6: ms per apply at 3200^2, fp32 and fp64, kernel and plain in
+    turns (plain, kernel, kernel, plain; CUDA events over chained applies),
+    against a same-run device copy; beside each, the kernel's device time
+    from torch.profiler (a chained loop of a kernel not much longer than
+    its wrapper's host time times the host). Returns {kernel: (ms, plain
+    ms, bytes)} for fp32 and {"<kernel> float64": ...} for fp64."""
     copy_gbs = measure_copy_bandwidth_gbs(dev)
     out = {}
-    for sym in (False, True):
-        kname = "dia_sym_spmv" if sym else "dia_spmv"
-        d = csr_to_dia(a, row_align=ROW_ALIGN, dtype=np.float32, symmetric=sym,
-                       device=dev)
-        # ||A/9||_inf < 1: chained applies stay bounded (bench.py:363-367)
-        d.data.mul_(1.0 / 9.0)
-        x = np.zeros(d.nrows_pad, np.float32)
-        x[: a.nrows] = gaussian_bump(a.nrows, dtype=np.float32)
-        x2 = torch.as_tensor(x, device=dev).view(-1, 128)
-        data3 = d.data.unsqueeze(0)
+    for dt in (np.float32, np.float64):
+        dname = np.dtype(dt).name
+        for sym in (False, True):
+            kname = "dia_sym_spmv" if sym else "dia_spmv"
+            d = csr_to_dia(a, row_align=ROW_ALIGN, dtype=dt, symmetric=sym, device=dev)
+            # ||A/9||_inf < 1: chained applies stay bounded (bench.py:363-367)
+            d.data.mul_(1.0 / 9.0)
+            x = np.zeros(d.nrows_pad, dt)
+            x[: a.nrows] = gaussian_bump(a.nrows, dtype=dt)
+            x2 = torch.as_tensor(x, device=dev).view(-1, 128)
+            data3 = d.data.unsqueeze(0)
 
-        def kernel(v):
-            return spmv_dia_cuda.spmv_dia_2d(d, v)
+            def kernel(v):
+                return spmv_dia_cuda.spmv_dia_2d(d, v)
 
-        def plain(v):
-            return spmv_dia_stacked_plain(data3, v, d.offsets, sym)
+            def plain(v):
+                return spmv_dia_stacked_plain(data3, v, d.offsets, sym)
 
-        t_p1 = bench_chained(plain, x2, iters=25)
-        t_k1 = bench_chained(kernel, x2, iters=100)
-        t_k2 = bench_chained(kernel, x2, iters=100)
-        t_p2 = bench_chained(plain, x2, iters=25)
-        ms_k = 1e3 * (t_k1 + t_k2) / 2
-        ms_p = 1e3 * (t_p1 + t_p2) / 2
-        nbytes = (d.ndiags + 2) * d.nrows_pad * 4  # stored data + x + y
-        frac_k = nbytes / (ms_k / 1e3) / 1e9 / copy_gbs
-        frac_p = nbytes / (ms_p / 1e3) / 1e9 / copy_gbs
-        out[kname] = (ms_k, ms_p, nbytes)
-        show("6.timing", kernel=kname, dtype="float32", rows=a.nrows,
-             ndiags=d.ndiags, bytes_per_apply=nbytes, ms=ms_k, plain_ms=ms_p,
-             ms_runs=[1e3 * t_k1, 1e3 * t_k2], plain_ms_runs=[1e3 * t_p1, 1e3 * t_p2],
-             copy_gbs=copy_gbs, copy_fraction=frac_k, plain_copy_fraction=frac_p)
-        del d, data3, x2
+            t_p1 = bench_chained(plain, x2, iters=25)
+            t_k1 = bench_chained(kernel, x2, iters=100)
+            t_k2 = bench_chained(kernel, x2, iters=100)
+            t_p2 = bench_chained(plain, x2, iters=25)
+            ms_k = 1e3 * (t_k1 + t_k2) / 2
+            ms_p = 1e3 * (t_p1 + t_p2) / 2
+            nbytes = (d.ndiags + 2) * d.nrows_pad * x.itemsize  # stored data + x + y
+            frac_k = nbytes / (ms_k / 1e3) / 1e9 / copy_gbs
+            frac_p = nbytes / (ms_p / 1e3) / 1e9 / copy_gbs
+            out[kname if dt == np.float32 else f"{kname} {dname}"] = (ms_k, ms_p, nbytes)
+            show("6.timing", kernel=kname, dtype=dname, rows=a.nrows,
+                 ndiags=d.ndiags, bytes_per_apply=nbytes, ms=ms_k, plain_ms=ms_p,
+                 device_ms=device_ms(kernel, x2),
+                 ms_runs=[1e3 * t_k1, 1e3 * t_k2],
+                 plain_ms_runs=[1e3 * t_p1, 1e3 * t_p2], copy_gbs=copy_gbs,
+                 copy_fraction=frac_k, plain_copy_fraction=frac_p,
+                 **plan_fields(d.data, d.offsets, sym, 1))
+            del d, data3, x2
     return out
 
 
@@ -1047,24 +1099,45 @@ def time_in_turns(kernel, plain, x0, iters_k=100, iters_p=25):
             [1e3 * t_k1, 1e3 * t_k2], [1e3 * t_p1, 1e3 * t_p2])
 
 
+MARKER = "spin_kernel"  # torch.cuda._sleep's kernel: one a step, to count steps
+
+
 def device_ms(step, x0, iters: int = 50) -> float:
     """Device ms per call of a chained x -> step(x) loop: the time of every
     CUDA kernel it launches, from torch.profiler's CUPTI records. A chained
     loop timed with events is bound by the host once a call's kernels take
     less than its Python and launch time (36-83 us a WELL wrapper call on
-    the H100 machines)."""
+    the H100 machines). The profiler drops records (on the card, sessions
+    late in a long process kept 38 to 49 of 50 launches, about one in four
+    read half the time, and one kept no marker), so each step also launches
+    a marker kernel: a kernel's time a step is its mean time a recorded
+    launch times its recorded launches a recorded marker, rounded; and the
+    result is the median of three sessions that recorded markers (of at
+    most six)."""
     x = step(x0)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            x = step(x)
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if not us > 0:
+    sessions = []
+    for _ in range(6):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                x = step(x)
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.count > 0]
+        steps = sum(e.count for e in events if MARKER in e.key)
+        if steps:
+            sessions.append(sum(e.self_device_time_total / e.count * round(e.count / steps)
+                                for e in events if MARKER not in e.key) / 1e3)
+        if len(sessions) == 3:
+            break
+    if not sessions:
+        fail("device_ms: the profiler recorded no step in six sessions")
+    ms = sorted(sessions)[len(sessions) // 2]
+    if not ms > 0:
         fail("device_ms: the profiler recorded no device time")
-    return us / iters / 1e3
+    return ms
 
 
 def cold_l2_ms(step, x0, dev) -> float:
@@ -1146,6 +1219,7 @@ def phase_timing_all(a_lap, dia_times, a4, w4, a_fem, A_fem, dev):
     # the DIA kernels: phase 6 scaled the Laplacian by 1/9; both compute
     # the full A x, so one library time serves both
     lib = library_ms(a_lap, dev, 1.0 / 9.0)
+    lib64 = library_ms(a_lap, dev, 1.0 / 9.0, np.float64)
     for kname in ("dia_spmv", "dia_sym_spmv"):
         ms_k, ms_p, nbytes = dia_times[kname]  # (K+2)*npad*itemsize
         out[kname] = dict(ms=ms_k, plain_ms=ms_p, library_ms=lib,
@@ -1153,6 +1227,12 @@ def phase_timing_all(a_lap, dia_times, a4, w4, a_fem, A_fem, dev):
         show("10.timing", kernel=kname, dtype="float32", rows=a_lap.nrows,
              **out[kname], library="torch CSR @ x (cuSPARSE), full matrix",
              copy_gbs=copy_gbs)
+        ms_k, ms_p, nbytes = dia_times[f"{kname} float64"]
+        row = dict(ms=ms_k, plain_ms=ms_p, library_ms=lib64, bound_ms=bound_ms(nbytes),
+                   bytes=nbytes, dtype="float64")
+        out[kname]["other_shapes"] = {f"float64 laplace2d {NX}^2": row}
+        show("10.timing", kernel=kname, rows=a_lap.nrows, **row,
+             library="torch CSR @ x (cuSPARSE), full matrix, float64", copy_gbs=copy_gbs)
 
     def well_timing(tag, rows, well, tg, a_lib, lib_scale, nnz, nrows, ncols):
         values, pos, ptr, w0 = rows
@@ -1644,14 +1724,20 @@ def lanes_block(gen: torch.Generator, rows: int, nrhs: int, dtype, dev) -> torch
 def spmm_check(name, kernel, plain, single, xs, tol) -> tuple[float, float]:
     """One block kernel launch vs its plain version on the same inputs:
     relative L2 <= ``tol`` (computed on the card), or with ``tol`` None
-    (double-single) both planes bit for bit. Then every column vs the
-    single-RHS kernel on that column, bit for bit. Returns (relative L2,
-    max abs difference) vs the plain version."""
+    (double-single) both planes bit for bit; a second launch with the same
+    bits. Then every column vs the single-RHS kernel on that column, bit
+    for bit. Returns (relative L2, max abs difference) vs the plain
+    version."""
     yk = kernel(*xs)
     torch.cuda.synchronize()
     yp = plain(*xs)
     yk = yk if isinstance(yk, tuple) else (yk,)
     yp = yp if isinstance(yp, tuple) else (yp,)
+    again = kernel(*xs)
+    if not all(torch.equal(k, a) for k, a in zip(yk, again if isinstance(again, tuple)
+                                                  else (again,))):
+        fail(f"{name}: a second apply gave other bits")
+    del again
     for k in yk:
         if not bool(torch.isfinite(k).all()):
             fail(f"{name}: non-finite kernel output")
@@ -1686,7 +1772,7 @@ def block_check(max_abs, phase, kname, matrix, dname, nrhs, kernel, plain, singl
                            plain, single, xs, tol)
     max_abs[kname] = max(max_abs[kname], mabs)
     show(f"{phase}.kernel", kernel=kname, matrix=matrix, dtype=dname, nrhs=nrhs,
-         rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
+         rel_l2_vs_plain=err, max_abs_vs_plain=mabs, second_apply_same_bits=True,
          columns_bit_equal_to_single_rhs=True, **extra)
 
 
@@ -1718,17 +1804,19 @@ def phase_block_kernels(a, w4, w4ds, dev):
     def dia_run(data, offs, sym, matrix, nrhs, dt):
         kname = "dia_sym_spmm" if sym else "dia_spmm"
         dname = str(dt).split(".")[1]
-        x = lanes_block(gen, data.shape[0] * data.shape[1], nrhs, dt, dev)
+        x = lanes_block(gen, data.shape[0] * data.shape[1], nrhs,
+                        torch.float32 if dt == torch.bfloat16 else dt, dev).to(dt)
         run(kname, matrix, dname, nrhs,
             lambda v: spmm_dia_cuda.spmm_dia_stacked(data, v, offs, sym),
             lambda v: spmm_dia_stacked_plain(data, v, offs, sym),
             lambda v: spmv_dia_cuda.spmv_dia_stacked(data, v, offs, sym),
-            (x,), TOL_KERNEL[dname])
+            (x,), {**TOL_KERNEL, "bfloat16": BF16_TOL}[dname],
+            **plan_fields(data, offs, sym, nrhs))
 
     d32 = csr_to_dia(a, row_align=ROW_ALIGN, dtype=np.float32, device=dev)
     nr, k0 = d32.data.shape[0], d32.offsets.index(0)
     lower = d32.data.view(nr, d32.ndiags, 128)[:, : k0 + 1].reshape(nr, -1)
-    for dt in (torch.float32, torch.float64):
+    for dt in (torch.float32, torch.float64, torch.bfloat16):
         for sym in (False, True):
             data = (lower if sym else d32.data).to(dt).unsqueeze(0).contiguous()
             offs = d32.offsets[: k0 + 1] if sym else d32.offsets
@@ -1736,12 +1824,12 @@ def phase_block_kernels(a, w4, w4ds, dev):
                 dia_run(data, offs, sym, f"laplace2d {NX}^2", nrhs, dt)
             del data
     full = (-301, -37, -5, -1, 0, 1, 5, 37, 301)
-    for dt in (torch.float32, torch.float64):
+    for dt in (torch.float32, torch.float64, torch.bfloat16):
         for sym in (False, True):
             offs = tuple(o for o in full if o <= 0) if sym else full
             data = torch.as_tensor(rng.standard_normal((3, 1000, len(offs) * 128)),
-                                   dtype=dt, device=dev)
-            for nrhs in (3, 11):
+                                   device=dev).to(dt)
+            for nrhs in (1, 3, 8, 11):
                 dia_run(data, offs, sym, f"random banded offsets {list(offs)}, D=3",
                         nrhs, dt)
 
@@ -1845,7 +1933,8 @@ def path_stack_checks(a, fmt, matrix, gen, dev, max_abs):
                     lambda v: spmm_dia_cuda.spmm_dia_stacked(data, v, offs, sym),
                     lambda v: spmm_dia_stacked_plain(data, v, offs, sym),
                     lambda v: spmv_dia_cuda.spmv_dia_stacked(data, v, offs, sym),
-                    x, TOL_KERNEL["float32"], ndiags=len(offs))
+                    x, TOL_KERNEL["float32"], ndiags=len(offs),
+                    **plan_fields(data, offs, sym, NRHS))
         planes, offs = (ads.local_dia_data, ads.local_dia_data_lo), ads.dia_offsets
         block_check(max_abs, "16", "dia_ds_spmm", tag, "double-single", NRHS,
                     lambda h, lo: spmv_dia_ds_cuda.spmm_dia_ds_stacked(*planes, h, lo, offs),
@@ -2093,6 +2182,23 @@ def phase_block_timing(a_lap, d32, a4, w4, w4ds, single_ms, circuit_ops, dev):
             (len(offs) + 2 * NRHS) * npad * 4, a_lap, 1.0 / 9.0, np.float32,
             single_ms["dia_sym_spmv" if sym else "dia_spmv"], rows=a_lap.nrows,
             ndiags=len(offs))
+    # dia_spmm on float64 storage, another shape of its row
+    data64 = data9.double()
+    x64 = lanes_block(gen, nr, NRHS, torch.float64, dev)
+    ms_k, ms_p, runs_k, runs_p = time_in_turns(
+        lambda v: spmm_dia_cuda.spmm_dia_stacked(data64, v, d32.offsets, False),
+        lambda v: spmm_dia_stacked_plain(data64, v, d32.offsets, False), x64, iters_p=10)
+    lib = library_block_ms(a_lap, dev, 1.0 / 9.0, np.float64, NRHS)
+    nbytes = (d32.ndiags + 2 * NRHS) * npad * 8
+    shape = dict(ms=ms_k, plain_ms=ms_p, library_ms=min(lib["row_major"], lib["column_major"]),
+                 bound_ms=bound_ms(nbytes), bytes=nbytes, nrhs=NRHS, dtype="float64",
+                 device_ms=device_ms(lambda v: spmm_dia_cuda.spmm_dia_stacked(
+                     data64, v, d32.offsets, False), x64))
+    out["dia_spmm"]["other_shapes"] = {f"float64 laplace2d {NX}^2 nrhs {NRHS}": shape}
+    show("10.timing", kernel="dia_spmm", matrix=f"laplace2d {NX}^2", **shape,
+         ms_runs=runs_k, plain_ms_runs=runs_p, library_block_ms=lib,
+         **plan_fields(data64, d32.offsets, False, NRHS))
+    del data64, x64
     # its double-single planes: the exact float64 values / 9 split on the card
     v9 = d32.data.double() / 9.0
     planes = (v9.float().unsqueeze(0), (v9 - v9.float().double()).float().unsqueeze(0))
@@ -2218,12 +2324,13 @@ def amg_level_checks(phase, h, tag, gen, dev, max_abs) -> None:
         kname = "dia_sym_spmv" if A.symmetric else "dia_spmv"
         x2 = torch.randn((A.n_devices * A.row_lane_rows, 128), generator=gen,
                          dtype=torch.float32, device=dev)
-        _, err, mabs = compare(f"{phase} {tag} level {i}", A.local_dia_data, x2,
+        _, err, mabs, _ = compare(f"{phase} {tag} level {i}", A.local_dia_data, x2,
                                A.dia_offsets, A.symmetric, TOL_KERNEL["float32"])
         max_abs[kname] = max(max_abs[kname], mabs)
         show(f"{phase}.kernel", kernel=kname, matrix=f"{tag}, AMG level {i}",
              rows=A.nrows_global, shards=A.n_devices, ndiags=len(A.dia_offsets),
-             rel_l2_vs_plain=err, max_abs_vs_plain=mabs)
+             rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
+             **plan_fields(A.local_dia_data, A.dia_offsets, A.symmetric, 1))
 
 
 def amg_pcg(A, b, h, kmax=200, rtol=1e-6):
@@ -2549,47 +2656,205 @@ def phase_amg_timing(head, dev, max_abs) -> dict:
             torch.cuda.synchronize()
             y_p = plain(xs)
             _, err, mabs = check_close(f"18f {kname} bf16", y_k.float(), y_p.float(), BF16_TOL)
+            # the Laplacian's values are exact in bf16 and every product of
+            # two bf16 values is exact in fp32: kernel and plain round the
+            # same fp32 sums once
+            if not torch.equal(y_k, y_p):
+                fail(f"18f {kname} bf16 laplace2d {NX}^2: not bit for bit the plain version")
             max_abs[kname] = max(max_abs[kname], mabs)
             nrhs = NRHS if block else 1
             nbytes = (d.ndiags + 2 * nrhs) * d.nrows_pad * 2
+            lib_ms, lib_text = library_bf16(a, dev, 1.0 / 9.0, nrhs)
             row = dict(ms=device_ms(kernel, xs), plain_ms=device_ms(plain, xs, iters=5),
-                       library_ms=None, bound_ms=bound_ms(nbytes), bytes=nbytes,
+                       library_ms=lib_ms, bound_ms=bound_ms(nbytes), bytes=nbytes,
                        timing="device", dtype="bfloat16", nrhs=nrhs,
-                       rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
-                       library="none: cuSPARSE has no bf16 CSR SpMV through torch")
+                       rel_l2_vs_plain=err, max_abs_vs_plain=mabs, bit_equal_to_plain=True,
+                       library=lib_text, **plan_fields(d.data, d.offsets, sym, nrhs))
             out[kname][f"bf16 laplace2d {NX}^2" + (f" nrhs {NRHS}" if block else "")] = row
             show("18f.timing", kernel=kname, matrix=f"laplace2d {NX}^2", **row)
         del d, data
-    # K > 64: random banded, 1M rows, fp32
+    # K > 64: random banded, 1M rows, each storage type; the symmetric
+    # kernel on each band's lower half
     nr = 8192
+    tols = {**TOL_KERNEL, "bfloat16": BF16_TOL}
     for k in (65, 297):
-        offs = tuple(range(-(k // 2), k - k // 2))
-        data = (torch.randn((1, nr, k * 128), generator=gen, device=dev) / k)
-        x2 = torch.randn((nr, 128), generator=gen, device=dev)
-        xs = torch.randn((nr, NRHS * 128), generator=gen, device=dev)
-        for kname, wrapper, plain_fn, v in (
-                ("dia_spmv", spmv_dia_cuda.spmv_dia_stacked, spmv_dia_stacked_plain, x2),
-                ("dia_spmm", spmm_dia_cuda.spmm_dia_stacked, spmm_dia_stacked_plain, xs)):
-            kernel = functools.partial(wrapper, data, offsets=offs, symmetric=False)
-            plain = functools.partial(plain_fn, data, offsets=offs, symmetric=False)
-            y_k = kernel(v)
-            torch.cuda.synchronize()
-            _, err, mabs = check_close(f"18f {kname} K={k}", y_k, plain(v), TOL_KERNEL["float32"])
-            max_abs[kname] = max(max_abs[kname], mabs)
-            nrhs = v.shape[1] // 128
-            nbytes = (k + 2 * nrhs) * nr * 128 * 4
-            row = dict(ms=device_ms(kernel, v), plain_ms=device_ms(plain, v, iters=3),
-                       library_ms=None, bound_ms=bound_ms(nbytes), bytes=nbytes,
-                       timing="device", rows=nr * 128, ndiags=k, nrhs=nrhs,
-                       rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
-                       library="none: random dense band, timed for the kernel alone")
-            out[kname][f"random band K={k}, {nr * 128} rows" + (f" nrhs {NRHS}" if nrhs > 1 else "")] = row
-            show("18f.timing", kernel=kname, matrix=f"random band K={k}", **row)
-        del data
+        full = tuple(range(-(k // 2), k - k // 2))
+        for dt in (torch.float32, torch.float64, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            x2 = torch.randn((nr, 128), generator=gen, device=dev).to(dt)
+            xs = torch.randn((nr, NRHS * 128), generator=gen, device=dev).to(dt)
+            for kname, sym, v in (("dia_spmv", False, x2), ("dia_spmm", False, xs),
+                                  ("dia_sym_spmv", True, x2)):
+                offs = tuple(o for o in full if o <= 0) if sym else full
+                data = (torch.randn((1, nr, len(offs) * 128), generator=gen, device=dev)
+                        / k).to(dt)
+                wrapper, plain_fn = ((spmm_dia_cuda.spmm_dia_stacked, spmm_dia_stacked_plain)
+                                     if kname == "dia_spmm" else
+                                     (spmv_dia_cuda.spmv_dia_stacked, spmv_dia_stacked_plain))
+                kernel = functools.partial(wrapper, data, offsets=offs, symmetric=sym)
+                plain = functools.partial(plain_fn, data, offsets=offs, symmetric=sym)
+                y_k = kernel(v)
+                torch.cuda.synchronize()
+                if not torch.equal(kernel(v), y_k):
+                    fail(f"18f {kname} K={k} {dname}: a second apply gave other bits")
+                _, err, mabs = check_close(f"18f {kname} K={k} {dname}", y_k.float(),
+                                           plain(v).float(), tols[dname])
+                max_abs[kname] = max(max_abs[kname], mabs)
+                nrhs = v.shape[1] // 128
+                nbytes = (len(offs) + 2 * nrhs) * nr * 128 * data.element_size()
+                row = dict(ms=device_ms(kernel, v), plain_ms=device_ms(plain, v, iters=3),
+                           library_ms=None, bound_ms=bound_ms(nbytes), bytes=nbytes,
+                           timing="device", rows=nr * 128, ndiags=len(offs), nrhs=nrhs,
+                           dtype=dname, rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
+                           library="none: random dense band, timed for the kernel alone",
+                           **plan_fields(data, offs, sym, nrhs))
+                band = "lower half of random band" if sym else "random band"
+                out[kname][f"{dname} {band} K={k}, {nr * 128} rows"
+                           + (f" nrhs {NRHS}" if nrhs > 1 else "")] = row
+                show("18f.timing", kernel=kname, matrix=f"{band} K={k}", **row)
+                del data
     return out
 
 
+def library_bf16(a: CSRHost, dev, scale: float, nrhs: int) -> tuple:
+    """(device ms, description) of one torch CSR @ x (nrhs 1) or @ X on
+    bfloat16 values, or (None, torch's own error text) where torch refuses
+    it on the card."""
+    m = csr_tensor(a, dev, scale)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        mb = torch.sparse_csr_tensor(m.crow_indices(), m.col_indices(),
+                                     m.values().to(torch.bfloat16), size=m.shape)
+    shape = (a.ncols,) if nrhs == 1 else (a.ncols, nrhs)
+    x0 = torch.randn(shape, device=dev).to(torch.bfloat16)
+    what = f"torch CSR @ {'x' if nrhs == 1 else 'X'}, bfloat16 values"
+    try:
+        mb @ x0
+        torch.cuda.synchronize()
+    except RuntimeError as exc:  # torch's refusal is the finding
+        return None, f"{what}: {str(exc).splitlines()[0]}"
+    ms = device_ms(lambda v: mb @ v, x0)
+    del m, mb
+    return ms, f"{what} (cuSPARSE), device time"
+
+
+PARENT_PAIRS = 10  # --parent: chained-event pairs a case, in turns
+
+
+def parent_cases() -> list:
+    """(kernel, matrix, offsets, symmetric, nrhs, rows) that ``phase_parent``
+    times: the shapes the main path runs the two tile kernels at (3200^2 in
+    phases 4, 6 and 18; 1024^2 in 13, 16 and 18b-c; 512^2 in 16 and 18e)
+    and phase 18f's wide bands on 1M rows."""
+    def lap(n):
+        return (-n, -1, 0, 1, n)
+
+    def band(k):
+        return tuple(range(-(k // 2), k - k // 2))
+
+    def lower(offs):
+        return tuple(o for o in offs if o <= 0)
+
+    out = []
+    for n in (NX, AMG_SYM_NX):
+        out.append(("dia_sym_spmv", f"laplace2d {n}^2", lower(lap(n)), True, 1, n * n))
+    for k in (65, 297):
+        out.append(("dia_sym_spmv", f"lower half of random band K={k}", lower(band(k)),
+                    True, 1, 8192 * 128))
+    out.append(("dia_spmm", f"laplace2d {NX}^2", lap(NX), False, 1, NX * NX))
+    for n in (NX, REFINE_NX, BLOCK_NX):
+        out.append(("dia_spmm", f"laplace2d {n}^2", lap(n), False, NRHS, n * n))
+    for k in (65, 297):
+        out.append(("dia_spmm", f"random band K={k}", band(k), False, NRHS, 8192 * 128))
+    return out
+
+
+def phase_parent(parent: Path, dev, cases=None, pairs: int = PARENT_PAIRS) -> list:
+    """``--parent DIR``: this tree's dia_sym_spmv and dia_spmm against the
+    parent's (DIR's library, built from DIR's csrc/ by DIR's _build.py and
+    called with its own argument list: data, x, y, npad, K, offsets on the
+    card[, nrhs], shards, stream), in float32, float64 and bfloat16, on
+    ``cases`` (default ``parent_cases()``). Both are called straight through
+    their libraries, so the two chains carry the same host work. Random
+    data in [-1, 1) / (2K) (||A||_inf < 1: chained applies stay bounded) and
+    x from a seed. Each case: the same bits as the parent's apply (gated
+    once every case is timed: the sums are the same operations in the same
+    order); ``pairs`` pairs
+    of chained CUDA events over 100 applies, parent and new alternating
+    (parent first, then new first); device time (``device_ms``) in turns
+    parent, new, new, parent; the bytes bound. Returns the rows."""
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", Path(parent) / "spmv_torch" / "_build.py")
+    pb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pb)
+    plib, lib = pb.load_library(), _build.load_library()
+    gen = torch.Generator(device=dev).manual_seed(808)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows_out = []
+    for kname, matrix, offs, sym, nrhs, nrows in cases or parent_cases():
+        npad = -(-nrows // ROW_ALIGN) * ROW_ALIGN
+        k = len(offs)
+        for dt in (torch.float32, torch.float64, torch.bfloat16):
+            tag = spmv_dia_cuda.DTYPES[dt]
+            data = ((torch.rand((npad // 128, k * 128), generator=gen, device=dev) * 2 - 1)
+                    / (2 * k)).to(dt)
+            x0 = torch.randn((npad // 128, nrhs * 128), generator=gen, device=dev).to(dt)
+            offs_dev = spmv_dia_cuda.device_offsets(offs, dev)
+            plan, table = spmv_dia_cuda.device_window_plan(offs, sym, nrhs, dt, dev)
+            pfn, nfn = getattr(plib, f"{kname}_{tag}"), getattr(lib, f"{kname}_{tag}")
+            block = () if sym else (nrhs,)
+
+            def old(v, pfn=pfn, data=data, offs_dev=offs_dev, block=block):
+                y = torch.empty_like(v)
+                rc = pfn(data.data_ptr(), v.data_ptr(), y.data_ptr(), npad, k,
+                         offs_dev.data_ptr(), *block, 1, stream)
+                if rc != 0:
+                    fail(f"parent {kname}_{tag} failed: CUDA error {rc}")
+                return y
+
+            def new(v, nfn=nfn, data=data, plan=plan, table=table, block=block):
+                y = torch.empty_like(v)
+                rc = nfn(data.data_ptr(), v.data_ptr(), y.data_ptr(), npad, k,
+                         table.data_ptr(), plan.rows, plan.smem_bytes, *block, 1, stream)
+                if rc != 0:
+                    fail(f"{kname}_{tag} failed: CUDA error {rc}")
+                return y
+
+            same = bool(torch.equal(old(x0), new(x0)))
+            chained = {"parent": [], "new": []}
+            for i in range(pairs):
+                for who in (("parent", "new") if i % 2 == 0 else ("new", "parent")):
+                    f = old if who == "parent" else new
+                    chained[who].append(1e3 * bench_chained(f, x0, iters=100))
+            dev_runs = [device_ms(f, x0) for f in (old, new, new, old)]
+            nbytes = (k + 2 * nrhs) * npad * data.element_size()
+            row = dict(kernel=kname, matrix=matrix, nrhs=nrhs, dtype=str(dt).split(".")[1],
+                       parent_ms=float(np.mean(chained["parent"])),
+                       new_ms=float(np.mean(chained["new"])),
+                       new_faster_in_pairs=sum(n < p for p, n in zip(chained["parent"],
+                                                                      chained["new"])),
+                       pairs=pairs,
+                       parent_device_ms=(dev_runs[0] + dev_runs[3]) / 2,
+                       new_device_ms=(dev_runs[1] + dev_runs[2]) / 2,
+                       bound_ms=bound_ms(nbytes), bytes=nbytes,
+                       parent_runs_ms=chained["parent"], new_runs_ms=chained["new"],
+                       device_runs_ms=dev_runs, same_bits_as_parent=same,
+                       window_plan=plan.summary())
+            show("p.parent", **row)
+            rows_out.append(row)
+            del data, x0
+    differ = [f"{r['kernel']} {r['matrix']} nrhs {r['nrhs']} {r['dtype']}"
+              for r in rows_out if not r["same_bits_as_parent"]]
+    if differ:
+        fail(f"--parent: not the parent's bits on {differ}")
+    return rows_out
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None, metavar="DIR",
+                    help="only time the DIA tile kernels against DIR's (phase_parent)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
@@ -2611,6 +2876,9 @@ def main() -> int:
     lib_path = _build.build()
     _build.load_library()
     show("2.build", seconds=time.perf_counter() - t0, library=lib_path.name)
+    if args.parent is not None:
+        phase_parent(args.parent, dev)
+        return 0
 
     t0 = time.perf_counter()
     a = create_laplace_2d(NX, NX)

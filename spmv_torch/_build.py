@@ -27,6 +27,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points -> argument types; each returns a CUDA error code (int)
 _DIA_ARGS = [_P, _P, _P, _L, _I, _P, _I, _P]  # data, x, y, npad, ndiags,
 #                            offsets (on the card), nshards, stream
+_DIA_WIN_ARGS = [_P, _P, _P, _L, _I, _P, _I, _I, _I, _P]  # data, x, y, npad,
+#     ndiags, window plan (on the card), tile rows, shared bytes, nshards,
+#     stream (the tile kernel of csrc/dia_window.cuh)
 _WELL_ARGS = [_P] * 6 + [_L, _L, _I, _L, _I, _P]  # values, pos, slice_ptr,
 #                 w0, x, y, nslices, entries, tile_groups, col_pad, nshards,
 #                 stream (the row lists)
@@ -38,18 +41,19 @@ _WELL_DS_ARGS = [_P] * 9 + [_L, _L, _I, _L, _I, _P]  # values hi, lo, pos,
 # the block (SpMM) entries: the single-RHS arguments plus nrhs before
 # nshards
 _DIA_SPMM_ARGS = _DIA_ARGS[:6] + [_I] + _DIA_ARGS[6:]
+_DIA_WIN_SPMM_ARGS = _DIA_WIN_ARGS[:8] + [_I] + _DIA_WIN_ARGS[8:]
 _WELL_SPMM_ARGS = _WELL_ARGS[:10] + [_I] + _WELL_ARGS[10:]
 _DIA_DS_SPMM_ARGS = _DIA_DS_ARGS[:9] + [_I] + _DIA_DS_ARGS[9:]
 _WELL_DS_SPMM_ARGS = _WELL_DS_ARGS[:13] + [_I] + _WELL_DS_ARGS[13:]
 KERNEL_ENTRIES = {
-    **{f"{n}_{t}": _DIA_ARGS for n in ("dia_spmv", "dia_sym_spmv")
-       for t in ("f32", "f64", "bf16")},
+    **{f"dia_spmv_{t}": _DIA_ARGS for t in ("f32", "f64", "bf16")},
+    **{f"dia_sym_spmv_{t}": _DIA_WIN_ARGS for t in ("f32", "f64", "bf16")},
     **{f"well_spmv_{t}_{p}": _WELL_ARGS for t in ("f32", "f64")
        for p in ("i16", "i32")},
     "dia_ds_spmv": _DIA_DS_ARGS,
     **{f"well_ds_spmv_{p}": _WELL_DS_ARGS for p in ("i16", "i32")},
-    **{f"{n}_{t}": _DIA_SPMM_ARGS for n in ("dia_spmm", "dia_sym_spmm")
-       for t in ("f32", "f64", "bf16")},
+    **{f"dia_spmm_{t}": _DIA_WIN_SPMM_ARGS for t in ("f32", "f64", "bf16")},
+    **{f"dia_sym_spmm_{t}": _DIA_SPMM_ARGS for t in ("f32", "f64", "bf16")},
     **{f"well_spmm_{t}_{p}": _WELL_SPMM_ARGS for t in ("f32", "f64")
        for p in ("i16", "i32")},
     "dia_ds_spmm": _DIA_DS_SPMM_ARGS,

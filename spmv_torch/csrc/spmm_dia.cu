@@ -19,26 +19,34 @@
 // column. x~[s, j] = x[s, j] for 0 <= j < npad and 0 otherwise: a shard
 // never reads its neighbour's entries.
 //
-// Design: one thread per output row, blockIdx.y = shard, blockIdx.z = a
-// chunk of at most NR = 8 columns. The thread reads each stored diagonal
+// Bound: bytes. One apply must move K*npad*itemsize of matrix (stored
+// diagonals: K_sym for symmetric storage) plus X and Y once, 2*nrhs*npad*
+// itemsize, per shard; with chunks of 8 columns the matrix moves
+// ceil(nrhs/8) times. Arithmetic is 2 flops per stored element and column.
+// bf16 storage accumulates in fp32 and rounds y once, at the store.
+//
+// dia_spmm is the tile kernel of dia_window.cuh: a CTA takes R rows and a
+// chunk of at most 8 columns, stages each x window once for all its
+// columns and its rows of each diagonal in shared memory with bulk copies
+// of the Tensor Memory Accelerator, and sums from there; on wide bands
+// (K = 65 and 297 on AMG's 1-D interval levels) the diagonals go in stages
+// whose copies overlap the previous stage's sums. Its one-thread-a-row
+// predecessor read every shifted X element once per diagonal through L1/L2,
+// 8 columns wide, behind a per-column mask that kept the loads from
+// issuing together.
+//
+// dia_sym_spmm: one thread per output row, blockIdx.y = shard, blockIdx.z =
+// a chunk of at most NR = 8 columns. The thread reads each stored diagonal
 // element once per chunk and applies it to each of its columns, with NR
-// accumulators in registers (NR is a template parameter, min(nrhs, 8)). A
-// block of more than 8 columns re-reads the matrix once per chunk.
+// accumulators in registers (NR is a template parameter, min(nrhs, 8)). The
+// offsets come from device memory (no cap on K). The shifted x reads and
+// the transpose term's shifted data reads touch lines that neighbouring
+// warps read too and are served from L1/L2.
+//
 // Column c takes exactly the operations dia_spmv / dia_sym_spmv take on it,
 // in the same order (acc += d * x, k ascending; the symmetric transpose term
 // right after its forward term), so nvcc contracts them the same way and
 // each column equals the single-RHS kernel's result bit for bit.
-//
-// Bound: bytes. One apply must move K*npad*itemsize of matrix (stored
-// diagonals: K_sym for symmetric storage) plus X and Y once, 2*nrhs*npad*
-// itemsize, per shard; with chunks the matrix moves ceil(nrhs/8) times.
-// Arithmetic is 2 flops per stored element and column. bf16 storage
-// accumulates in fp32 and rounds y once, at the store, as dia_spmv does.
-// The offsets come from device memory (no cap on K), as in spmv_dia.cu.
-// The shifted x reads
-// (and the symmetric term's shifted data reads) touch lines that
-// neighbouring warps read too and are served from L1/L2. Shared-memory x
-// windows, TMA staging and register blocking over rows are later work.
 //
 // Plain C interface, bound from Python with ctypes
 // (spmv_torch/ops/spmm_dia_cuda.py). Each entry launches on the given
@@ -47,63 +55,16 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dia_window.cuh"
+
 #define SPMM_MAX_NR 8
-
-// storage type -> accumulation type, and the conversions between them
-template <typename T> struct SpmmAcc { typedef T type; };
-template <> struct SpmmAcc<__nv_bfloat16> { typedef float type; };
-__device__ __forceinline__ float spmm_load(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float spmm_load(float v) { return v; }
-__device__ __forceinline__ double spmm_load(double v) { return v; }
-template <typename T> __device__ __forceinline__ T spmm_store(typename SpmmAcc<T>::type v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 spmm_store<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T, int NR>
-__global__ void dia_spmm_kernel(const T* __restrict__ data,
-                                const T* __restrict__ x, T* __restrict__ y,
-                                long long npad, int ndiags, int nrhs,
-                                const long long* __restrict__ offs) {
-  typedef typename SpmmAcc<T>::type Acc;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= npad) return;
-  const long long shard = blockIdx.y;
-  const int c0 = blockIdx.z * NR;
-  const int nc = min(NR, nrhs - c0);
-  const long long row_stride = (long long)ndiags * 128;
-  const long long lanes = (long long)nrhs * 128;
-  const T* xs = x + shard * npad * nrhs + c0 * 128;
-  const T* drow = data + shard * npad * ndiags + (i >> 7) * row_stride + (i & 127);
-  Acc acc[NR];
-#pragma unroll
-  for (int c = 0; c < NR; ++c) acc[c] = Acc(0);
-  for (int k = 0; k < ndiags; ++k) {
-    const long long j = i + __ldg(offs + k);
-    const bool in = j >= 0 && j < npad;
-    const long long jo = in ? (j >> 7) * lanes + (j & 127) : 0;
-    const Acc d = spmm_load(drow[(long long)k * 128]);
-#pragma unroll
-    for (int c = 0; c < NR; ++c) {
-      if (c < nc) {
-        const Acc xv = in ? spmm_load(xs[jo + c * 128]) : Acc(0);
-        acc[c] += d * xv;
-      }
-    }
-  }
-  T* ys = y + shard * npad * nrhs + (i >> 7) * lanes + c0 * 128 + (i & 127);
-#pragma unroll
-  for (int c = 0; c < NR; ++c) {
-    if (c < nc) ys[c * 128] = spmm_store<T>(acc[c]);
-  }
-}
 
 template <typename T, int NR>
 __global__ void dia_sym_spmm_kernel(const T* __restrict__ data,
                                     const T* __restrict__ x, T* __restrict__ y,
                                     long long npad, int ndiags, int nrhs,
                                     const long long* __restrict__ offs) {
-  typedef typename SpmmAcc<T>::type Acc;
+  typedef typename dia_window::Acc<T>::type Acc;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= npad) return;
   const long long shard = blockIdx.y;
@@ -122,11 +83,11 @@ __global__ void dia_sym_spmm_kernel(const T* __restrict__ data,
     const long long j = i + o;
     const bool in = j >= 0;
     const long long jo = in ? (j >> 7) * lanes + (j & 127) : 0;
-    const Acc d = spmm_load(drow[(long long)k * 128]);
+    const Acc d = dia_window::load(drow[(long long)k * 128]);
 #pragma unroll
     for (int c = 0; c < NR; ++c) {
       if (c < nc) {
-        const Acc xv = in ? spmm_load(xs[jo + c * 128]) : Acc(0);
+        const Acc xv = in ? dia_window::load(xs[jo + c * 128]) : Acc(0);
         acc[c] += d * xv;
       }
     }
@@ -134,11 +95,11 @@ __global__ void dia_sym_spmm_kernel(const T* __restrict__ data,
       // transpose of the stored entry A[t, t+o] at t = i-o lands on row i
       const long long t = i - o;
       if (t < npad) {
-        const Acc dt = spmm_load(ds[(t >> 7) * row_stride + (long long)k * 128 + (t & 127)]);
+        const Acc dt = dia_window::load(ds[(t >> 7) * row_stride + (long long)k * 128 + (t & 127)]);
         const long long to = (t >> 7) * lanes + (t & 127);
 #pragma unroll
         for (int c = 0; c < NR; ++c) {
-          if (c < nc) acc[c] += dt * spmm_load(xs[to + c * 128]);
+          if (c < nc) acc[c] += dt * dia_window::load(xs[to + c * 128]);
         }
       }
     }
@@ -146,29 +107,23 @@ __global__ void dia_sym_spmm_kernel(const T* __restrict__ data,
   T* ys = y + shard * npad * nrhs + (i >> 7) * lanes + c0 * 128 + (i & 127);
 #pragma unroll
   for (int c = 0; c < NR; ++c) {
-    if (c < nc) ys[c * 128] = spmm_store<T>(acc[c]);
+    if (c < nc) ys[c * 128] = dia_window::store<T>(acc[c]);
   }
 }
 
-template <typename T, bool kSymmetric, int NR>
+template <typename T, int NR>
 static void launch_nr(dim3 grid, int threads, cudaStream_t s, const void* data,
                       const void* x, void* y, long long npad, int ndiags,
                       int nrhs, const long long* offs) {
-  if (kSymmetric) {
-    dia_sym_spmm_kernel<T, NR><<<grid, threads, 0, s>>>(
-        static_cast<const T*>(data), static_cast<const T*>(x),
-        static_cast<T*>(y), npad, ndiags, nrhs, offs);
-  } else {
-    dia_spmm_kernel<T, NR><<<grid, threads, 0, s>>>(
-        static_cast<const T*>(data), static_cast<const T*>(x),
-        static_cast<T*>(y), npad, ndiags, nrhs, offs);
-  }
+  dia_sym_spmm_kernel<T, NR><<<grid, threads, 0, s>>>(
+      static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y),
+      npad, ndiags, nrhs, offs);
 }
 
-template <typename T, bool kSymmetric>
-static int launch(const void* data, const void* x, void* y, long long npad,
-                  int ndiags, const long long* offsets, int nrhs, int nshards,
-                  void* stream) {
+template <typename T>
+static int launch_sym(const void* data, const void* x, void* y, long long npad,
+                      int ndiags, const long long* offsets, int nrhs, int nshards,
+                      void* stream) {
   if (ndiags < 1 || npad < 1 || nrhs < 1 || nshards < 1 || nshards > 65535) {
     return (int)cudaErrorInvalidValue;
   }
@@ -178,32 +133,64 @@ static int launch(const void* data, const void* x, void* y, long long npad,
                   (unsigned)((nrhs + nr - 1) / nr));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nr) {
-    case 1: launch_nr<T, kSymmetric, 1>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
-    case 2: launch_nr<T, kSymmetric, 2>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
-    case 3: launch_nr<T, kSymmetric, 3>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
-    case 4: launch_nr<T, kSymmetric, 4>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
-    case 5: launch_nr<T, kSymmetric, 5>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
-    case 6: launch_nr<T, kSymmetric, 6>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
-    case 7: launch_nr<T, kSymmetric, 7>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
-    default: launch_nr<T, kSymmetric, 8>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    case 1: launch_nr<T, 1>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    case 2: launch_nr<T, 2>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    case 3: launch_nr<T, 3>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    case 4: launch_nr<T, 4>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    case 5: launch_nr<T, 5>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    case 6: launch_nr<T, 6>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    case 7: launch_nr<T, 7>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
+    default: launch_nr<T, 8>(grid, threads, s, data, x, y, npad, ndiags, nrhs, offsets); break;
   }
   return (int)cudaGetLastError();
 }
 
-#define DIA_SPMM_ENTRY(NAME, T, SYM)                                          \
-  int NAME(const void* data, const void* x, void* y, long long npad,         \
-           int ndiags, const long long* offsets, int nrhs, int nshards,      \
-           void* stream) {                                                    \
-    return launch<T, SYM>(data, x, y, npad, ndiags, offsets, nrhs, nshards,  \
-                          stream);                                            \
+// dia_spmm: the tile kernel with NR = the smallest of 1, 2, 4, 8 that holds
+// min(nrhs, 8) columns (the plan stages exactly min(nrhs, 8))
+template <typename T>
+static int launch_tile(const void* data, const void* x, void* y, long long npad,
+                       int ndiags, const int* plan, int rows, int smem_bytes,
+                       int nrhs, int nshards, void* stream) {
+  if (ndiags < 1 || npad < 1 || nrhs < 1 || nshards < 1 || nshards > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nrhs == 1) {
+    return dia_window::launch<T, 1, false>(data, x, y, npad, nrhs, nshards, plan, rows, smem_bytes, s);
+  }
+  if (nrhs == 2) {
+    return dia_window::launch<T, 2, false>(data, x, y, npad, nrhs, nshards, plan, rows, smem_bytes, s);
+  }
+  if (nrhs <= 4) {
+    return dia_window::launch<T, 4, false>(data, x, y, npad, nrhs, nshards, plan, rows, smem_bytes, s);
+  }
+  return dia_window::launch<T, 8, false>(data, x, y, npad, nrhs, nshards, plan, rows, smem_bytes, s);
+}
+
+#define DIA_SPMM_ENTRY(NAME, T)                                                \
+  int NAME(const void* data, const void* x, void* y, long long npad,           \
+           int ndiags, const int* plan, int rows, int smem_bytes, int nrhs,    \
+           int nshards, void* stream) {                                        \
+    return launch_tile<T>(data, x, y, npad, ndiags, plan, rows, smem_bytes,    \
+                          nrhs, nshards, stream);                              \
   }
 
-// `offsets`: a device pointer to ndiags int64 offsets
+#define DIA_SYM_SPMM_ENTRY(NAME, T)                                            \
+  int NAME(const void* data, const void* x, void* y, long long npad,           \
+           int ndiags, const long long* offsets, int nrhs, int nshards,        \
+           void* stream) {                                                     \
+    return launch_sym<T>(data, x, y, npad, ndiags, offsets, nrhs, nshards,     \
+                         stream);                                              \
+  }
+
+// dia_spmm's `plan`: the device int32 words of its window plan, with its
+// tile rows and shared-memory bytes; dia_sym_spmm's `offsets`: a device
+// pointer to ndiags int64 offsets
 extern "C" {
-DIA_SPMM_ENTRY(dia_spmm_f32, float, false)
-DIA_SPMM_ENTRY(dia_spmm_f64, double, false)
-DIA_SPMM_ENTRY(dia_spmm_bf16, __nv_bfloat16, false)
-DIA_SPMM_ENTRY(dia_sym_spmm_f32, float, true)
-DIA_SPMM_ENTRY(dia_sym_spmm_f64, double, true)
-DIA_SPMM_ENTRY(dia_sym_spmm_bf16, __nv_bfloat16, true)
+DIA_SPMM_ENTRY(dia_spmm_f32, float)
+DIA_SPMM_ENTRY(dia_spmm_f64, double)
+DIA_SPMM_ENTRY(dia_spmm_bf16, __nv_bfloat16)
+DIA_SYM_SPMM_ENTRY(dia_sym_spmm_f32, float)
+DIA_SYM_SPMM_ENTRY(dia_sym_spmm_f64, double)
+DIA_SYM_SPMM_ENTRY(dia_sym_spmm_bf16, __nv_bfloat16)
 }  // extern "C"

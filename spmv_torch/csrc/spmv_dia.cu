@@ -10,28 +10,30 @@
 // a shard never reads its neighbour's entries (the remote ELL term of the
 // distributed operator already adds those).
 //
-// Bound: bytes. One apply moves (K+2)*npad*itemsize per shard for vanilla
-// storage, and (K_sym+2)*npad*itemsize plus cache-served shifted reads for
-// symmetric storage; arithmetic is 2 flops per stored element.
-// Design: one thread per output row, blockIdx.y = shard, so D shards take
+// Bound: bytes. One apply moves (K+2)*npad*itemsize per shard (K_sym
+// stored diagonals in symmetric storage); arithmetic is 2 flops per stored
+// element (4 for a symmetric off-diagonal).
+//
+// dia_spmv: one thread per output row, blockIdx.y = shard, so D shards take
 // one launch. The warp's 32 neighbouring rows read 32 contiguous elements of
-// each diagonal: one coalesced pass over `data`. The shifted x reads (and the
-// transpose term's shifted data reads) touch lines that neighbouring warps
-// read too, and are served from L1/L2. Accumulation is in fp32 for fp32 and
-// bf16 storage (as the TPU kernel does; bf16 y is rounded once, at the
-// store) and in fp64 for fp64; index math is 64-bit. wgmma/TMA and tuning
-// are later work.
+// each diagonal: one coalesced pass over `data`; the shifted x reads touch
+// lines that neighbouring warps read too, and are served from L1/L2. The
+// offsets are read from device memory (a K-long int64 array the wrapper
+// keeps on the card), so K has no cap: the Galerkin coarse levels of AMG's
+// 1-D interval aggregation store hundreds of diagonals. Accumulation is in
+// fp32 for fp32 and bf16 storage (bf16 y is rounded once, at the store)
+// and in fp64 for fp64; index math is 64-bit.
 //
-// The offsets are read from device memory (a K-long int64 array the
-// wrapper keeps on the card), so K has no cap: the Galerkin coarse levels
-// of AMG's 1-D interval aggregation store hundreds of diagonals. Every
-// thread of the grid reads the same offset at step k, a broadcast served
-// from L1.
-//
-// The symmetric kernel stores offsets <= 0 only and computes the transpose
-// term y[i] += d_o[i-o] * x~[i-o] as a gather: no atomics, no carry, no
-// delayed write (the TPU's one-tile carry exists only because its grid runs
-// in order).
+// dia_sym_spmv is the tile kernel of dia_window.cuh: a CTA stages its x
+// windows and its rows of each diagonal (the transpose term's rows too) in
+// shared memory with bulk copies of the Tensor Memory Accelerator, as a
+// plan made once per operator lays them out, and sums from there. Run on
+// the card, the one-thread-a-row symmetric kernel it replaces kept too few
+// bytes in flight (a runtime loop of 2- to 8-byte loads, two gathers a
+// stored diagonal): 1.7x its bound in fp32, 3.1x in bf16 (PERF.md). It
+// stores offsets <= 0 only and computes the transpose term y[i] += d_o[i-o] *
+// x~[i-o] as a gather: no atomics, no carry, no delayed write (the TPU's
+// one-tile carry exists only because its grid runs in order).
 //
 // Plain C interface, bound from Python with ctypes
 // (spmv_torch/ops/spmv_dia_cuda.py). Each entry launches on the given
@@ -40,23 +42,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-// storage type -> accumulation type, and the conversions between them
-template <typename T> struct DiaAcc { typedef T type; };
-template <> struct DiaAcc<__nv_bfloat16> { typedef float type; };
-__device__ __forceinline__ float dia_load(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float dia_load(float v) { return v; }
-__device__ __forceinline__ double dia_load(double v) { return v; }
-template <typename T> __device__ __forceinline__ T dia_store(typename DiaAcc<T>::type v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 dia_store<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+#include "dia_window.cuh"
 
 template <typename T>
 __global__ void dia_spmv_kernel(const T* __restrict__ data,
                                 const T* __restrict__ x, T* __restrict__ y,
                                 long long npad, int ndiags,
                                 const long long* __restrict__ offs) {
-  typedef typename DiaAcc<T>::type Acc;
+  typedef typename dia_window::Acc<T>::type Acc;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= npad) return;
   const long long shard = blockIdx.y;
@@ -66,44 +59,13 @@ __global__ void dia_spmv_kernel(const T* __restrict__ data,
   Acc acc = Acc(0);
   for (int k = 0; k < ndiags; ++k) {
     const long long j = i + __ldg(offs + k);
-    const Acc xv = (j >= 0 && j < npad) ? dia_load(xs[j]) : Acc(0);
-    acc += dia_load(drow[(long long)k * 128]) * xv;
+    const Acc xv = (j >= 0 && j < npad) ? dia_window::load(xs[j]) : Acc(0);
+    acc += dia_window::load(drow[(long long)k * 128]) * xv;
   }
-  y[shard * npad + i] = dia_store<T>(acc);
+  y[shard * npad + i] = dia_window::store<T>(acc);
 }
 
 template <typename T>
-__global__ void dia_sym_spmv_kernel(const T* __restrict__ data,
-                                    const T* __restrict__ x, T* __restrict__ y,
-                                    long long npad, int ndiags,
-                                    const long long* __restrict__ offs) {
-  typedef typename DiaAcc<T>::type Acc;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= npad) return;
-  const long long shard = blockIdx.y;
-  const long long row_stride = (long long)ndiags * 128;
-  const T* xs = x + shard * npad;
-  const T* ds = data + shard * npad * ndiags;
-  const T* drow = ds + (i >> 7) * row_stride + (i & 127);
-  Acc acc = Acc(0);
-  for (int k = 0; k < ndiags; ++k) {
-    const long long o = __ldg(offs + k);  // o <= 0
-    const long long j = i + o;
-    const Acc xv = (j >= 0) ? dia_load(xs[j]) : Acc(0);
-    acc += dia_load(drow[(long long)k * 128]) * xv;
-    if (o < 0) {
-      // transpose of the stored entry A[t, t+o] at t = i-o lands on row i
-      const long long t = i - o;
-      if (t < npad) {
-        acc += dia_load(ds[(t >> 7) * row_stride + (long long)k * 128 + (t & 127)]) *
-               dia_load(xs[t]);
-      }
-    }
-  }
-  y[shard * npad + i] = dia_store<T>(acc);
-}
-
-template <typename T, bool kSymmetric>
 static int launch(const void* data, const void* x, void* y, long long npad,
                   int ndiags, const long long* offsets, int nshards,
                   void* stream) {
@@ -112,32 +74,45 @@ static int launch(const void* data, const void* x, void* y, long long npad,
   }
   const int threads = 256;
   const dim3 grid((unsigned)((npad + threads - 1) / threads), (unsigned)nshards);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kSymmetric) {
-    dia_sym_spmv_kernel<T><<<grid, threads, 0, s>>>(
-        static_cast<const T*>(data), static_cast<const T*>(x),
-        static_cast<T*>(y), npad, ndiags, offsets);
-  } else {
-    dia_spmv_kernel<T><<<grid, threads, 0, s>>>(
-        static_cast<const T*>(data), static_cast<const T*>(x),
-        static_cast<T*>(y), npad, ndiags, offsets);
-  }
+  dia_spmv_kernel<T><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y),
+      npad, ndiags, offsets);
   return (int)cudaGetLastError();
 }
 
-#define DIA_SPMV_ENTRY(NAME, T, SYM)                                        \
+#define DIA_SPMV_ENTRY(NAME, T)                                             \
   int NAME(const void* data, const void* x, void* y, long long npad,        \
            int ndiags, const long long* offsets, int nshards, void* stream) { \
-    return launch<T, SYM>(data, x, y, npad, ndiags, offsets, nshards,       \
-                          stream);                                          \
+    return launch<T>(data, x, y, npad, ndiags, offsets, nshards, stream);   \
   }
 
-// `offsets`: a device pointer to ndiags int64 offsets
+template <typename T>
+static int launch_sym(const void* data, const void* x, void* y, long long npad,
+                      int ndiags, const int* plan, int rows, int smem_bytes,
+                      int nshards, void* stream) {
+  if (ndiags < 1 || npad < 1 || nshards < 1 || nshards > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return dia_window::launch<T, 1, true>(data, x, y, npad, 1, nshards, plan, rows,
+                                        smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+#define DIA_SYM_SPMV_ENTRY(NAME, T)                                            \
+  int NAME(const void* data, const void* x, void* y, long long npad,           \
+           int ndiags, const int* plan, int rows, int smem_bytes, int nshards, \
+           void* stream) {                                                     \
+    return launch_sym<T>(data, x, y, npad, ndiags, plan, rows, smem_bytes,    \
+                         nshards, stream);                                     \
+  }
+
+// dia_spmv's `offsets`: a device pointer to ndiags int64 offsets;
+// dia_sym_spmv's `plan`: the device int32 words of its window plan, with its
+// tile rows and shared-memory bytes
 extern "C" {
-DIA_SPMV_ENTRY(dia_spmv_f32, float, false)
-DIA_SPMV_ENTRY(dia_spmv_f64, double, false)
-DIA_SPMV_ENTRY(dia_spmv_bf16, __nv_bfloat16, false)
-DIA_SPMV_ENTRY(dia_sym_spmv_f32, float, true)
-DIA_SPMV_ENTRY(dia_sym_spmv_f64, double, true)
-DIA_SPMV_ENTRY(dia_sym_spmv_bf16, __nv_bfloat16, true)
+DIA_SPMV_ENTRY(dia_spmv_f32, float)
+DIA_SPMV_ENTRY(dia_spmv_f64, double)
+DIA_SPMV_ENTRY(dia_spmv_bf16, __nv_bfloat16)
+DIA_SYM_SPMV_ENTRY(dia_sym_spmv_f32, float)
+DIA_SYM_SPMV_ENTRY(dia_sym_spmv_f64, double)
+DIA_SYM_SPMV_ENTRY(dia_sym_spmv_bf16, __nv_bfloat16)
 }  // extern "C"

@@ -7,7 +7,10 @@ layout (rows, nrhs*128).
 
 A CPU tensor takes the plain torch version (``ops/spmm_dia.py``); a CUDA
 tensor launches the kernel or raises. ``launches`` counts kernel launches
-(one per call on a CUDA tensor, none on the plain path).
+(one per call on a CUDA tensor, none on the plain path). ``dia_spmm`` is
+the tile kernel of ``csrc/dia_window.cuh`` and reads its window plan
+(``spmv_dia_cuda.window_plan``, one per offsets, nrhs and dtype, kept on
+the card); ``dia_sym_spmm`` reads the offsets from the card.
 """
 from __future__ import annotations
 
@@ -15,7 +18,13 @@ import torch
 
 from spmv_torch.formats.dia import LANES
 from spmv_torch.ops.spmm_dia import spmm_dia_stacked_plain
-from spmv_torch.ops.spmv_dia_cuda import DTYPES, _check, device_offsets
+from spmv_torch.ops.spmv_dia_cuda import (
+    DTYPES,
+    _check,
+    _check_aligned,
+    device_offsets,
+    device_window_plan,
+)
 
 launches = {"dia_spmm": 0, "dia_sym_spmm": 0}
 
@@ -39,15 +48,24 @@ def spmm_dia_stacked(data: torch.Tensor, x2: torch.Tensor,
 
     lib = load_library()
     nd, nr = data.shape[0], data.shape[1]
+    nrhs = x2.shape[1] // LANES
     y2 = torch.empty_like(x2)
-    offs = device_offsets(tuple(offsets), x2.device)
     key = "dia_sym_spmm" if symmetric else "dia_spmm"
     name = f"{key}_{DTYPES[data.dtype]}"
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
-        rc = getattr(lib, name)(data.data_ptr(), x2.data_ptr(), y2.data_ptr(),
-                                nr * LANES, len(offsets), offs.data_ptr(),
-                                x2.shape[1] // LANES, nd, stream)
+        if symmetric:
+            offs = device_offsets(tuple(offsets), x2.device)
+            rc = getattr(lib, name)(data.data_ptr(), x2.data_ptr(), y2.data_ptr(),
+                                    nr * LANES, len(offsets), offs.data_ptr(), nrhs,
+                                    nd, stream)
+        else:
+            _check_aligned(data, x2)
+            plan, table = device_window_plan(tuple(offsets), False, nrhs, data.dtype,
+                                             x2.device)
+            rc = getattr(lib, name)(data.data_ptr(), x2.data_ptr(), y2.data_ptr(),
+                                    nr * LANES, len(offsets), table.data_ptr(),
+                                    plan.rows, plan.smem_bytes, nrhs, nd, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     launches[key] += 1

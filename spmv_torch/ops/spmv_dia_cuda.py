@@ -11,12 +11,17 @@ tensor launches the kernel or raises. ``launches`` counts kernel launches
 that its path went through the kernels.
 
 The kernels take float32, float64 and bfloat16 storage (bf16 accumulates
-in float32 and stores y in bf16) and any number of diagonals: the offsets
-reach them as an int64 array on the card, made once per (offsets, device)
-and kept (``device_offsets``).
+in float32 and stores y in bf16) and any number of diagonals. ``dia_spmv``
+reads the offsets as an int64 array on the card, made once per (offsets,
+device) and kept (``device_offsets``). ``dia_sym_spmv`` and the block
+``dia_spmm`` stage their reads in shared memory, as ``window_plan`` lays
+them out: a table made once per (offsets, symmetric, nrhs, dtype) and
+kept on the card (``device_window_plan``), so an apply does no host work
+beyond the launch.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -35,6 +40,269 @@ def device_offsets(offsets: tuple[int, ...], device: torch.device) -> torch.Tens
     kernels read; one copy per (offsets, device) is kept, so repeated
     applies make no host-to-device transfer."""
     return torch.tensor(offsets, dtype=torch.int64, device=device)
+
+
+# The window plan of the tile kernel (csrc/dia_window.cuh). A CTA of 128
+# threads computes a tile of R rows of one shard (and up to
+# MAX_COLS columns of a block of right-hand sides). Before it sums, it
+# copies into shared memory every x window the tile reads (the rows each
+# read offset reaches: the stored offsets, and -o for each o < 0 in
+# symmetric storage; merged into one window wherever they overlap, so
+# offsets closer than R share one) and, stage by stage, the tile's rows of
+# each diagonal; in symmetric storage a diagonal o < 0 also stages the
+# rows [-o, R - o) its transpose term reads, one window with the forward
+# rows where -o < R. Each window goes in bulk copies (the Tensor Memory
+# Accelerator) of at most one 128-row tile row a column; where the
+# diagonals go in several stages, two stage buffers alternate.
+TILE_ROWS = (1024, 512, 256, 128)  # R, largest first; a thread takes R/128 rows
+COPY_BYTES = 16                    # bulk copies are whole 16-byte units
+SMEM_TARGET = 17 * 1024            # about eight CTAs an SM, each with its tile's
+#                                    reads in flight (the fastest tile size on
+#                                    the card, PERF.md)
+SMEM_FIT = 48 * 1024               # failing that, four at R = 128
+SMEM_MAX = 231424                  # the 227 KB a CTA may hold on the H100,
+#                                    less 1 KB for its barriers
+MAX_COLS = 8                       # columns a CTA holds (dia_spmm's chunks)
+MIN_STAGE = 8                      # diagonals a stage holds, where K allows
+# the kernel's table (int32 words): a head, then the x windows, the stages,
+# the copies, one entry per diagonal and the x copies (csrc/dia_window.cuh
+# reads it)
+HEAD_WORDS, WIN_WORDS, STAGE_WORDS, COPY_WORDS, DIAG_WORDS, XCOPY_WORDS = 16, 4, 4, 4, 8, 4
+
+
+def _floor(v: int, m: int) -> int:
+    return v // m * m
+
+
+def _ceil(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowPlan:
+    """Where a tile of ``rows`` rows of the DIA tile kernel reads, in rows
+    relative to the tile's first row. ``intervals`` are the rows of x the
+    tile reads, rounded out to 16 bytes and merged; ``x_windows[w]`` is
+    interval w where it is staged, or None where it does not fit in shared
+    memory and the kernel reads that interval's x from global memory;
+    ``data_windows[k]`` the rows of diagonal k staged; ``stages`` the
+    diagonals [k0, k1) staged together (two stage buffers alternate when
+    there are several); ``table`` the int32 words the kernel reads."""
+
+    offsets: tuple[int, ...]
+    symmetric: bool
+    cols: int
+    itemsize: int
+    rows: int
+    intervals: tuple[tuple[int, int], ...]
+    x_windows: tuple[tuple[int, int] | None, ...]
+    data_windows: tuple[tuple[tuple[int, int], ...], ...]
+    stages: tuple[tuple[int, int], ...]
+    smem_bytes: int
+    table: tuple[int, ...]
+
+    @property
+    def global_intervals(self) -> tuple[int, ...]:
+        """Indices of the intervals whose x is read from global memory."""
+        return tuple(w for w, win in enumerate(self.x_windows) if win is None)
+
+    def summary(self) -> dict:
+        """What a run prints about the plan."""
+        return dict(rows=self.rows, cols=self.cols,
+                    x_windows=[list(w) if w else None for w in self.x_windows],
+                    global_intervals=[list(self.intervals[w]) for w in self.global_intervals],
+                    stages=len(self.stages), smem_bytes=self.smem_bytes)
+
+
+def _read_offsets(offsets, symmetric: bool) -> list[int]:
+    reads = set(offsets)
+    if symmetric:
+        reads |= {-o for o in offsets if o < 0}
+    return sorted(reads)
+
+
+def _merge(needs, chunk: int) -> list[tuple[int, int]]:
+    """Row intervals [lo, hi), each rounded out to ``chunk`` rows, merged
+    wherever they overlap or touch."""
+    out = []
+    for lo, hi in sorted((_floor(lo, chunk), _ceil(hi, chunk)) for lo, hi in needs):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return [tuple(v) for v in out]
+
+
+def _stages(sizes: list[int], cap: int) -> list[tuple[int, int]]:
+    """Diagonals packed in order into stages of at most ``cap`` bytes."""
+    out, k0, acc = [], 0, 0
+    for k, size in enumerate(sizes):
+        if k > k0 and acc + size > cap:
+            out.append((k0, k))
+            k0, acc = k, 0
+        acc += size
+    out.append((k0, len(sizes)))
+    return out
+
+
+def _layout(offsets, symmetric, cols, itemsize, rows, smem_budget):
+    """(intervals, x windows, data windows, stages, smem bytes) at tile
+    rows ``rows`` within ``smem_budget`` bytes, or None where a stage
+    could not hold MIN_STAGE diagonals (or all K) beside the windows.
+    Several stages take two buffers: the next stage's copies land in one
+    while the CTA sums the other."""
+    chunk = COPY_BYTES // itemsize
+    intervals = _merge([(o, o + rows) for o in _read_offsets(offsets, symmetric)], chunk)
+    shifts = [[0, -o] if symmetric and o < 0 else [0] for o in offsets]
+    dwins = [_merge([(s, s + rows) for s in sh], chunk) for sh in shifts]
+    dsize = [sum(hi - lo for lo, hi in w) * itemsize for w in dwins]
+    wbytes = [(hi - lo) * cols * itemsize for lo, hi in intervals]
+    need = min(sum(dsize), 2 * min(len(offsets), MIN_STAGE) * max(dsize))
+    staged = list(intervals)
+    # a window too large for shared memory is read from global memory,
+    # largest first; only at the smallest tile and the largest budget
+    while sum(b for b, w in zip(wbytes, staged) if w) + need > smem_budget:
+        if smem_budget < SMEM_MAX or rows != TILE_ROWS[-1] or not any(staged):
+            return None
+        big = max((b, i) for i, (b, w) in enumerate(zip(wbytes, staged)) if w)[1]
+        staged[big] = None
+    xbytes = sum(b for b, w in zip(wbytes, staged) if w)
+    if xbytes + sum(dsize) <= smem_budget:
+        return intervals, staged, dwins, [(0, len(offsets))], xbytes + sum(dsize)
+    stages = _stages(dsize, (smem_budget - xbytes) // 2)
+    smem = xbytes + 2 * max(sum(dsize[k0:k1]) for k0, k1 in stages)
+    return intervals, staged, dwins, stages, smem
+
+
+def _pieces(lo: int, hi: int):
+    """Rows [lo, hi) cut at multiples of 128 (relative to a tile start,
+    itself a multiple of 128): each piece lies in one 128-row tile row, so
+    it is one contiguous run of a column or a diagonal, and wholly inside
+    or wholly outside [0, npad)."""
+    out, a = [], lo
+    while a < hi:
+        b = min(hi, _floor(a, LANES) + LANES)
+        out.append((a, b - a))
+        a = b
+    return out
+
+
+def _table(offsets, symmetric, cols, rows, intervals, staged, dwins,
+           stages) -> tuple[int, ...]:
+    """The int32 words the kernel reads: head, x windows (lo, len, shared
+    offset or -1 for global), stages (k0, k1, first copy, end copy), copies
+    (k, first row, rows, offset in the stage buffer), one entry per
+    diagonal (o, forward x offset or -1, its column stride, transposed x
+    offset or -1, its column stride, forward data offset, transposed data
+    offset, 0), x copies (first row, rows, shared offset of column 0,
+    column stride). Every copy is one bulk copy a column: rows within one
+    128-row tile row. Offsets count elements of shared memory: row r of
+    the tile reads x column c at x offset + c * stride + r, and diagonal
+    data at its data offset + r in the stage's buffer."""
+    K = len(offsets)
+    wins, x_off, xcopies, xo = [], [], [], 0
+    for w in staged:
+        if w is None:
+            wins.append((0, 0, -1, 0))
+            x_off.append(None)
+        else:
+            lo, hi = w
+            wins.append((lo, hi - lo, xo, 0))
+            x_off.append(xo)
+            xcopies += [(a, n, xo + a - lo, hi - lo) for a, n in _pieces(lo, hi)]
+            xo += (hi - lo) * cols
+    copies, stage_rows, data_at, buf = [], [], [None] * K, 0
+    for k0, k1 in stages:
+        first, pos = len(copies), 0
+        for k in range(k0, k1):
+            data_at[k] = []
+            for lo, hi in dwins[k]:
+                copies += [(k, a, n, pos + a - lo) for a, n in _pieces(lo, hi)]
+                data_at[k].append((lo, hi, pos))
+                pos += hi - lo
+        stage_rows.append((k0, k1, first, len(copies)))
+        buf = max(buf, pos)
+
+    def x_entry(row0):
+        """(offset, column stride) at which row r's read of x at relative
+        row row0 + r lands, or (-1, 0) where it is read from global."""
+        w = next(w for w, (lo, hi) in enumerate(intervals) if lo <= row0 < hi)
+        if staged[w] is None:
+            return -1, 0
+        lo, hi = staged[w]
+        return x_off[w] + row0 - lo, hi - lo
+
+    def data_entry(k, row0):
+        """Row r's read of diagonal k at relative row row0 + r lands on
+        buffer element entry + r."""
+        lo, _, pos = next(w for w in data_at[k] if w[0] <= row0 < w[1])
+        return pos - lo + row0
+
+    diags = []
+    for k, o in enumerate(offsets):
+        xf, xfl = x_entry(o)
+        xt = xtl = dto = 0
+        if symmetric and o < 0:
+            xt, xtl = x_entry(-o)
+            dto = data_entry(k, -o)
+        diags.append((o, xf, xfl, xt, xtl, data_entry(k, 0), dto, 0))
+    win_base = HEAD_WORDS
+    stage_base = win_base + WIN_WORDS * len(wins)
+    copy_base = stage_base + STAGE_WORDS * len(stage_rows)
+    diag_base = copy_base + COPY_WORDS * len(copies)
+    xcopy_base = diag_base + DIAG_WORDS * K
+    head = [rows, K, len(wins), len(stage_rows), xo, buf, win_base, stage_base,
+            copy_base, diag_base, cols, int(symmetric), xcopy_base, len(xcopies)]
+    head += [0] * (HEAD_WORDS - len(head))
+    words = head + [v for t in (wins + stage_rows + copies + diags + xcopies) for v in t]
+    if max(abs(v) for v in words) >= 2 ** 31:
+        raise ValueError("a DIA window plan needs offsets and rows below 2**31")
+    return tuple(words)
+
+
+def _plan_at(offsets, symmetric, cols, itemsize, rows, smem_budget) -> WindowPlan | None:
+    """The plan at tile rows ``rows`` within ``smem_budget`` bytes, or None
+    where ``_layout`` finds none."""
+    got = _layout(offsets, symmetric, cols, itemsize, rows, smem_budget)
+    if got is None:
+        return None
+    intervals, staged, dwins, stages, smem = got
+    table = _table(offsets, symmetric, cols, rows, intervals, staged, dwins, stages)
+    return WindowPlan(offsets, symmetric, cols, itemsize, rows, tuple(intervals),
+                      tuple(staged), tuple(tuple(w) for w in dwins), tuple(stages),
+                      smem, table)
+
+
+@functools.lru_cache(maxsize=256)
+def window_plan(offsets: tuple[int, ...], symmetric: bool, nrhs: int,
+                dtype: torch.dtype) -> WindowPlan:
+    """The tile kernel's plan for these offsets, storage, block width and
+    storage dtype: the largest R in TILE_ROWS whose windows and stages fit
+    SMEM_TARGET bytes (all K in one stage, or stages of MIN_STAGE
+    diagonals in two buffers); failing that R = 128 within SMEM_FIT, then
+    within SMEM_MAX, with the largest x windows read from global memory
+    until the rest fits. One object per key."""
+    offsets = tuple(int(o) for o in offsets)
+    if symmetric and max(offsets) > 0:
+        raise ValueError("symmetric DIA stores offsets <= 0 only")
+    key = (offsets, symmetric, min(nrhs, MAX_COLS),
+           torch.empty(0, dtype=dtype).element_size())
+    for rows in TILE_ROWS:
+        plan = _plan_at(*key, rows, SMEM_TARGET)
+        if plan is not None:
+            return plan
+    return (_plan_at(*key, TILE_ROWS[-1], SMEM_FIT)
+            or _plan_at(*key, TILE_ROWS[-1], SMEM_MAX))
+
+
+@functools.lru_cache(maxsize=256)
+def device_window_plan(offsets: tuple[int, ...], symmetric: bool, nrhs: int,
+                       dtype: torch.dtype, device: torch.device
+                       ) -> tuple[WindowPlan, torch.Tensor]:
+    """``window_plan`` and its table as an int32 tensor on ``device``, made
+    once per key and kept."""
+    plan = window_plan(offsets, symmetric, nrhs, dtype)
+    return plan, torch.tensor(plan.table, dtype=torch.int32, device=device)
 
 
 def reset_launches() -> None:
@@ -70,6 +338,14 @@ def _check(data: torch.Tensor, x2: torch.Tensor, offsets, symmetric: bool,
         raise ValueError("DIA apply takes contiguous data and x")
 
 
+def _check_aligned(data: torch.Tensor, x2: torch.Tensor) -> None:
+    """The tile kernel copies 16-byte chunks: data and x must start on 16
+    bytes (a lane-layout view that starts at a whole row always does)."""
+    if data.data_ptr() % COPY_BYTES or x2.data_ptr() % COPY_BYTES:
+        raise ValueError("the DIA tile kernel takes data and x that start on "
+                         "16 bytes")
+
+
 def spmv_dia_stacked(
     data: torch.Tensor,
     x2: torch.Tensor,
@@ -89,13 +365,21 @@ def spmv_dia_stacked(
     lib = load_library()
     nd, nr = data.shape[0], data.shape[1]
     y2 = torch.empty_like(x2)
-    offs = device_offsets(tuple(offsets), x2.device)
     name = ("dia_sym_spmv_" if symmetric else "dia_spmv_") + DTYPES[data.dtype]
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
-        rc = getattr(lib, name)(data.data_ptr(), x2.data_ptr(), y2.data_ptr(),
-                                nr * LANES, len(offsets), offs.data_ptr(),
-                                nd, stream)
+        if symmetric:
+            _check_aligned(data, x2)
+            plan, table = device_window_plan(tuple(offsets), True, 1, data.dtype,
+                                             x2.device)
+            rc = getattr(lib, name)(data.data_ptr(), x2.data_ptr(), y2.data_ptr(),
+                                    nr * LANES, len(offsets), table.data_ptr(),
+                                    plan.rows, plan.smem_bytes, nd, stream)
+        else:
+            offs = device_offsets(tuple(offsets), x2.device)
+            rc = getattr(lib, name)(data.data_ptr(), x2.data_ptr(), y2.data_ptr(),
+                                    nr * LANES, len(offsets), offs.data_ptr(),
+                                    nd, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     launches["dia_sym" if symmetric else "dia"] += 1

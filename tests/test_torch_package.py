@@ -811,6 +811,53 @@ def test_dia_bf16_kernels_match_plain_on_cuda(cuda, symmetric, nrhs):
     assert err <= 8e-3, err
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16],
+                         ids=lambda d: str(d).split(".")[1])
+@pytest.mark.parametrize("case", ["laplace 64^2", "band +-301 D=3", "band K=297",
+                                  "spread past shared memory"])
+@pytest.mark.parametrize("symmetric,nrhs", [(True, 1), (False, 1), (False, 3),
+                                            (False, 8), (False, 11)])
+def test_window_kernels_match_plain_on_cuda(cuda, symmetric, nrhs, case, dtype):
+    """The two tile kernels (dia_sym_spmv, dia_spmm; csrc/dia_window.cuh)
+    vs their plain versions, one launch each, the same bits on a second
+    apply; every column of dia_spmm equals dia_spmv on it and every column
+    of dia_sym_spmm equals dia_sym_spmv, bit for bit. The spread case reads
+    some x from global memory and, at 8 fp64 columns, holds more than 48 KB
+    of shared memory. Tolerances: TOL_KERNEL's (relative L2 1e-6 fp32,
+    1e-13 fp64) and bf16's one ulp of contraction (8e-3)."""
+    rng = np.random.default_rng(41)
+    offs, nd, nr = {
+        "laplace 64^2": ((-64, -1, 0, 1, 64), 1, 32),
+        "band +-301 D=3": ((-301, -37, -5, -1, 0, 1, 5, 37, 301), 3, 13),
+        "band K=297": (tuple(range(-148, 149)), 1, 9),
+        "spread past shared memory": (tuple(range(-2800, 2801, 200)), 2, 27),
+    }[case]
+    if symmetric:
+        offs = tuple(o for o in offs if o <= 0)
+    data = torch.as_tensor(rng.standard_normal((nd, nr, len(offs) * 128)) / len(offs),
+                           device=cuda).to(dtype)
+    x2 = torch.as_tensor(rng.standard_normal((nd * nr, nrhs * 128)), device=cuda).to(dtype)
+    if nrhs == 1:
+        kernel, plain = spmv_dia_cuda.spmv_dia_stacked, spmv_dia_stacked_plain
+        single = spmm_dia_cuda.spmm_dia_stacked  # its column is the reference
+    else:
+        kernel, plain = spmm_dia_cuda.spmm_dia_stacked, spmm_dia_stacked_plain
+        single = spmv_dia_cuda.spmv_dia_stacked
+    y = kernel(data, x2, offs, symmetric)
+    torch.cuda.synchronize()
+    key = ("dia_sym" if symmetric else "dia") if nrhs == 1 else "dia_spmm"
+    launched = spmv_dia_cuda.launches if nrhs == 1 else spmm_dia_cuda.launches
+    assert launched[key] == 1
+    assert torch.equal(kernel(data, x2, offs, symmetric), y)
+    want = plain(data, x2, offs, symmetric)
+    err = float(torch.linalg.vector_norm((y - want).double())
+                / torch.linalg.vector_norm(want.double()))
+    assert err <= {torch.float32: 1e-6, torch.float64: 1e-13, torch.bfloat16: 8e-3}[dtype]
+    for c, yc in zip(columns(x2), columns(y)):
+        assert torch.equal(yc, single(data, c, offs, symmetric))
+
+
 def test_dia_bf16_plain_accumulates_in_f32():
     """The plain bf16 DIA apply equals the f32 apply of the same (bf16)
     values rounded once to bf16."""
