@@ -14,9 +14,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      matrix with odd offsets on D=3 stacked shards (relative L2 <= 1e-6
      fp32, <= 1e-13 fp64, <= 8e-3 bf16, and bf16 on the Laplacian bit for
      bit); a second apply gives the same bits; fp32 also vs the host f64
-     CSR oracle (<= 2e-5); each dia_sym_spmv apply prints its window plan
-     (tile rows, intervals, x windows, shared bytes, any interval read
-     from global memory);
+     CSR oracle (<= 2e-5); each apply prints its route (dia_spmv:
+     dia_spmv_rows and its rows a thread, or the loop kernel) and each
+     dia_sym_spmv apply its window plan (tile rows, intervals, x windows,
+     shared bytes, any interval read from global memory);
   4. the main path at 3200^2 (10.24M rows): build_dist_matrix(dia) then
      cg(kmax=20000, rtol=1e-6) — symmetric fp64 (the correctness gate: the
      host-recomputed residual agrees with the reported one to 1e-8),
@@ -160,16 +161,19 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      4M matrix; the yardstick the faster of one torch CSR @ X on a
      row-major and on a column-major (n, 8) block) beside 8 x the
      single-RHS kernel's ms from this run, and each block kernel at nrhs 1
-     beside its single-RHS kernel, in turns; the two WELL block kernels
-     also on the local stacks of phase 16c's circuit operators at nrhs 8,
-     by device time from torch.profiler (kernel, plain and cuSPARSE), the
-     chained time beside it.
+     beside its single-RHS kernel, in turns; dia_sym_spmm also where the
+     main path runs it (float64 at 1024^2, nrhs 8, phase 16d) and the two
+     WELL block kernels on the local stacks of phase 16c's circuit
+     operators at nrhs 8, by device time from torch.profiler (kernel,
+     plain and cuSPARSE), the chained time beside it. Every DIA apply that
+     prints a check prints its route (``spmv_dia_cuda.route``) and, where
+     that is the tile kernel, its window plan.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 
     python3 chip_smoke.py --parent DIR
 
-runs one phase instead: the DIA tile kernels (dia_sym_spmv, dia_spmm)
-against the one-thread-a-row kernels of the tree before them, a checkout
+runs one phase instead: the four DIA kernels (dia_spmv, dia_sym_spmv,
+dia_spmm, dia_sym_spmm) against those of the tree before them, a checkout
 in DIR (for example `git archive` of that commit unpacked under build/),
 in turns on the main path's shapes (``phase_parent``).
 """
@@ -307,14 +311,18 @@ def check_close(name, y_k, y_p, tol):
     return y_k, err, max_abs
 
 
-def plan_fields(data, offsets, symmetric: bool, nrhs: int) -> dict:
-    """The window plan of the tile kernels (dia_sym_spmv, dia_spmm) for an
-    apply on ``data``, as printed beside its checks; {} for the other DIA
-    kernels."""
-    if not symmetric and nrhs == 1:
-        return {}
-    return {"window_plan": spmv_dia_cuda.window_plan(
-        tuple(offsets), symmetric, nrhs, data.dtype).summary()}
+def plan_fields(data, offsets, symmetric: bool, nrhs: int, block: bool = None) -> dict:
+    """The route of a DIA apply on ``data`` (``spmv_dia_cuda.route``; a
+    block apply where ``block``, by default where nrhs > 1) and, where it
+    runs the tile kernel, its window plan, as printed beside its checks."""
+    offsets = tuple(offsets)
+    block = nrhs > 1 if block is None else block
+    r = spmv_dia_cuda.route(offsets, symmetric, block, data.dtype)
+    out = {"route": dataclasses.asdict(r)}
+    if r.kernel == "tile":
+        out["window_plan"] = spmv_dia_cuda.window_plan(offsets, symmetric, nrhs,
+                                                       data.dtype).summary()
+    return out
 
 
 def compare(name, data, x2, offsets, symmetric, tol):
@@ -1811,7 +1819,7 @@ def phase_block_kernels(a, w4, w4ds, dev):
             lambda v: spmm_dia_stacked_plain(data, v, offs, sym),
             lambda v: spmv_dia_cuda.spmv_dia_stacked(data, v, offs, sym),
             (x,), {**TOL_KERNEL, "bfloat16": BF16_TOL}[dname],
-            **plan_fields(data, offs, sym, nrhs))
+            **plan_fields(data, offs, sym, nrhs, block=True))
 
     d32 = csr_to_dia(a, row_align=ROW_ALIGN, dtype=np.float32, device=dev)
     nr, k0 = d32.data.shape[0], d32.offsets.index(0)
@@ -2199,6 +2207,8 @@ def phase_block_timing(a_lap, d32, a4, w4, w4ds, single_ms, circuit_ops, dev):
          ms_runs=runs_k, plain_ms_runs=runs_p, library_block_ms=lib,
          **plan_fields(data64, d32.offsets, False, NRHS))
     del data64, x64
+    matrix, shape = sym_block_timing(gen, dev)
+    out["dia_sym_spmm"]["other_shapes"] = {matrix: shape}
     # its double-single planes: the exact float64 values / 9 split on the card
     v9 = d32.data.double() / 9.0
     planes = (v9.float().unsqueeze(0), (v9 - v9.float().double()).float().unsqueeze(0))
@@ -2280,6 +2290,38 @@ def phase_block_timing(a_lap, d32, a4, w4, w4ds, single_ms, circuit_ops, dev):
              library_block_chained_ms=lib_chained)
         out[kname]["other_shapes"] = {tag: shape}
     return out
+
+
+def sym_block_timing(gen, dev) -> tuple[str, dict]:
+    """Phase 10: dia_sym_spmm where the main path runs it, float64 at
+    REFINE_NX^2 and nrhs NRHS (phase 16d's block_cg_dia), on the Laplacian
+    scaled by 1/9: device time of kernel and plain version, the chained
+    time beside, cuSPARSE SpMM on the same block (device time), the bytes
+    bound. Returns (matrix, row)."""
+    a = create_laplace_2d(REFINE_NX, REFINE_NX)
+    d = csr_to_dia(a, row_align=ROW_ALIGN, dtype=np.float64, symmetric=True, device=dev)
+    data = (d.data / 9.0).unsqueeze(0)
+    xs = lanes_block(gen, data.shape[1], NRHS, torch.float64, dev)
+
+    def kernel(v):
+        return spmm_dia_cuda.spmm_dia_stacked(data, v, d.offsets, True)
+
+    def plain(v):
+        return spmm_dia_stacked_plain(data, v, d.offsets, True)
+
+    chained_k, chained_p, runs_k, runs_p = time_in_turns(kernel, plain, xs, iters_p=10)
+    lib = library_block_ms(a, dev, 1.0 / 9.0, np.float64, NRHS, timer=device_ms)
+    nbytes = (len(d.offsets) + 2 * NRHS) * d.nrows_pad * 8
+    row = dict(ms=device_ms(kernel, xs), plain_ms=device_ms(plain, xs, iters=5),
+               library_ms=min(lib["row_major"], lib["column_major"]),
+               bound_ms=bound_ms(nbytes), bytes=nbytes, nrhs=NRHS, dtype="float64",
+               timing="device", chained_ms=chained_k, plain_chained_ms=chained_p)
+    matrix = f"float64 laplace2d {REFINE_NX}^2 nrhs {NRHS}, block_cg_dia's packing"
+    show("10.timing", kernel="dia_sym_spmm", matrix=matrix, **row, ms_runs=runs_k,
+         plain_ms_runs=runs_p, library_block_ms=lib, rows=a.nrows, ndiags=len(d.offsets),
+         library=f"torch CSR @ X, ({a.ncols}, {NRHS}) float64 block (cuSPARSE SpMM), "
+                 "device time", **plan_fields(data, d.offsets, True, NRHS))
+    return matrix, row
 
 
 def amg_cycle_applies(h) -> list[int]:
@@ -2669,7 +2711,7 @@ def phase_amg_timing(head, dev, max_abs) -> dict:
                        library_ms=lib_ms, bound_ms=bound_ms(nbytes), bytes=nbytes,
                        timing="device", dtype="bfloat16", nrhs=nrhs,
                        rel_l2_vs_plain=err, max_abs_vs_plain=mabs, bit_equal_to_plain=True,
-                       library=lib_text, **plan_fields(d.data, d.offsets, sym, nrhs))
+                       library=lib_text, **plan_fields(d.data, d.offsets, sym, nrhs, block))
             out[kname][f"bf16 laplace2d {NX}^2" + (f" nrhs {NRHS}" if block else "")] = row
             show("18f.timing", kernel=kname, matrix=f"laplace2d {NX}^2", **row)
         del d, data
@@ -2707,7 +2749,7 @@ def phase_amg_timing(head, dev, max_abs) -> dict:
                            timing="device", rows=nr * 128, ndiags=len(offs), nrhs=nrhs,
                            dtype=dname, rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
                            library="none: random dense band, timed for the kernel alone",
-                           **plan_fields(data, offs, sym, nrhs))
+                           **plan_fields(data, offs, sym, nrhs, kname == "dia_spmm"))
                 band = "lower half of random band" if sym else "random band"
                 out[kname][f"{dname} {band} K={k}, {nr * 128} rows"
                            + (f" nrhs {NRHS}" if nrhs > 1 else "")] = row
@@ -2741,11 +2783,25 @@ def library_bf16(a: CSRHost, dev, scale: float, nrhs: int) -> tuple:
 PARENT_PAIRS = 10  # --parent: chained-event pairs a case, in turns
 
 
-def parent_cases() -> list:
+def amg_level_shapes(dev) -> list:
+    """(matrix, offsets, rows) of the vanilla DIA levels below the finest in
+    phase 18a's hierarchy on the NX^2 Laplacian: the shapes dia_spmv runs at
+    inside the AMG cycle (800^2 and 200^2, K = 9)."""
+    a = create_laplace_2d(NX, NX)
+    A = build_dist_matrix(a, n_devices=1, dtype=np.float32, local_format="dia", device=dev)
+    h = amg_setup(a, A, **AMG_KW)
+    return [(f"AMG level {i} of laplace2d {NX}^2", tuple(lvl.A.dia_offsets),
+             lvl.A.nrows_global) for i, lvl in enumerate(h.levels)
+            if i > 0 and lvl.A.local_format == "dia" and not lvl.A.symmetric]
+
+
+def parent_cases(amg_shapes=()) -> list:
     """(kernel, matrix, offsets, symmetric, nrhs, rows) that ``phase_parent``
-    times: the shapes the main path runs the two tile kernels at (3200^2 in
-    phases 4, 6 and 18; 1024^2 in 13, 16 and 18b-c; 512^2 in 16 and 18e)
-    and phase 18f's wide bands on 1M rows."""
+    times: the shapes the main path runs the four DIA kernels at — 3200^2
+    (phases 4, 6 and 18), 1024^2 (13, 16 and 18b-c; phase 16d's
+    block_cg_dia runs dia_sym_spmm there at nrhs 8), 512^2 (16 and 18e),
+    the AMG levels of ``amg_shapes`` (``amg_level_shapes``) — phase 18f's
+    wide bands on 1M rows, and dia_sym_spmm at nrhs 3 and 11."""
     def lap(n):
         return (-n, -1, 0, 1, n)
 
@@ -2755,7 +2811,10 @@ def parent_cases() -> list:
     def lower(offs):
         return tuple(o for o in offs if o <= 0)
 
-    out = []
+    out = [("dia_spmv", f"laplace2d {NX}^2", lap(NX), False, 1, NX * NX)]
+    out += [("dia_spmv", matrix, offs, False, 1, rows) for matrix, offs, rows in amg_shapes]
+    for k in (65, 297):
+        out.append(("dia_spmv", f"random band K={k}", band(k), False, 1, 8192 * 128))
     for n in (NX, AMG_SYM_NX):
         out.append(("dia_sym_spmv", f"laplace2d {n}^2", lower(lap(n)), True, 1, n * n))
     for k in (65, 297):
@@ -2766,34 +2825,59 @@ def parent_cases() -> list:
         out.append(("dia_spmm", f"laplace2d {n}^2", lap(n), False, NRHS, n * n))
     for k in (65, 297):
         out.append(("dia_spmm", f"random band K={k}", band(k), False, NRHS, 8192 * 128))
+    for n, nrhs in ((NX, NRHS), (REFINE_NX, NRHS), (REFINE_NX, 3), (REFINE_NX, 11)):
+        out.append(("dia_sym_spmm", f"laplace2d {n}^2", lower(lap(n)), True, nrhs, n * n))
     return out
 
 
+def parent_args(kname, offs_dev, plan, table, nrhs) -> tuple:
+    """The parent's arguments of ``kname`` between (data, x, y,
+    npad, K) and (nshards, stream): dia_spmv and dia_sym_spmm read the
+    offsets on the card, the tile kernels (dia_sym_spmv, dia_spmm) a window
+    plan, whose table layout this tree keeps."""
+    if kname == "dia_spmv":
+        return (offs_dev.data_ptr(),)
+    if kname == "dia_sym_spmm":
+        return (offs_dev.data_ptr(), nrhs)
+    tile = (table.data_ptr(), plan.rows, plan.smem_bytes)
+    return tile + ((nrhs,) if kname == "dia_spmm" else ())
+
+
 def phase_parent(parent: Path, dev, cases=None, pairs: int = PARENT_PAIRS) -> list:
-    """``--parent DIR``: this tree's dia_sym_spmv and dia_spmm against the
-    parent's (DIR's library, built from DIR's csrc/ by DIR's _build.py and
-    called with its own argument list: data, x, y, npad, K, offsets on the
-    card[, nrhs], shards, stream), in float32, float64 and bfloat16, on
-    ``cases`` (default ``parent_cases()``). Both are called straight through
-    their libraries, so the two chains carry the same host work. Random
-    data in [-1, 1) / (2K) (||A||_inf < 1: chained applies stay bounded) and
-    x from a seed. Each case: the same bits as the parent's apply (gated
-    once every case is timed: the sums are the same operations in the same
-    order); ``pairs`` pairs
-    of chained CUDA events over 100 applies, parent and new alternating
-    (parent first, then new first); device time (``device_ms``) in turns
-    parent, new, new, parent; the bytes bound. Returns the rows."""
+    """``--parent DIR``: this tree's four DIA kernels against the parent's
+    (DIR's library, built from DIR's csrc/ by DIR's _build.py and called with
+    its own argument list, ``parent_args``; this tree's through the entry
+    its ``route`` names), in float32, float64 and bfloat16, on ``cases``
+    (default ``parent_cases`` with the AMG levels of ``amg_level_shapes``).
+    Both are called straight through their libraries, so the two chains
+    carry the same host work. Random data in [-1, 1) / (2K) (||A||_inf < 1:
+    chained applies stay bounded) and x from a seed. Each case: the same
+    bits as the parent's apply, and for dia_sym_spmm every column the bits
+    of this tree's dia_sym_spmv on it (gated once every case is timed: the
+    sums are the same operations in the same order); ``pairs`` pairs of
+    chained CUDA events over 100 applies, parent and new alternating (parent
+    first, then new first); device time (``device_ms``) in turns parent,
+    new, new, parent; the bytes bound; the route and, for the tile kernel,
+    its plan. Returns the rows."""
     spec = importlib.util.spec_from_file_location(
         "parent_build", Path(parent) / "spmv_torch" / "_build.py")
     pb = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(pb)
     plib, lib = pb.load_library(), _build.load_library()
+    if cases is None:
+        t0 = time.perf_counter()
+        amg_shapes = amg_level_shapes(dev)
+        show("p.amg_levels", levels=[dict(matrix=m, offsets=list(o), rows=r)
+                                     for m, o, r in amg_shapes],
+             seconds=time.perf_counter() - t0)
+        cases = parent_cases(amg_shapes)
     gen = torch.Generator(device=dev).manual_seed(808)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows_out = []
-    for kname, matrix, offs, sym, nrhs, nrows in cases or parent_cases():
+    for kname, matrix, offs, sym, nrhs, nrows in cases:
         npad = -(-nrows // ROW_ALIGN) * ROW_ALIGN
         k = len(offs)
+        block = kname in ("dia_spmm", "dia_sym_spmm")
         for dt in (torch.float32, torch.float64, torch.bfloat16):
             tag = spmv_dia_cuda.DTYPES[dt]
             data = ((torch.rand((npad // 128, k * 128), generator=gen, device=dev) * 2 - 1)
@@ -2801,26 +2885,35 @@ def phase_parent(parent: Path, dev, cases=None, pairs: int = PARENT_PAIRS) -> li
             x0 = torch.randn((npad // 128, nrhs * 128), generator=gen, device=dev).to(dt)
             offs_dev = spmv_dia_cuda.device_offsets(offs, dev)
             plan, table = spmv_dia_cuda.device_window_plan(offs, sym, nrhs, dt, dev)
-            pfn, nfn = getattr(plib, f"{kname}_{tag}"), getattr(lib, f"{kname}_{tag}")
-            block = () if sym else (nrhs,)
+            r = spmv_dia_cuda.route(offs, sym, block, dt)
+            name, args, _ = spmv_dia_cuda.entry(r, offs, sym, block, nrhs, dt, dev)
+            pfn, nfn = getattr(plib, f"{kname}_{tag}"), getattr(lib, name)
+            pargs = parent_args(kname, offs_dev, plan, table, nrhs)
 
-            def old(v, pfn=pfn, data=data, offs_dev=offs_dev, block=block):
+            def old(v, pfn=pfn, data=data, pargs=pargs):
                 y = torch.empty_like(v)
-                rc = pfn(data.data_ptr(), v.data_ptr(), y.data_ptr(), npad, k,
-                         offs_dev.data_ptr(), *block, 1, stream)
+                rc = pfn(data.data_ptr(), v.data_ptr(), y.data_ptr(), npad, k, *pargs, 1,
+                         stream)
                 if rc != 0:
                     fail(f"parent {kname}_{tag} failed: CUDA error {rc}")
                 return y
 
-            def new(v, nfn=nfn, data=data, plan=plan, table=table, block=block):
+            def new(v, nfn=nfn, data=data, args=args, name=name):
                 y = torch.empty_like(v)
-                rc = nfn(data.data_ptr(), v.data_ptr(), y.data_ptr(), npad, k,
-                         table.data_ptr(), plan.rows, plan.smem_bytes, *block, 1, stream)
+                rc = nfn(data.data_ptr(), v.data_ptr(), y.data_ptr(), npad, k, *args, 1,
+                         stream)
                 if rc != 0:
-                    fail(f"{kname}_{tag} failed: CUDA error {rc}")
+                    fail(f"{name} failed: CUDA error {rc}")
                 return y
 
-            same = bool(torch.equal(old(x0), new(x0)))
+            y_new = new(x0)
+            same = bool(torch.equal(old(x0), y_new))
+            columns_same = None
+            if kname == "dia_sym_spmm":
+                columns_same = all(
+                    torch.equal(yc, spmv_dia_cuda.spmv_dia_stacked(data.unsqueeze(0), xc,
+                                                                   offs, True))
+                    for xc, yc in zip(columns(x0), columns(y_new)))
             chained = {"parent": [], "new": []}
             for i in range(pairs):
                 for who in (("parent", "new") if i % 2 == 0 else ("new", "parent")):
@@ -2839,21 +2932,25 @@ def phase_parent(parent: Path, dev, cases=None, pairs: int = PARENT_PAIRS) -> li
                        bound_ms=bound_ms(nbytes), bytes=nbytes,
                        parent_runs_ms=chained["parent"], new_runs_ms=chained["new"],
                        device_runs_ms=dev_runs, same_bits_as_parent=same,
-                       window_plan=plan.summary())
+                       columns_equal_dia_sym_spmv=columns_same, entry=name,
+                       route=dataclasses.asdict(r),
+                       **({"window_plan": plan.summary()} if r.kernel == "tile" else {}))
             show("p.parent", **row)
             rows_out.append(row)
-            del data, x0
+            del data, x0, y_new
     differ = [f"{r['kernel']} {r['matrix']} nrhs {r['nrhs']} {r['dtype']}"
-              for r in rows_out if not r["same_bits_as_parent"]]
+              for r in rows_out if not r["same_bits_as_parent"]
+              or r["columns_equal_dia_sym_spmv"] is False]
     if differ:
-        fail(f"--parent: not the parent's bits on {differ}")
+        fail(f"--parent: not the parent's bits, or a dia_sym_spmm column not "
+             f"dia_sym_spmv's, on {differ}")
     return rows_out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None, metavar="DIR",
-                    help="only time the DIA tile kernels against DIR's (phase_parent)")
+                    help="only time the four DIA kernels against DIR's (phase_parent)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "

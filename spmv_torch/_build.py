@@ -30,6 +30,8 @@ _DIA_ARGS = [_P, _P, _P, _L, _I, _P, _I, _P]  # data, x, y, npad, ndiags,
 _DIA_WIN_ARGS = [_P, _P, _P, _L, _I, _P, _I, _I, _I, _P]  # data, x, y, npad,
 #     ndiags, window plan (on the card), tile rows, shared bytes, nshards,
 #     stream (the tile kernel of csrc/dia_window.cuh)
+_DIA_ROWS_ARGS = [_P, _P, _P, _L, _I, _P, _I, _I, _P]  # data, x, y, npad,
+#     ndiags, offsets (in host memory), rows a thread, nshards, stream
 _WELL_ARGS = [_P] * 6 + [_L, _L, _I, _L, _I, _P]  # values, pos, slice_ptr,
 #                 w0, x, y, nslices, entries, tile_groups, col_pad, nshards,
 #                 stream (the row lists)
@@ -47,6 +49,7 @@ _DIA_DS_SPMM_ARGS = _DIA_DS_ARGS[:9] + [_I] + _DIA_DS_ARGS[9:]
 _WELL_DS_SPMM_ARGS = _WELL_DS_ARGS[:13] + [_I] + _WELL_DS_ARGS[13:]
 KERNEL_ENTRIES = {
     **{f"dia_spmv_{t}": _DIA_ARGS for t in ("f32", "f64", "bf16")},
+    **{f"dia_spmv_rows_{t}": _DIA_ROWS_ARGS for t in ("f32", "f64", "bf16")},
     **{f"dia_sym_spmv_{t}": _DIA_WIN_ARGS for t in ("f32", "f64", "bf16")},
     **{f"well_spmv_{t}_{p}": _WELL_ARGS for t in ("f32", "f64")
        for p in ("i16", "i32")},

@@ -1,6 +1,12 @@
 // The DIA tile kernel with shared-memory windows, for Hopper (sm_90a).
 // It computes dia_sym_spmv (spmv_dia.cu; symmetric storage, one column) and
-// dia_spmm (spmm_dia.cu; vanilla storage, up to NR = 8 columns a CTA).
+// dia_spmm (spmm_dia.cu; vanilla storage, up to NR = 8 columns a CTA) at
+// every shape. The wrappers' route (ops/spmv_dia_cuda.py `route`) sends
+// dia_spmv and dia_sym_spmm elsewhere: on the card this kernel at one
+// vanilla column lost to dia_spmv_rows at every shape and to the
+// one-row-a-thread loop kernel on wide bands, and on symmetric blocks to
+// dia_sym_spmm's direct kernel (PERF.md), where its CTAs stage five x
+// windows for every column.
 //
 // Layout (spmv_torch/formats/dia.py, ops/spmm_dia.py): D shards stacked;
 // shard s's data is (npad/128, K*128) with data[s, q, k*128 + l] =
@@ -61,8 +67,9 @@
 // the transpose term d_o[i-o] * x~[i-o] right after its forward term. A
 // zero-filled read adds d * 0 (or 0 * 0 for a transposed row past npad),
 // which leaves the sum's bits as they were (the sum is never -0). So every
-// column of dia_spmm equals dia_spmv on it bit for bit, and every column of
-// dia_sym_spmm equals dia_sym_spmv. bf16 storage accumulates in fp32 and
+// column of dia_spmm equals dia_spmv on it bit for bit, whichever kernel
+// dia_spmv's route runs, and dia_sym_spmv equals each column of
+// dia_sym_spmm. bf16 storage accumulates in fp32 and
 // rounds once, at the store; fp64 in fp64. Index math into global memory is
 // 64-bit. No atomics, nothing carried between CTAs.
 
@@ -145,6 +152,10 @@ template <typename T, int NR, int RPT, bool SYM>
 __device__ __forceinline__ void tile(const T* __restrict__ data, const T* __restrict__ x,
                                      T* __restrict__ y, long long npad, int nrhs,
                                      const int* __restrict__ plan) {
+  // the transpose term goes to column 0 only: symmetric storage runs here as
+  // dia_sym_spmv, one column (dia_sym_spmm's blocks run its direct kernel,
+  // faster on the card at every shape measured, PERF.md)
+  static_assert(!SYM || NR == 1, "the tile kernel takes symmetric storage one column at a time");
   typedef typename Acc<T>::type A;
   constexpr int R = RPT * kThreads;
   extern __shared__ __align__(128) unsigned char smem_raw[];

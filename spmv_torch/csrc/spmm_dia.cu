@@ -37,11 +37,19 @@
 //
 // dia_sym_spmm: one thread per output row, blockIdx.y = shard, blockIdx.z =
 // a chunk of at most NR = 8 columns. The thread reads each stored diagonal
-// element once per chunk and applies it to each of its columns, with NR
-// accumulators in registers (NR is a template parameter, min(nrhs, 8)). The
-// offsets come from device memory (no cap on K). The shifted x reads and
-// the transpose term's shifted data reads touch lines that neighbouring
-// warps read too and are served from L1/L2.
+// element once per chunk and applies it to each of its columns, with one
+// accumulator a column in registers. The chunk's width is a template
+// parameter (NR = min(nrhs, 8); the narrower last chunk of an nrhs > 8
+// block takes its own instance), so no column's loads wait behind a mask:
+// its first version guarded each column with `if (c < nc)`, and dropping that
+// took 3200^2 nrhs 8 from 1.52x its bound to 1.22x in fp32 and from 3.72x to
+// 1.72x in bf16 (PERF.md). The offsets come from device memory (no
+// cap on K). The shifted x reads and the transpose term's shifted data
+// reads touch lines that neighbouring warps read too and are served from
+// L1/L2. The wrapper's route (ops/spmv_dia_cuda.py `route`) runs this
+// kernel at every shape: the tile kernel of dia_window.cuh, its transpose
+// term taken to every column, was slower at every Laplacian block measured
+// (by 1-46%) and won only three wide-band cases no path runs, by at most 6%.
 //
 // Column c takes exactly the operations dia_spmv / dia_sym_spmv take on it,
 // in the same order (acc += d * x, k ascending; the symmetric transpose term
@@ -59,25 +67,20 @@
 
 #define SPMM_MAX_NR 8
 
-template <typename T, int NR>
-__global__ void dia_sym_spmm_kernel(const T* __restrict__ data,
-                                    const T* __restrict__ x, T* __restrict__ y,
-                                    long long npad, int ndiags, int nrhs,
-                                    const long long* __restrict__ offs) {
+// dia_sym_spmm's direct kernel: one row a thread, the NC columns of its
+// chunk in registers, each column's loads unmasked (NC is the chunk's
+// width at compile time)
+template <typename T, int NC>
+__device__ __forceinline__ void sym_row(const T* __restrict__ ds, const T* __restrict__ xs,
+                                        T* __restrict__ ys, long long i, long long npad,
+                                        int ndiags, long long lanes,
+                                        const long long* __restrict__ offs) {
   typedef typename dia_window::Acc<T>::type Acc;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= npad) return;
-  const long long shard = blockIdx.y;
-  const int c0 = blockIdx.z * NR;
-  const int nc = min(NR, nrhs - c0);
   const long long row_stride = (long long)ndiags * 128;
-  const long long lanes = (long long)nrhs * 128;
-  const T* xs = x + shard * npad * nrhs + c0 * 128;
-  const T* ds = data + shard * npad * ndiags;
   const T* drow = ds + (i >> 7) * row_stride + (i & 127);
-  Acc acc[NR];
+  Acc acc[NC];
 #pragma unroll
-  for (int c = 0; c < NR; ++c) acc[c] = Acc(0);
+  for (int c = 0; c < NC; ++c) acc[c] = Acc(0);
   for (int k = 0; k < ndiags; ++k) {
     const long long o = __ldg(offs + k);  // o <= 0
     const long long j = i + o;
@@ -85,11 +88,9 @@ __global__ void dia_sym_spmm_kernel(const T* __restrict__ data,
     const long long jo = in ? (j >> 7) * lanes + (j & 127) : 0;
     const Acc d = dia_window::load(drow[(long long)k * 128]);
 #pragma unroll
-    for (int c = 0; c < NR; ++c) {
-      if (c < nc) {
-        const Acc xv = in ? dia_window::load(xs[jo + c * 128]) : Acc(0);
-        acc[c] += d * xv;
-      }
+    for (int c = 0; c < NC; ++c) {
+      const Acc xv = in ? dia_window::load(xs[jo + c * 128]) : Acc(0);
+      acc[c] += d * xv;
     }
     if (o < 0) {
       // transpose of the stored entry A[t, t+o] at t = i-o lands on row i
@@ -98,16 +99,45 @@ __global__ void dia_sym_spmm_kernel(const T* __restrict__ data,
         const Acc dt = dia_window::load(ds[(t >> 7) * row_stride + (long long)k * 128 + (t & 127)]);
         const long long to = (t >> 7) * lanes + (t & 127);
 #pragma unroll
-        for (int c = 0; c < NR; ++c) {
-          if (c < nc) acc[c] += dt * dia_window::load(xs[to + c * 128]);
-        }
+        for (int c = 0; c < NC; ++c) acc[c] += dt * dia_window::load(xs[to + c * 128]);
       }
     }
   }
-  T* ys = y + shard * npad * nrhs + (i >> 7) * lanes + c0 * 128 + (i & 127);
+  T* yr = ys + (i >> 7) * lanes + (i & 127);
 #pragma unroll
-  for (int c = 0; c < NR; ++c) {
-    if (c < nc) ys[c * 128] = dia_window::store<T>(acc[c]);
+  for (int c = 0; c < NC; ++c) yr[c * 128] = dia_window::store<T>(acc[c]);
+}
+
+// blockIdx.y = shard, blockIdx.z = a chunk of NR columns; the last chunk of
+// an nrhs > 8 block may be narrower, and takes its own width
+template <typename T, int NR>
+__global__ void dia_sym_spmm_kernel(const T* __restrict__ data,
+                                    const T* __restrict__ x, T* __restrict__ y,
+                                    long long npad, int ndiags, int nrhs,
+                                    const long long* __restrict__ offs) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= npad) return;
+  const long long shard = blockIdx.y;
+  const int c0 = blockIdx.z * NR;
+  const long long lanes = (long long)nrhs * 128;
+  const T* xs = x + shard * npad * nrhs + c0 * 128;
+  const T* ds = data + shard * npad * ndiags;
+  T* ys = y + shard * npad * nrhs + c0 * 128;
+  const int nc = min(NR, nrhs - c0);
+  if (nc == NR) {
+    sym_row<T, NR>(ds, xs, ys, i, npad, ndiags, lanes, offs);
+    return;
+  }
+  if constexpr (NR == SPMM_MAX_NR) {
+    switch (nc) {
+      case 1: sym_row<T, 1>(ds, xs, ys, i, npad, ndiags, lanes, offs); break;
+      case 2: sym_row<T, 2>(ds, xs, ys, i, npad, ndiags, lanes, offs); break;
+      case 3: sym_row<T, 3>(ds, xs, ys, i, npad, ndiags, lanes, offs); break;
+      case 4: sym_row<T, 4>(ds, xs, ys, i, npad, ndiags, lanes, offs); break;
+      case 5: sym_row<T, 5>(ds, xs, ys, i, npad, ndiags, lanes, offs); break;
+      case 6: sym_row<T, 6>(ds, xs, ys, i, npad, ndiags, lanes, offs); break;
+      default: sym_row<T, 7>(ds, xs, ys, i, npad, ndiags, lanes, offs); break;
+    }
   }
 }
 

@@ -10,21 +10,15 @@ tensor launches the kernel or raises. ``launches`` counts kernel launches
 (one per call on a CUDA tensor, none on the plain path). ``dia_spmm`` is
 the tile kernel of ``csrc/dia_window.cuh`` and reads its window plan
 (``spmv_dia_cuda.window_plan``, one per offsets, nrhs and dtype, kept on
-the card); ``dia_sym_spmm`` reads the offsets from the card.
+the card); ``dia_sym_spmm`` runs the kernel ``spmv_dia_cuda.route``
+picks: its direct kernel, which reads the offsets from the card.
 """
 from __future__ import annotations
 
 import torch
 
-from spmv_torch.formats.dia import LANES
 from spmv_torch.ops.spmm_dia import spmm_dia_stacked_plain
-from spmv_torch.ops.spmv_dia_cuda import (
-    DTYPES,
-    _check,
-    _check_aligned,
-    device_offsets,
-    device_window_plan,
-)
+from spmv_torch.ops.spmv_dia_cuda import _check, launch, route
 
 launches = {"dia_spmm": 0, "dia_sym_spmm": 0}
 
@@ -44,29 +38,8 @@ def spmm_dia_stacked(data: torch.Tensor, x2: torch.Tensor,
         return spmm_dia_stacked_plain(data, x2, offsets, symmetric)
     if x2.device.type != "cuda":
         raise RuntimeError(f"no DIA SpMM kernel for device {x2.device}")
-    from spmv_torch._build import load_library
-
-    lib = load_library()
-    nd, nr = data.shape[0], data.shape[1]
-    nrhs = x2.shape[1] // LANES
-    y2 = torch.empty_like(x2)
-    key = "dia_sym_spmm" if symmetric else "dia_spmm"
-    name = f"{key}_{DTYPES[data.dtype]}"
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        if symmetric:
-            offs = device_offsets(tuple(offsets), x2.device)
-            rc = getattr(lib, name)(data.data_ptr(), x2.data_ptr(), y2.data_ptr(),
-                                    nr * LANES, len(offsets), offs.data_ptr(), nrhs,
-                                    nd, stream)
-        else:
-            _check_aligned(data, x2)
-            plan, table = device_window_plan(tuple(offsets), False, nrhs, data.dtype,
-                                             x2.device)
-            rc = getattr(lib, name)(data.data_ptr(), x2.data_ptr(), y2.data_ptr(),
-                                    nr * LANES, len(offsets), table.data_ptr(),
-                                    plan.rows, plan.smem_bytes, nrhs, nd, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    launches[key] += 1
+    offsets = tuple(offsets)
+    y2 = launch(route(offsets, symmetric, True, data.dtype), data, x2, offsets, symmetric,
+                True)
+    launches["dia_sym_spmm" if symmetric else "dia_spmm"] += 1
     return y2

@@ -11,16 +11,19 @@ tensor launches the kernel or raises. ``launches`` counts kernel launches
 that its path went through the kernels.
 
 The kernels take float32, float64 and bfloat16 storage (bf16 accumulates
-in float32 and stores y in bf16) and any number of diagonals. ``dia_spmv``
-reads the offsets as an int64 array on the card, made once per (offsets,
-device) and kept (``device_offsets``). ``dia_sym_spmv`` and the block
-``dia_spmm`` stage their reads in shared memory, as ``window_plan`` lays
-them out: a table made once per (offsets, symmetric, nrhs, dtype) and
-kept on the card (``device_window_plan``), so an apply does no host work
-beyond the launch.
+in float32 and stores y in bf16) and any number of diagonals. ``route``
+picks, once per (offsets, storage, block or not, dtype), the kernel an apply
+launches: ``dia_spmv`` runs ``dia_spmv_rows`` (K at compile time, offsets
+by value) at K = 5 and 9 and its loop kernel, which reads the offsets as an
+int64 array on the card (``device_offsets``), at every other K.
+``dia_sym_spmv`` and the block ``dia_spmm`` stage their reads in shared
+memory, as ``window_plan`` lays them out: a table made once per (offsets,
+symmetric, nrhs, dtype) and kept on the card (``device_window_plan``), so
+an apply does no host work beyond the launch.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -305,6 +308,107 @@ def device_window_plan(offsets: tuple[int, ...], symmetric: bool, nrhs: int,
     return plan, torch.tensor(plan.table, dtype=torch.int32, device=device)
 
 
+# Which kernel an apply launches (``route``): dia_sym_spmv and dia_spmm run
+# the tile kernel, dia_spmv and dia_sym_spmm choose by shape. From the H100
+# (PERF.md): dia_spmv_rows, with K at compile time, beat both the loop
+# kernel and the tile kernel at K = 5 and 9 on every grid measured, 41k
+# to 10M rows; at K = 65 and 297 the loop kernel beat the tile kernel in
+# every dtype; and dia_sym_spmm's direct kernel without its per-column mask
+# beat the tile kernel at every Laplacian block measured.
+ROWS_K = (5, 9)          # the K dia_spmv_rows is built for (csrc/spmv_dia.cu)
+ROWS_UNALIGNED = 2       # 16 bytes of rows a thread (fp32, bf16) where at
+#                          most this many offsets are not multiples of that
+#                          count: on the Laplacian (+-1) faster or tied from
+#                          1M to 10M rows; on the AMG levels (six) 14-18%
+#                          slower than one row a thread; fp64 never faster
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """The design an apply launches: ``kernel`` "rows" (dia_spmv_rows,
+    ``rows_per_thread`` rows a thread), "tile" (the tile kernel of
+    csrc/dia_window.cuh, with its ``window_plan``) or "loop" (one row a
+    thread, a runtime loop over K that reads the offsets from the card:
+    dia_spmv_kernel, or dia_sym_spmm's direct kernel)."""
+
+    kernel: str
+    rows_per_thread: int = 1
+
+
+@functools.lru_cache(maxsize=256)
+def route(offsets: tuple[int, ...], symmetric: bool, block: bool,
+          dtype: torch.dtype) -> Route:
+    """The design an apply launches: of dia_spmv (vanilla storage), dia_sym_spmv
+    (symmetric), or with ``block`` dia_spmm (vanilla) and dia_sym_spmm
+    (symmetric), for these offsets and storage ``dtype``. Made once per key
+    and kept. No choice depends on the rows or the block width: on the
+    card none changed from 41k to 10M rows, nor from 3 to 11 columns."""
+    if symmetric != block:  # dia_sym_spmv, dia_spmm
+        return Route("tile")
+    if symmetric or len(offsets) not in ROWS_K:  # dia_sym_spmm; dia_spmv at other K
+        return Route("loop")
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    wide = COPY_BYTES // itemsize
+    unaligned = sum(o % wide != 0 for o in offsets)
+    if itemsize < 8 and unaligned <= ROWS_UNALIGNED:
+        return Route("rows", wide)
+    return Route("rows", 1)
+
+
+# the C entry point of each (route kernel, symmetric, block) a wrapper launches
+ENTRIES = {("rows", False, False): "dia_spmv_rows", ("loop", False, False): "dia_spmv",
+           ("loop", True, True): "dia_sym_spmm", ("tile", True, False): "dia_sym_spmv",
+           ("tile", False, True): "dia_spmm"}
+
+
+@functools.lru_cache(maxsize=256)
+def entry(r: Route, offsets: tuple[int, ...], symmetric: bool, block: bool, nrhs: int,
+          dtype: torch.dtype, device: torch.device) -> tuple[str, tuple, tuple]:
+    """(name, arguments, kept) for route ``r``: the C entry point of csrc/
+    and its arguments between (data, x, y, npad, ndiags) and (nshards,
+    stream) — ``block`` for the block wrappers (dia_spmm, dia_sym_spmm),
+    which take nrhs too — and the objects the arguments point into. Made
+    once per key and kept, so the pointers stay valid."""
+    kind = (r.kernel, symmetric, block)
+    if kind not in ENTRIES:
+        raise ValueError(f"no DIA kernel runs route {r} on "
+                         f"{'symmetric' if symmetric else 'vanilla'} storage"
+                         f"{' blocks' if block else ''}")
+    name = f"{ENTRIES[kind]}_{DTYPES[dtype]}"
+    if r.kernel == "rows":  # the offsets in host memory, passed by value
+        offs = (ctypes.c_longlong * len(offsets))(*offsets)
+        return name, (ctypes.addressof(offs), r.rows_per_thread), (offs,)
+    if r.kernel == "loop":
+        offs = device_offsets(offsets, device)
+        return name, (offs.data_ptr(),) + ((nrhs,) if block else ()), (offs,)
+    plan, table = device_window_plan(offsets, symmetric, nrhs, dtype, device)
+    args = (table.data_ptr(), plan.rows, plan.smem_bytes) + ((nrhs,) if block else ())
+    return name, args, (table,)
+
+
+def launch(r: Route, data: torch.Tensor, x2: torch.Tensor, offsets: tuple[int, ...],
+           symmetric: bool, block: bool) -> torch.Tensor:
+    """Launch route ``r`` on CUDA tensors that ``_check`` passed: one launch
+    for all shards (and columns); raises if the launch fails. The wrappers
+    call it with ``route``'s choice and count the launch."""
+    from spmv_torch._build import load_library
+
+    lib = load_library()
+    nd, nr = data.shape[0], data.shape[1]
+    nrhs = x2.shape[1] // LANES
+    if r.kernel == "tile" or r.rows_per_thread > 1:
+        _check_aligned(data, x2)
+    name, args, _ = entry(r, offsets, symmetric, block, nrhs, data.dtype, x2.device)
+    y2 = torch.empty_like(x2)
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        rc = getattr(lib, name)(data.data_ptr(), x2.data_ptr(), y2.data_ptr(), nr * LANES,
+                                len(offsets), *args, nd, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return y2
+
+
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
@@ -339,11 +443,12 @@ def _check(data: torch.Tensor, x2: torch.Tensor, offsets, symmetric: bool,
 
 
 def _check_aligned(data: torch.Tensor, x2: torch.Tensor) -> None:
-    """The tile kernel copies 16-byte chunks: data and x must start on 16
-    bytes (a lane-layout view that starts at a whole row always does)."""
+    """The tile kernel copies 16-byte chunks, and dia_spmv_rows at several
+    rows a thread reads 16-byte loads: data and x must start on 16 bytes (a
+    lane-layout view that starts at a whole row always does)."""
     if data.data_ptr() % COPY_BYTES or x2.data_ptr() % COPY_BYTES:
-        raise ValueError("the DIA tile kernel takes data and x that start on "
-                         "16 bytes")
+        raise ValueError("the DIA tile kernel and 16-byte rows take data and x "
+                         "that start on 16 bytes")
 
 
 def spmv_dia_stacked(
@@ -360,28 +465,9 @@ def spmv_dia_stacked(
         return spmv_dia_stacked_plain(data, x2, offsets, symmetric)
     if x2.device.type != "cuda":
         raise RuntimeError(f"no DIA kernel for device {x2.device}")
-    from spmv_torch._build import load_library
-
-    lib = load_library()
-    nd, nr = data.shape[0], data.shape[1]
-    y2 = torch.empty_like(x2)
-    name = ("dia_sym_spmv_" if symmetric else "dia_spmv_") + DTYPES[data.dtype]
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        if symmetric:
-            _check_aligned(data, x2)
-            plan, table = device_window_plan(tuple(offsets), True, 1, data.dtype,
-                                             x2.device)
-            rc = getattr(lib, name)(data.data_ptr(), x2.data_ptr(), y2.data_ptr(),
-                                    nr * LANES, len(offsets), table.data_ptr(),
-                                    plan.rows, plan.smem_bytes, nd, stream)
-        else:
-            offs = device_offsets(tuple(offsets), x2.device)
-            rc = getattr(lib, name)(data.data_ptr(), x2.data_ptr(), y2.data_ptr(),
-                                    nr * LANES, len(offsets), offs.data_ptr(),
-                                    nd, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    offsets = tuple(offsets)
+    y2 = launch(route(offsets, symmetric, False, data.dtype), data, x2, offsets, symmetric,
+                False)
     launches["dia_sym" if symmetric else "dia"] += 1
     return y2
 

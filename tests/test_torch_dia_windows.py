@@ -17,7 +17,16 @@ kernel cannot run here, so these tests hold the table itself:
   one is summed, unstaged shared memory NaN so a stray read shows), bit
   for bit against the plain versions and, per column, against the
   single-RHS plain apply;
-- and that the plan is cached, one object per key.
+- and that the plan is cached, one object per key;
+- ``route``, which picks the kernel each DIA apply launches, and the C
+  entry ``entry`` names for it: cached per key, the loop kernel wherever
+  K has no ``dia_spmv_rows`` instance, argument counts that match the
+  bound entry points.
+
+The plans at nrhs > 1 in symmetric storage are held too: the tile kernel
+runs symmetric storage one column at a time (dia_sym_spmv), but the plan
+lays out the transposed reads of every column, and the model takes each
+column's transpose term through them.
 
 The offset sets are the port's: the 3200^2 and 512^2 Laplacians, phase 3's
 +-301 band, the K = 65 and K = 297 bands of AMG's 1-D interval levels, one
@@ -121,7 +130,8 @@ class Table:
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: str(d).split(".")[1])
 @pytest.mark.parametrize("symmetric,nrhs", [(False, 1), (False, 3), (False, 8),
-                                            (False, 11), (True, 1)])
+                                            (False, 11), (True, 1), (True, 3), (True, 8),
+                                            (True, 11)])
 @pytest.mark.parametrize("name", list(OFFSET_SETS))
 def test_plan_covers_every_read(name, symmetric, nrhs, dtype, amg_offsets):
     """Brute force over one tile: each row's read of each diagonal, forward
@@ -204,6 +214,73 @@ def test_plan_is_cached(dtype, symmetric, nrhs):
     assert window_plan(*key[:2], nrhs + 1, dtype) is not plan
 
 
+AMG_LEVEL_1 = (-801, -800, -799, -1, 0, 1, 799, 800, 801)  # 800^2 under the 3200^2
+ROUTE_KEYS = [
+    # (offsets, symmetric, block, dtype) -> (kernel, rows a thread)
+    ((LAP[3200], False, False, torch.float32), ("rows", 4)),
+    ((LAP[3200], False, False, torch.float64), ("rows", 1)),
+    ((LAP[3200], False, False, torch.bfloat16), ("rows", 8)),
+    ((LAP[512], False, False, torch.bfloat16), ("rows", 8)),
+    ((AMG_LEVEL_1, False, False, torch.float32), ("rows", 1)),
+    ((AMG_LEVEL_1, False, False, torch.bfloat16), ("rows", 1)),
+    ((OFFSET_SETS["band +-301"], False, False, torch.float32), ("rows", 1)),
+    ((OFFSET_SETS["band K=65"], False, False, torch.float32), ("loop", 1)),
+    ((OFFSET_SETS["band K=297"], False, False, torch.bfloat16), ("loop", 1)),
+    ((LAP[3200][:3], True, False, torch.float32), ("tile", 1)),
+    ((LAP[3200], False, True, torch.float32), ("tile", 1)),
+    ((LAP[3200][:3], True, True, torch.float32), ("loop", 1)),
+    ((LAP[512][:3], True, True, torch.float64), ("loop", 1)),
+]
+
+
+@pytest.mark.parametrize("key,want", ROUTE_KEYS,
+                         ids=lambda v: str(v).replace("torch.", "")[:60])
+def test_route_is_cached_and_names_its_kernel(key, want):
+    """``route`` gives one Route object per key, the same for an equal key
+    built anew; dia_spmv runs dia_spmv_rows at K = 5 and 9 (16 bytes of
+    fp32 or bf16 rows a thread where at most two offsets are not multiples
+    of that count), its loop kernel at every other K; dia_sym_spmv and
+    dia_spmm the tile kernel; dia_sym_spmm its direct kernel. The C entry
+    ``entry`` names for it exists, with as many arguments as it is bound
+    with (beside data, x, y, npad, K, shards and stream)."""
+    from spmv_torch._build import KERNEL_ENTRIES
+
+    r = spmv_dia_cuda.route(*key)
+    assert (r.kernel, r.rows_per_thread) == want
+    assert spmv_dia_cuda.route(*key) is r
+    assert spmv_dia_cuda.route(tuple(list(key[0])), *key[1:]) is r
+    offsets, symmetric, block, dtype = key
+    nrhs = 8 if block else 1
+    name, args, _ = spmv_dia_cuda.entry(r, offsets, symmetric, block, nrhs, dtype,
+                                        torch.device("cpu"))
+    assert name.rsplit("_", 1)[1] == spmv_dia_cuda.DTYPES[dtype]
+    assert len(KERNEL_ENTRIES[name]) == len(args) + 7
+    if r.kernel == "loop" and not symmetric:
+        assert name.startswith("dia_spmv_") and not name.startswith("dia_spmv_rows")
+    assert spmv_dia_cuda.entry(r, offsets, symmetric, block, nrhs, dtype,
+                               torch.device("cpu"))[0] is name
+
+
+def test_entry_refuses_a_route_no_kernel_runs():
+    """A route no kernel takes (dia_spmv_rows on symmetric storage, the tile
+    kernel for a symmetric block) raises instead of launching another
+    kernel."""
+    for r, symmetric, block in ((spmv_dia_cuda.Route("rows", 1), True, False),
+                                (spmv_dia_cuda.Route("tile"), True, True),
+                                (spmv_dia_cuda.Route("loop"), True, False)):
+        with pytest.raises(ValueError, match="no DIA kernel runs route"):
+            spmv_dia_cuda.entry(r, LAP[512][:3], symmetric, block, 3, torch.float32,
+                                torch.device("cpu"))
+
+
+@pytest.mark.parametrize("k", range(1, 13))
+def test_rows_route_only_for_built_k(k):
+    """dia_spmv_rows is built for K in ROWS_K only: any other K goes to PR
+    1's kernel, which reads the offsets from the card."""
+    r = spmv_dia_cuda.route(tuple(range(k)), False, False, torch.float32)
+    assert r.kernel == ("rows" if k in spmv_dia_cuda.ROWS_K else "loop")
+
+
 def test_plan_refuses_positive_symmetric_offsets():
     with pytest.raises(ValueError, match="offsets <= 0"):
         window_plan((-1, 0, 1), True, 1, torch.float32)
@@ -275,9 +352,10 @@ def model(plan, data, x2, symmetric):
                             acc[:, c] = acc[:, c] + d * xv
                         if symmetric and o < 0:
                             dv = smem[at(base + dt + r)]
-                            xv = (smem[at(xt + r)] if xt >= 0
-                                  else rows_of(xcol[c0], i0 + r - o))
-                            acc[:, 0] = acc[:, 0] + dv * xv
+                            for c in range(nc):
+                                xv = (smem[at(xt + c * xtl + r)] if xt >= 0
+                                      else rows_of(xcol[c0 + c], i0 + r - o))
+                                acc[:, c] = acc[:, c] + dv * xv
                 keep = i0 + r < npad
                 rows = (i0 + r)[keep]
                 for c in range(nc):
@@ -288,7 +366,8 @@ def model(plan, data, x2, symmetric):
 MODEL_CASES = [
     (name, symmetric, nrhs, dtype)
     for name in ("laplace 3200^2", "band +-301", "band K=65", "amg interval level")
-    for symmetric, nrhs in ((False, 1), (False, 3), (False, 11), (True, 1))
+    for symmetric, nrhs in ((False, 1), (False, 3), (False, 11), (True, 1), (True, 3),
+                            (True, 8), (True, 11))
     for dtype in DTYPES
 ] + [("spread past shared memory", False, 8, torch.float64),
      ("spread past shared memory", True, 1, torch.float64)]

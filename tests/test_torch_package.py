@@ -817,15 +817,18 @@ def test_dia_bf16_kernels_match_plain_on_cuda(cuda, symmetric, nrhs):
 @pytest.mark.parametrize("case", ["laplace 64^2", "band +-301 D=3", "band K=297",
                                   "spread past shared memory"])
 @pytest.mark.parametrize("symmetric,nrhs", [(True, 1), (False, 1), (False, 3),
-                                            (False, 8), (False, 11)])
+                                            (False, 8), (False, 11), (True, 3), (True, 8),
+                                            (True, 11)])
 def test_window_kernels_match_plain_on_cuda(cuda, symmetric, nrhs, case, dtype):
-    """The two tile kernels (dia_sym_spmv, dia_spmm; csrc/dia_window.cuh)
-    vs their plain versions, one launch each, the same bits on a second
-    apply; every column of dia_spmm equals dia_spmv on it and every column
-    of dia_sym_spmm equals dia_sym_spmv, bit for bit. The spread case reads
-    some x from global memory and, at 8 fp64 columns, holds more than 48 KB
-    of shared memory. Tolerances: TOL_KERNEL's (relative L2 1e-6 fp32,
-    1e-13 fp64) and bf16's one ulp of contraction (8e-3)."""
+    """The four DIA kernels on their routes (the tile kernels dia_sym_spmv
+    and dia_spmm of csrc/dia_window.cuh; dia_spmv and dia_sym_spmm as
+    ``spmv_dia_cuda.route`` picks) vs their plain versions, one launch
+    each, the same bits on a second apply; every column of dia_spmm equals
+    dia_spmv on it and every column of dia_sym_spmm equals dia_sym_spmv,
+    bit for bit. The spread case reads some x from global memory and, at 8
+    fp64 columns, holds more than 48 KB of shared memory. Tolerances:
+    TOL_KERNEL's (relative L2 1e-6 fp32, 1e-13 fp64) and bf16's one ulp of
+    contraction (8e-3)."""
     rng = np.random.default_rng(41)
     offs, nd, nr = {
         "laplace 64^2": ((-64, -1, 0, 1, 64), 1, 32),
@@ -846,7 +849,8 @@ def test_window_kernels_match_plain_on_cuda(cuda, symmetric, nrhs, case, dtype):
         single = spmv_dia_cuda.spmv_dia_stacked
     y = kernel(data, x2, offs, symmetric)
     torch.cuda.synchronize()
-    key = ("dia_sym" if symmetric else "dia") if nrhs == 1 else "dia_spmm"
+    key = (("dia_sym" if symmetric else "dia") if nrhs == 1 else
+           ("dia_sym_spmm" if symmetric else "dia_spmm"))
     launched = spmv_dia_cuda.launches if nrhs == 1 else spmm_dia_cuda.launches
     assert launched[key] == 1
     assert torch.equal(kernel(data, x2, offs, symmetric), y)
@@ -856,6 +860,55 @@ def test_window_kernels_match_plain_on_cuda(cuda, symmetric, nrhs, case, dtype):
     assert err <= {torch.float32: 1e-6, torch.float64: 1e-13, torch.bfloat16: 8e-3}[dtype]
     for c, yc in zip(columns(x2), columns(y)):
         assert torch.equal(yc, single(data, c, offs, symmetric))
+
+
+ROUTES = {
+    # dia_spmv (vanilla, one column): its loop kernel and dia_spmv_rows
+    False: [spmv_dia_cuda.Route("loop"), spmv_dia_cuda.Route("rows", 1),
+            spmv_dia_cuda.Route("rows", 0)],
+    # dia_sym_spmm (symmetric, a block): its direct kernel
+    True: [spmv_dia_cuda.Route("loop")],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16],
+                         ids=lambda d: str(d).split(".")[1])
+@pytest.mark.parametrize("case", ["laplace 64^2", "band +-301 D=3"])
+@pytest.mark.parametrize("symmetric,r", [(s, r) for s in ROUTES for r in range(len(ROUTES[s]))])
+def test_dia_routes_match_on_cuda(cuda, symmetric, r, case, dtype):
+    """Every design ``route`` may pick for dia_spmv (``rows_per_thread`` 0:
+    16 bytes of rows a thread) and dia_sym_spmm, launched through
+    ``spmv_dia_cuda.launch``, gives the bits of the tile kernel's column
+    (dia_spmm at nrhs 1 for dia_spmv; dia_sym_spmv on each column of a
+    3- and an 11-column block for dia_sym_spmm) and is within TOL_KERNEL's
+    tolerance (bf16: 8e-3) of the plain version. K = 5 and 9, one shard
+    and three stacked ones, offsets that are and are not multiples of the
+    rows a thread."""
+    rng = np.random.default_rng(9)
+    offs, nd, nr = {"laplace 64^2": ((-64, -1, 0, 1, 64), 1, 32),
+                    "band +-301 D=3": ((-301, -37, -5, -1, 0, 1, 5, 37, 301), 3, 13)}[case]
+    rt = ROUTES[symmetric][r]
+    if rt.kernel == "rows" and rt.rows_per_thread == 0:
+        rt = spmv_dia_cuda.Route("rows", 16 // torch.empty(0, dtype=dtype).element_size())
+    if symmetric:
+        offs = tuple(o for o in offs if o <= 0)
+    data = torch.as_tensor(rng.standard_normal((nd, nr, len(offs) * 128)) / len(offs),
+                           device=cuda).to(dtype)
+    tol = {torch.float32: 1e-6, torch.float64: 1e-13, torch.bfloat16: 8e-3}[dtype]
+    for nrhs in ((3, 11) if symmetric else (1,)):
+        x2 = torch.as_tensor(rng.standard_normal((nd * nr, nrhs * 128)),
+                             device=cuda).to(dtype)
+        y = spmv_dia_cuda.launch(rt, data, x2, offs, symmetric, symmetric)
+        want = (spmm_dia_stacked_plain if symmetric else spmv_dia_stacked_plain)(
+            data, x2, offs, symmetric)
+        torch.cuda.synchronize()
+        err = float(torch.linalg.vector_norm((y - want).double())
+                    / torch.linalg.vector_norm(want.double()))
+        assert err <= tol, err
+        single = spmv_dia_cuda.spmv_dia_stacked if symmetric else spmm_dia_cuda.spmm_dia_stacked
+        for c, yc in zip(columns(x2), columns(y)):
+            assert torch.equal(yc, single(data, c, offs, symmetric))
 
 
 def test_dia_bf16_plain_accumulates_in_f32():
