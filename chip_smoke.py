@@ -149,6 +149,32 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      torch's refusal), and dia_spmv, dia_spmm (nrhs 8) and dia_sym_spmv (the
      band's lower half) at K=65 and K=297 in fp32, fp64 and bf16, each
      first vs its plain version and applied twice with the same bits;
+ 19. the general Krylov path and the transpose operator: (a) matvec_transpose
+     and transposed().matvec on non-symmetric operators (the upwind
+     convection-diffusion of the reference's SPAI tests, built here) vs
+     the host float64 A^T x (<= 1e-5 fp32, 1e-12 fp64 of || |A^T| |x| ||
+     inf): NX^2 DIA D=1 fp32/fp64 (the two forms the same bits), 512^2
+     DIA and ELL D=4, the RCM'd 50k FEM (row-scaled) WELL D=4, a row-scaled
+     power-law Laplacian with hub rows ELL D=4; each apply twice (same
+     bits) with every scatter-add refused, exact launches, the transpose's
+     kernels vs plain; (b) AMG-preconditioned GMRES(30), FGMRES(30),
+     BiCGStab and MINRES (symmetric DIA) at NX^2 with 18a's hierarchy,
+     fp32, rtol 1e-6, b = A x*, beside AMG-PCG: converged, exact launches
+     (78 dia_spmv a preconditioner apply), a second solve the same bits,
+     the float64 host residual within 0.5 rtol of the reported one (MINRES
+     in the preconditioner's norm); (c) FSAI-PCG on phase 8's 800k FEM (G
+     and G^T vanilla WELL, their stacks vs plain): fewer iterations than
+     phase 8's Jacobi-PCG, 4 WELL launches an iteration; (d) SPAI-GMRES
+     and SPAI-BiCGStab (restarted after a breakdown) at 1600^2 beside
+     Jacobi, M's DIA stack vs plain, the SPAI runs converged; (e) LSQR, 200
+     iterations at NX^2 (rnorm history within 1e-4 of the plain versions'
+     run), cg_pipelined on the symmetric NX^2 Laplacian beside cg; (f) the
+     demos as subprocesses, all at once, started before (a) and joined
+     after it, before (b)'s timed solves: demo_cg --amg --solver gmres at
+     NX^2, --petsc/--rhs --solver bicgstab on PETSc files of the port's
+     writers, --mtx --fsai on a Matrix Market FEM of the port's writer,
+     demo_restrict --n 4194304 --devices 4, each exit 0 and its printed
+     residual read back against the same solve in this process;
  10. (run last) ms per apply of every ported kernel, kernel and plain in
      turns, with the library yardstick (one torch CSR @ x call, cuSPARSE,
      float64 for the DS kernels; the port never calls it) and the bytes
@@ -180,6 +206,7 @@ in turns on the main path's shapes (``phase_parent``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import importlib.util
@@ -195,12 +222,19 @@ import torch
 from torch.autograd import DeviceType
 
 from spmv_torch import _build
-from spmv_torch.corpus import circuit_network, fem_p1_2d
+from spmv_torch.corpus import circuit_network, fem_p1_2d, powerlaw_laplacian
 from spmv_torch.formats.csr import CSRHost
 from spmv_torch.formats.dia import csr_to_dia, interleaved_to_flat
 from spmv_torch.ds import ds_from_f64, ds_to_f64
 from spmv_torch.formats.well import csr_to_well, csr_to_well_sym, pack_rows, split_window
 from spmv_torch.gen import create_laplace_2d, gaussian_bump
+from spmv_torch.io.matrix_market import read_matrix_market, write_matrix_market
+from spmv_torch.io.petsc import (
+    read_petsc_binary_matrix_host,
+    read_petsc_binary_vector_host,
+    write_petsc_binary_matrix,
+    write_petsc_binary_vector,
+)
 from spmv_torch.ops import (
     spmm_dia_cuda,
     spmm_well_cuda,
@@ -233,9 +267,15 @@ from spmv_torch.ops.spmv_well_ds import (
 from spmv_torch.parallel.dist_matrix import HOST_FIELDS, WELL_WSEG_CAP, build_dist_matrix
 from spmv_torch.reorder import rcm_reorder
 from spmv_torch.solvers.amg import amg_setup
+from spmv_torch.solvers.bicgstab import bicgstab
 from spmv_torch.solvers.block_cg import block_cg, block_cg_dia, block_cg_refined_dist
-from spmv_torch.solvers.cg import cg
+from spmv_torch.solvers.cg import cg, cg_pipelined
+from spmv_torch.solvers.fsai import fsai_preconditioner
+from spmv_torch.solvers.gmres import gmres
+from spmv_torch.solvers.lsqr import lsqr
+from spmv_torch.solvers.minres import minres
 from spmv_torch.solvers.refine import cg_refined, cg_refined_dist
+from spmv_torch.solvers.spai import spai_preconditioner
 from spmv_torch.utils.timing import bench_chained, measure_copy_bandwidth_gbs
 
 NX = 3200           # headline: 3200^2 = 10.24M rows (bench.py:358)
@@ -276,6 +316,25 @@ CHEB_NX = 512        # 18e
 CHEB_TOL = 1e-9      # the reference's gate for the Chebyshev inner solver
 BF16_TOL = 8e-3      # bf16 kernel vs plain: one bf16 rounding (2^-8) moved
 #                      by the contraction of the fp32 sums, relative L2
+# phase 19: the general Krylov path and the transpose operator
+TRANSPOSE_TOL = {"float32": 1e-5, "float64": 1e-12}  # |y - A^T x|_inf / || |A^T||x| ||_inf
+HUB_N = 50_000       # 19a: powerlaw_laplacian nodes (its hub rows split out)
+KRYLOV_RTOL = 1e-6   # 19b-19d
+KRYLOV_RESIDUAL_GATE = 0.5  # x rtol: the float64 host residual vs the reported
+#                      one (one float32 residual evaluation rounds at ~1e-7 of
+#                      ||b||, so a gate of 1e-8 ||b|| cannot hold in float32)
+AMG_KRYLOV_KMAX = 200  # 19b (18a's kmax)
+GMRES_RESTART = 30
+SPAI_NX = 1600       # 19d: spai_setup's numpy at 3200^2 takes over 60 s (PERF.md)
+SPAI_KMAX = 20000
+LSQR_ITERS = 200     # 19e
+LSQR_TOL = 1e-4      # kernel vs plain rnorm histories, relative
+DEMO_NX = 1024       # 19f: the PETSc demo's convection-diffusion grid
+DEMO_RTOL, DEMO_KMAX = 1e-8, 6000
+DEMO_RESTRICT_N = 4_194_304
+DEMO_AMG_TOL = 0.25  # the AMG demo's r.norm vs this process's (ELL vs DIA
+#                      levels; both at the float32 floor of the bump's solve)
+DEMO_TIMEOUT = 420   # seconds, all four demos together
 
 
 def fail(msg: str) -> None:
@@ -862,7 +921,8 @@ def phase_fem_main_path(dev):
     """Phase 8: the general-sparsity main path through the port's entry
     points. Returns (WELL launch count of the solves, its/s, the RCM'd FEM
     matrix, the symmetric fp32 operator, the largest abs kernel-vs-plain
-    difference on its stacks, (iterations, solution) of the fp64 solve)."""
+    difference on its stacks, (iterations, solution) of the fp64 solve, the
+    symmetric fp32 Jacobi-PCG's iterations)."""
     t0 = time.perf_counter()
     a = fem_p1_2d(N_FEM)
     t_gen = time.perf_counter() - t0
@@ -981,7 +1041,7 @@ def phase_fem_main_path(dev):
         fail("the FEM main path launched no WELL kernel")
     show("8.main_path", launches=counts)
     phase_fem_plain_cg(runs[:2])
-    return counts["well"], its_per_s, a, runs[0][3], max_abs, fp64
+    return counts["well"], its_per_s, a, runs[0][3], max_abs, fp64, results[0][4].iterations
 
 
 def phase_fem_plain_cg(runs):
@@ -2620,6 +2680,719 @@ def phase_amg(a, plain_solves, dev, max_abs):
     return totals, head
 
 
+
+# --------------------------------------------------------------------------
+# phase 19: the general Krylov path and the transpose operator
+# --------------------------------------------------------------------------
+
+def convection_diffusion_2d(g: int, cx: float = 12.0, cy: float = 8.0) -> CSRHost:
+    """Upwind convection-diffusion on a g x g grid, the non-symmetric test
+    operator of the reference's SPAI tests (``tests/test_spai.py``),
+    vectorized: the 5-point pattern, constant diagonal 4 + (cx + cy) h, the
+    upwind west and south neighbours -1 - c h, the east and north -1. Its
+    transpose differs from it, so a shift in the wrong direction shows."""
+    n = g * g
+    h = 1.0 / (g + 1)
+    i = np.arange(n, dtype=np.int64)
+    ix, iy = i % g, i // g
+    parts = [(i, i, np.full(n, 4.0 + (cx + cy) * h))]
+    for ok, j, v in ((ix > 0, i - 1, -1.0 - cx * h), (ix < g - 1, i + 1, -1.0),
+                     (iy > 0, i - g, -1.0 - cy * h), (iy < g - 1, i + g, -1.0)):
+        parts.append((i[ok], j[ok], np.full(int(ok.sum()), v)))
+    rows, cols, vals = (np.concatenate(p) for p in zip(*parts))
+    return CSRHost.from_coo(rows, cols, vals, n, n)
+
+
+def row_scaled(a: CSRHost, seed: int) -> CSRHost:
+    """a with every row scaled by a factor in [0.5, 1.5): the same pattern
+    (and hub rows), non-symmetric values."""
+    s = np.random.default_rng(seed).uniform(0.5, 1.5, a.nrows)
+    return CSRHost(a.rowptr, a.colind,
+                   (a.values * np.repeat(s, a.row_nnz())).astype(a.values.dtype), a.ncols)
+
+
+SCATTER_ADDS = ((torch.Tensor, "index_add_"), (torch.Tensor, "index_add"),
+                (torch.Tensor, "scatter_add_"), (torch.Tensor, "scatter_add"),
+                (torch, "index_add"), (torch, "scatter_add"))
+
+
+@contextlib.contextmanager
+def no_scatter_add(tag: str):
+    """Every torch scatter-add (they sum with atomics on the card) fails the
+    run while the block is inside."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name in SCATTER_ADDS]
+
+    def refuse(*args, **kwargs):
+        fail(f"{tag}: an apply called a scatter-add")
+
+    for owner, name, _ in saved:
+        setattr(owner, name, refuse)
+    try:
+        yield
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def kernel_of(A) -> str | None:
+    """The single-RHS launch counter a vanilla operator's apply moves."""
+    return {"dia": "dia", "well": "well"}.get(A.local_format)
+
+
+def launch_counts() -> dict:
+    return {"dia": spmv_dia_cuda.launches["dia"], "dia_sym": spmv_dia_cuda.launches["dia_sym"],
+            "well": spmv_well_cuda.launches["well"]}
+
+
+def add_counts(totals: dict, got: dict) -> None:
+    for key, n in got.items():
+        totals[key] = totals.get(key, 0) + n
+
+
+def other_launches(got: dict) -> int:
+    """Launches of every kernel outside ``got``'s keys."""
+    return (single_launches() - sum(got.values()) + sum(block_launches().values()))
+
+
+def transpose_checks(tag, A, gen, max_abs) -> None:
+    """The kernels the transpose of A launches vs their plain versions at
+    the shapes they run: the shifted DIA data through dia_spmv, the WELL
+    transpose stack's row lists through well_spmv (TOL_KERNEL)."""
+    t = A._transpose_cache
+    dname = str(A.dtype).removeprefix("torch.")
+    x2 = torch.randn((A.n_devices * A.row_lane_rows, 128), generator=gen,
+                     dtype=A.dtype, device=A.device)
+    if A.local_format == "dia":
+        _, err, mabs, _ = compare(f"19a {tag} transpose", t["dia_data"], x2,
+                                  t["dia_offsets"], False, TOL_KERNEL[dname])
+        max_abs["dia_spmv"] = max(max_abs["dia_spmv"], mabs)
+        show("19a.kernel", kernel="dia_spmv", matrix=f"{tag}, A^T shifted",
+             rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
+             **plan_fields(t["dia_data"], t["dia_offsets"], False, 1))
+    elif A.local_format == "well":
+        rows = (t["rows_values"], t["rows_pos"], t["rows_ptr"], t["w0"])
+        y_k = spmv_well_cuda.spmv_well_stacked(*rows, x2, t["tile_groups"])
+        y_p = spmv_well_rows_plain(*rows, x2, t["tile_groups"])
+        _, err, mabs = check_close(f"19a {tag} transpose", y_k, y_p, TOL_KERNEL[dname])
+        max_abs["spmv_well"] = max(max_abs["spmv_well"], mabs)
+        show("19a.kernel", kernel="spmv_well", matrix=f"{tag}, A^T stack",
+             rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
+             **rows_stats(t["rows_ptr"], int((t["rows_values"] != 0).sum())))
+
+
+def transpose_case(tag, a, A, gen, max_abs, totals, bits_gate=False):
+    """19a, one operator: matvec_transpose and transposed().matvec (each
+    applied twice: the same bits, with every scatter-add refused) vs the
+    host float64 A^T x, gated at TRANSPOSE_TOL of || |A^T| |x| ||_inf; the
+    launches of those four applies exactly 2 on the kernel of A's format
+    and 2 on At's. ``bits_gate``: the two forms must give the same bits."""
+    dname = str(A.dtype).removeprefix("torch.")
+    t0 = time.perf_counter()
+    At = A.transposed()
+    t_rebuild = time.perf_counter() - t0
+    if A.transposed() is not At or At.transposed() is not A:
+        fail(f"19a {tag}: transposed() is not cached")
+    np_dtype = np.float64 if A.dtype == torch.float64 else np.float32
+    q_host = np.random.default_rng(19).standard_normal(a.nrows).astype(np_dtype)
+    q = A.to_dist(q_host, side="row")
+    qt = At.to_dist(q_host)  # A^T's own layout (its format may pad otherwise)
+    t0 = time.perf_counter()
+    A.matvec_transpose(q)  # the first apply builds the transpose's tables
+    torch.cuda.synchronize()
+    t_tables = time.perf_counter() - t0
+    transpose_checks(tag, A, gen, max_abs)
+    torch.cuda.synchronize()
+    reset_counters()
+    with no_scatter_add(f"19a {tag}"):
+        y = same_bits(f"19a {tag} matvec_transpose", lambda: A.matvec_transpose(q))
+        y_t = same_bits(f"19a {tag} transposed().matvec", lambda: At.matvec(qt))
+    torch.cuda.synchronize()
+    got = launch_counts()
+    want = {"dia": 0, "dia_sym": 0, "well": 0}
+    for op in (A, At):
+        if kernel_of(op):
+            want[kernel_of(op)] += 2
+    if got != want or other_launches(got):
+        fail(f"19a {tag}: launches {got}, want {want}")
+    add_counts(totals, got)
+    at = a.transpose()
+    want_y = at.matvec(q_host.astype(np.float64))
+    scale = float(np.abs(CSRHost(at.rowptr, at.colind, np.abs(at.values), at.ncols)
+                         .matvec(np.abs(q_host.astype(np.float64)))).max())
+    errs = [float(np.abs(v.astype(np.float64) - want_y).max()) / scale
+            for v in (A.from_dist(y, side="col"), At.from_dist(y_t))]
+    bits = y.shape == y_t.shape and bool(torch.equal(y, y_t))
+    show("19a.transpose", case=tag, rows=a.nrows, cols=a.ncols, shards=A.n_devices,
+         format=A.local_format, transposed_format=At.local_format, dtype=dname,
+         hub_nnz=A.hub_nnz, far_nnz=A.well_far_nnz, ghost_rounds=list(A.plan.rounds),
+         err_matvec_transpose=errs[0], err_transposed=errs[1], gate=TRANSPOSE_TOL[dname],
+         same_bits_both_forms=bits, transposed_rebuild_s=t_rebuild,
+         transpose_tables_s=t_tables, launches=got)
+    if max(errs) > TRANSPOSE_TOL[dname]:
+        fail(f"19a {tag}: A^T x {max(errs):.3e} from the host (gate "
+             f"{TRANSPOSE_TOL[dname]:.0e} of || |A^T| |x| ||_inf)")
+    if bits_gate and not bits:
+        fail(f"19a {tag}: matvec_transpose and transposed().matvec gave other bits")
+    return At
+
+
+def phase_transpose(dev, max_abs, totals):
+    """Phase 19a: the transpose operator on non-symmetric operators. Returns
+    the 3200^2 convection-diffusion CSR and its fp32 DIA operator (19e's
+    LSQR reuses both, and the cached transpose)."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    t0 = time.perf_counter()
+    a = convection_diffusion_2d(NX)
+    show("19a.generate", matrix=f"convection-diffusion {NX}^2", rows=a.nrows, nnz=a.nnz,
+         seconds=time.perf_counter() - t0)
+    A32 = None
+    for dt in (np.float32, np.float64):
+        A = build_dist_matrix(a, n_devices=1, dtype=dt, local_format="dia", device=dev)
+        transpose_case(f"convection-diffusion {NX}^2 {np.dtype(dt).name}", a, A, gen,
+                       max_abs, totals, bits_gate=True)
+        if dt == np.float32:
+            A32 = A
+        del A
+    a512 = convection_diffusion_2d(HALO_NX)
+    for fmt in ("dia", "ell"):
+        for dt in (np.float32, np.float64):
+            A = build_dist_matrix(a512, n_devices=HALO_D, dtype=dt, local_format=fmt,
+                                  device=dev)
+            transpose_case(f"convection-diffusion {HALO_NX}^2 {fmt} D={HALO_D} "
+                           f"{np.dtype(dt).name}", a512, A, gen, max_abs, totals)
+    fem, _ = rcm_reorder(fem_p1_2d(HALO_FEM), keep_best=True)
+    fem = row_scaled(fem, 19)
+    for dt in (np.float32, np.float64):
+        A = build_dist_matrix(fem, n_devices=HALO_D, dtype=dt, local_format="well",
+                              device=dev)
+        transpose_case(f"fem_p1_2d({HALO_FEM}) RCM row-scaled well D={HALO_D} "
+                       f"{np.dtype(dt).name}", fem, A, gen, max_abs, totals)
+    hub = row_scaled(powerlaw_laplacian(HUB_N, seed=19), 19)
+    A = build_dist_matrix(hub, n_devices=HALO_D, dtype=np.float32, local_format="ell",
+                          device=dev)
+    if A.hub_nnz == 0:
+        fail("19a: the power-law operator split no hub rows")
+    transpose_case(f"powerlaw_laplacian({HUB_N}) row-scaled ell D={HALO_D} hub rows",
+                   hub, A, gen, max_abs, totals)
+    return a, A32
+
+
+@dataclasses.dataclass
+class Restarted:
+    """BiCGStab restarted from its last good iterate after each breakdown
+    (``bicgstab_restarted``): the last call's result, with ``iterations``
+    summed over the calls and ``calls`` the (iterations, breakdown) of
+    each."""
+    x: torch.Tensor
+    iterations: int
+    rnorm: torch.Tensor
+    rnorm0: torch.Tensor
+    converged: bool
+    breakdown: bool
+    calls: list
+
+
+def bicgstab_restarted(matvec, b, kmax, rtol, preconditioner=None) -> Restarted:
+    """BiCGStab to ``rtol`` of the first residual within ``kmax`` iterations
+    in all, restarted from the returned iterate whenever the reference's
+    relative breakdown guard (4 eps of |rhat||r|, which fires in float32 on
+    the convection-diffusion operator) stops it, as its documentation
+    prescribes; each restart's rtol is scaled to the first residual."""
+    res = bicgstab(matvec, b, kmax=kmax, rtol=rtol, preconditioner=preconditioner)
+    rnorm0, calls = res.rnorm0, [(res.iterations, res.breakdown)]
+    total = res.iterations
+    while res.breakdown and not res.converged and total < kmax:
+        scaled = rtol * float(rnorm0) / max(float(res.rnorm), 1e-300)
+        res = bicgstab(matvec, b, x0=res.x, kmax=kmax - total, rtol=scaled,
+                       preconditioner=preconditioner)
+        calls.append((res.iterations, res.breakdown))
+        total += res.iterations
+    return Restarted(x=res.x, iterations=total, rnorm=res.rnorm, rnorm0=rnorm0,
+                     converged=bool(float(res.rnorm) / float(rnorm0) < rtol),
+                     breakdown=res.breakdown, calls=calls)
+
+
+def solve_launches(name, res, A, per_cycle: int) -> dict:
+    """The exact launches of a 19b solve: the outer operator's applies on
+    its kernel, each preconditioner apply ``per_cycle`` dia_spmv launches
+    (the AMG cycle's level applies, every level vanilla DIA)."""
+    k = res.iterations
+    if name in ("gmres", "fgmres"):
+        outer = 1 + k + res.cycles
+        prec = k + (0 if name == "fgmres" else res.cycles)
+    elif name == "bicgstab":
+        # each call: its first residual, two applies an iteration, and two
+        # in the iteration that broke down
+        bodies = [ki + int(brk) for ki, brk in res.calls]
+        outer, prec = len(bodies) + 2 * sum(bodies), 2 * sum(bodies)
+    else:  # minres, cg: the first residual and one apply an iteration
+        outer, prec = 1 + k, 1 + k
+    want = {"dia": prec * per_cycle, "dia_sym": 0, "well": 0}
+    want["dia_sym" if A.symmetric else "dia"] += outer
+    return want
+
+
+def phase_general_krylov(a, head, plain_solves, dev, totals):
+    """Phase 19b: GMRES(30), FGMRES(30), BiCGStab and MINRES (on symmetric
+    storage) preconditioned by 18a's AMG hierarchy at NX^2, fp32, rtol
+    KRYLOV_RTOL, beside AMG-PCG on the same right-hand side b = A x* (x* a
+    seeded standard normal, so that |A||x| is of the order of ||b|| and the
+    fp32 residual means something). Gates: converged; the launches exact;
+    a second solve gives the same bits; the float64 host residual (MINRES:
+    in the preconditioner's norm, the quantity it reports) within
+    KRYLOV_RESIDUAL_GATE * rtol of the reported one. Returns the symmetric
+    fp32 operator (19e) and the AMG-GMRES run on the Gaussian bump (19f's
+    yardstick for the demo)."""
+    A, h = head
+    per_cycle = sum(amg_cycle_applies(h))
+    prec = h.as_preconditioner()
+    n = a.nrows
+    x_star = np.random.default_rng(19).standard_normal(n)
+    b_host = a.matvec(x_star).astype(np.float32)
+    b64 = b_host.astype(np.float64)
+    t0 = time.perf_counter()
+    As = build_dist_matrix(a, n_devices=1, symmetric=True, dtype=np.float32,
+                           local_format="dia", device=dev)
+    t_sym = time.perf_counter() - t0
+    b, bs = A.to_dist(b_host), As.to_dist(b_host)
+    cycles = -(-AMG_KRYLOV_KMAX // GMRES_RESTART)
+    runs = {
+        "gmres": (A, lambda: gmres(A.matvec, b, restart=GMRES_RESTART, max_cycles=cycles,
+                                   rtol=KRYLOV_RTOL, preconditioner=prec)),
+        "fgmres": (A, lambda: gmres(A.matvec, b, restart=GMRES_RESTART, max_cycles=cycles,
+                                    rtol=KRYLOV_RTOL, preconditioner=prec, flexible=True)),
+        "bicgstab": (A, lambda: bicgstab_restarted(A.matvec, b, AMG_KRYLOV_KMAX,
+                                                   KRYLOV_RTOL, preconditioner=prec)),
+        "minres": (As, lambda: minres(As.matvec, bs, kmax=AMG_KRYLOV_KMAX,
+                                      rtol=KRYLOV_RTOL, preconditioner=prec)),
+        "cg": (A, lambda: cg(A.matvec, b, kmax=AMG_KRYLOV_KMAX, rtol=KRYLOV_RTOL,
+                             preconditioner=prec)),
+    }
+    out = {}
+    for name, (op, run) in runs.items():
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = launch_counts()
+        want = solve_launches(name, res, op, per_cycle)
+        if got != want or other_launches(got):
+            fail(f"19b {name}: launches {got}, want {want} for {res.iterations} iterations")
+        add_counts(totals, got)
+        again = run()
+        if not torch.equal(again.x, res.x) or again.iterations != res.iterations:
+            fail(f"19b {name}: a second solve gave other bits")
+        x = op.from_dist(res.x).astype(np.float64)
+        r64 = b64 - a.matvec(x)
+        if name == "minres":
+            # MINRES reports phibar, the residual in the M^-1 inner product
+            r32 = op.to_dist(r64.astype(np.float32))
+            true_rel = float(torch.sqrt(torch.vdot(r32.reshape(-1), prec(r32).reshape(-1)))
+                             / res.rnorm0)
+        else:
+            true_rel = float(np.linalg.norm(r64) / np.linalg.norm(b64))
+        rep_rel = float(res.rnorm) / float(res.rnorm0)
+        fields = dict(solver=name, matrix=f"laplace2d {NX}^2", storage=(
+            "symmetric dia" if op.symmetric else "vanilla dia"), preconditioner="amg",
+            rtol=KRYLOV_RTOL, iterations=res.iterations, converged=res.converged,
+            cycles=getattr(res, "cycles", None), bicgstab_calls=getattr(res, "calls", None),
+            solve_s=seconds, it_per_s=res.iterations / seconds, reported_rel_residual=rep_rel,
+            host_rel_residual=true_rel, residual_gate=KRYLOV_RESIDUAL_GATE * KRYLOV_RTOL,
+            launches=got)
+        show("19b.krylov", **fields)
+        if not res.converged:
+            fail(f"19b {name}: not converged in {res.iterations} iterations")
+        if not abs(true_rel - rep_rel) <= KRYLOV_RESIDUAL_GATE * KRYLOV_RTOL:
+            fail(f"19b {name}: host residual {true_rel:.3e} vs reported {rep_rel:.3e}")
+        out[name] = res.iterations
+    show("19b.summary", iterations=out, symmetric_assemble_s=t_sym)
+    # 19f's yardstick: the demo's own solve (AMG-GMRES on 18a's Gaussian
+    # bump, whose float32 true residual stops near 0.13 ||b||), beside
+    # 18a's AMG-PCG on it
+    bump = A.to_dist(gaussian_bump(n, dtype=np.float32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gmres(A.matvec, bump, restart=GMRES_RESTART, max_cycles=cycles,
+                rtol=KRYLOV_RTOL, preconditioner=prec)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    pcg = cg(A.matvec, bump, kmax=AMG_KRYLOV_KMAX, rtol=KRYLOV_RTOL, preconditioner=prec)
+    x = A.from_dist(res.x).astype(np.float64)
+    bump_run = (res.converged, res.iterations,
+                float(np.linalg.norm(a.matvec(x) - A.from_dist(bump).astype(np.float64))),
+                float(np.linalg.norm(x)))
+    show("19b.bump", matrix=f"laplace2d {NX}^2", rhs="gaussian bump (18a's)",
+         gmres_iterations=res.iterations, gmres_cycles=res.cycles,
+         gmres_converged=res.converged, gmres_solve_s=seconds,
+         gmres_reported_rel_residual=float(res.rnorm) / float(res.rnorm0),
+         amg_pcg_iterations=pcg.iterations, amg_pcg_converged=pcg.converged)
+    return As, bump_run
+
+
+def phase_fsai(a_fem, A_fem, jacobi_its, dev, max_abs, totals):
+    """Phase 19c: FSAI-PCG on phase 8's RCM'd 800k FEM, fp32, G and G^T as
+    vanilla WELL operators built with A's own settings (fsai_preconditioner,
+    its setup timed in its parts). Gates: G's and G^T's stacks through
+    well_spmv vs plain; converged in fewer iterations than phase 8's
+    Jacobi-PCG; 4 WELL launches a preconditioned iteration (L and L^T of A,
+    G, G^T), exactly."""
+    split = {}
+    prec = fsai_preconditioner(A_fem, timings=split)
+    G, Gt = prec.operators
+    g_nnz = G.nnz_global
+    rng = np.random.default_rng(19)
+    for tag, op in (("G", G), ("G^T", Gt)):
+        if op.local_format != "well" or op.symmetric:
+            fail(f"19c: {tag} is {op.local_format} (symmetric {op.symmetric}), not vanilla well")
+        x2 = op.to_dist(rng.standard_normal(a_fem.nrows).astype(np.float32))
+        _, err, mabs = well_compare(f"19c FSAI {tag}", dist_rows(op), dist_well(op), x2,
+                                    op.well_meta[2], TOL_KERNEL["float32"])
+        max_abs["spmv_well"] = max(max_abs["spmv_well"], mabs)
+        show("19c.kernel", kernel="spmv_well", matrix=f"FSAI {tag} of fem_p1_2d {N_FEM} RCM",
+             nnz=g_nnz, far_nnz=op.well_far_nnz, row_pad=op.row_pad, a_row_pad=A_fem.row_pad,
+             rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
+             **rows_stats(op.local_rows_ptr, g_nnz))
+
+    b_host = gaussian_bump(a_fem.nrows, dtype=np.float32)
+    b = A_fem.to_dist(b_host)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = cg(A_fem.matvec, b, kmax=20000, rtol=KRYLOV_RTOL, preconditioner=prec)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launch_counts()
+    want = {"dia": 0, "dia_sym": 0, "well": 4 * (res.iterations + 1)}
+    if got != want or other_launches(got):
+        fail(f"19c: launches {got}, want {want} for {res.iterations} iterations")
+    add_counts(totals, got)
+    x = A_fem.from_dist(res.x).astype(np.float64)
+    bh = b_host.astype(np.float64)
+    show("19c.fsai_pcg", matrix=f"fem_p1_2d {N_FEM} RCM", format=A_fem.local_format,
+         symmetric=A_fem.symmetric, dtype="float32", rtol=KRYLOV_RTOL,
+         fsai_setup_s=split["setup"], g_assemble_s=split["assemble"],
+         transposed_s=split["transposed"], g_nnz=g_nnz,
+         iterations=res.iterations, converged=res.converged, solve_s=seconds,
+         it_per_s=res.iterations / seconds,
+         reported_rel_residual=float(res.rnorm) / float(res.rnorm0),
+         host_rel_residual=float(np.linalg.norm(bh - a_fem.matvec(x)) / np.linalg.norm(bh)),
+         jacobi_pcg_iterations=jacobi_its, launches=got)
+    if not (res.converged and res.iterations < jacobi_its):
+        fail(f"19c: FSAI-PCG converged {res.converged} in {res.iterations} iterations, "
+             f"Jacobi-PCG {jacobi_its}")
+
+
+def phase_spai(dev, max_abs, totals):
+    """Phase 19d: SPAI-preconditioned GMRES(30) and BiCGStab on the
+    convection-diffusion operator at SPAI_NX^2, vanilla DIA, fp32, beside
+    Jacobi (a pure rescale here: the diagonal is constant); M built with A's
+    own settings (spai_preconditioner, its setup timed in its parts) and its
+    DIA stack through dia_spmv vs plain. Gates: the SPAI solves
+    converge; every solve's launches exact."""
+    a = convection_diffusion_2d(SPAI_NX)
+    A = build_dist_matrix(a, n_devices=1, dtype=np.float32, local_format="dia", device=dev)
+    split = {}
+    spai = spai_preconditioner(A, timings=split)
+    (M,) = spai.operators
+    if M.local_format != "dia":
+        fail(f"19d: M is {M.local_format}, not dia")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    x2 = torch.randn((M.row_lane_rows, 128), generator=gen, dtype=torch.float32, device=dev)
+    _, err, mabs, _ = compare("19d SPAI M", M.local_dia_data, x2, M.dia_offsets, False,
+                              TOL_KERNEL["float32"])
+    max_abs["dia_spmv"] = max(max_abs["dia_spmv"], mabs)
+    show("19d.kernel", kernel="dia_spmv", matrix=f"SPAI M of convection-diffusion "
+         f"{SPAI_NX}^2", ndiags=len(M.dia_offsets), rel_l2_vs_plain=err,
+         max_abs_vs_plain=mabs, **plan_fields(M.local_dia_data, M.dia_offsets, False, 1))
+    b_host = a.matvec(np.random.default_rng(19).standard_normal(a.nrows)).astype(np.float32)
+    b = A.to_dist(b_host)
+    cycles = -(-SPAI_KMAX // GMRES_RESTART)
+    found = {}
+    for solver in ("gmres", "bicgstab"):
+        for pname, prec in (("spai", spai), ("jacobi", A.jacobi_preconditioner())):
+            torch.cuda.synchronize()
+            reset_counters()
+            t0 = time.perf_counter()
+            if solver == "gmres":
+                res = gmres(A.matvec, b, restart=GMRES_RESTART, max_cycles=cycles,
+                            rtol=KRYLOV_RTOL, preconditioner=prec)
+            else:
+                res = bicgstab_restarted(A.matvec, b, SPAI_KMAX, KRYLOV_RTOL,
+                                         preconditioner=prec)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = launch_counts()
+            want = solve_launches(solver, res, A, 1 if pname == "spai" else 0)
+            if got != want or other_launches(got):
+                fail(f"19d {solver} {pname}: launches {got}, want {want}")
+            add_counts(totals, got)
+            found[f"{solver} {pname}"] = res.iterations
+            show("19d.spai", solver=solver, preconditioner=pname,
+                 matrix=f"convection-diffusion {SPAI_NX}^2", rtol=KRYLOV_RTOL,
+                 iterations=res.iterations, converged=res.converged,
+                 cycles=getattr(res, "cycles", None),
+                 bicgstab_calls=getattr(res, "calls", None), solve_s=seconds,
+                 spai_setup_s=split["setup"], m_assemble_s=split["assemble"],
+                 m_nnz=M.nnz_global,
+                 reported_rel_residual=float(res.rnorm) / float(res.rnorm0), launches=got)
+            if pname == "spai" and not res.converged:
+                fail(f"19d: SPAI-{solver} did not converge in {res.iterations}")
+    show("19d.summary", iterations=found)
+
+
+def phase_lsqr_pipelined(a_cd, A_cd, As, plain_solves, dev, totals):
+    """Phase 19e: (a) LSQR, a fixed LSQR_ITERS iterations on 19a's NX^2
+    convection-diffusion fp32 DIA operator with its cached transpose as
+    rmatvec, beside the same run on the plain versions on the card: the
+    rnorm histories within LSQR_TOL relative, 1 + 2 * LSQR_ITERS dia_spmv
+    launches; (b) cg_pipelined on the symmetric fp32 NX^2 Laplacian (19b's
+    operator) to 1e-6, beside phase 4's cg count, 2 + k dia_sym_spmv
+    launches."""
+    At = A_cd.transposed()
+    b = A_cd.to_dist(gaussian_bump(a_cd.nrows, dtype=np.float32), side="row")
+    runs = {}
+    for tag in ("kernel", "plain"):
+        if tag == "kernel":
+            mv, rmv = A_cd.matvec, At.matvec
+        else:
+            def mv(p):
+                return spmv_dia_stacked_plain(A_cd.local_dia_data, p, A_cd.dia_offsets, False)
+
+            def rmv(p):
+                return spmv_dia_stacked_plain(At.local_dia_data, p, At.dia_offsets, False)
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        res = lsqr(mv, rmv, b, kmax=LSQR_ITERS, atol=0.0, btol=0.0)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        runs[tag] = (res, time.perf_counter() - t0, got, other_launches(got))
+    res, seconds, got, others = runs["kernel"]
+    want = {"dia": 1 + 2 * LSQR_ITERS, "dia_sym": 0, "well": 0}
+    if (got != want or others or runs["plain"][3]
+            or runs["plain"][2] != {"dia": 0, "dia_sym": 0, "well": 0}):
+        fail(f"19e LSQR: launches {got} (plain run {runs['plain'][2]}), want {want}")
+    add_counts(totals, got)
+    hk, hp = (runs[t][0].history.cpu().numpy().astype(np.float64) for t in ("kernel", "plain"))
+    diff = float(np.max(np.abs(hk - hp) / np.abs(hp)))
+    show("19e.lsqr", matrix=f"convection-diffusion {NX}^2", iterations=res.iterations,
+         istop=res.istop, rnorm0=float(res.rnorm0), rnorm=float(res.rnorm),
+         arnorm=float(res.arnorm), history_rel_diff_vs_plain=diff, gate=LSQR_TOL,
+         solve_s=seconds, plain_solve_s=runs["plain"][1], launches=got)
+    if res.iterations != LSQR_ITERS or not diff <= LSQR_TOL or not np.all(np.isfinite(hk)):
+        fail(f"19e LSQR: {res.iterations} iterations, history {diff:.3e} from plain")
+    bs = As.to_dist(gaussian_bump(As.nrows_global, dtype=np.float32))
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = cg_pipelined(As.matvec, bs, kmax=20000, rtol=1e-6)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launch_counts()
+    want = {"dia": 0, "dia_sym": 2 + res.iterations, "well": 0}
+    if got != want or other_launches(got):
+        fail(f"19e cg_pipelined: launches {got}, want {want}")
+    add_counts(totals, got)
+    cg_its = plain_solves["symmetric float32"][0]
+    show("19e.cg_pipelined", matrix=f"laplace2d {NX}^2 symmetric dia float32", rtol=1e-6,
+         iterations=res.iterations, converged=res.converged, solve_s=seconds,
+         it_per_s=res.iterations / seconds, cg_iterations=cg_its,
+         reported_rel_residual=float(res.rnorm) / float(res.rnorm0), launches=got)
+    if not res.converged:
+        fail(f"19e cg_pipelined: not converged in {res.iterations}")
+
+
+def demo_lines(out: str) -> dict:
+    """A demo_cg run's printed result: converged, iterations, r.norm, x.norm."""
+    line = next(ln for ln in out.splitlines() if ln.startswith("Converged:"))
+    return dict(converged=line.split()[1] == "True",
+                iterations=int(line.split(" in ")[1].split()[0]),
+                r_norm=float(out.split("r.norm = ")[1].split()[0]),
+                x_norm=float(out.split("x.norm = ")[1].split()[0]))
+
+
+@dataclasses.dataclass
+class Demos:
+    """19f's demo subprocesses: their commands, processes, logs and inputs."""
+    work: Path
+    cmds: dict
+    procs: dict
+    logs: dict
+    t0: float
+    seconds: float = 0.0
+
+
+def start_demos() -> Demos:
+    """Phase 19f, first half: write the demos' input files and start the
+    four demos as subprocesses on the card, all together (each waits on its
+    own host work most of the time), before 19a, whose host rebuilds they
+    overlap (``wait_demos`` joins them before 19b's timed solves):
+    (1) demo_cg --lap2d NX --dia --fp32 --amg --solver gmres; (2) demo_cg
+    --petsc/--rhs --dia --solver bicgstab on PETSc files of the port's
+    writers (the convection-diffusion operator at DEMO_NX^2, float64);
+    (3) demo_cg --mtx --format auto --symmetric --fp32 --fsai on the RCM'd
+    fem_p1_2d(HALO_FEM) written by the port's Matrix Market writer;
+    (4) demo_restrict --n DEMO_RESTRICT_N --devices 4."""
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_demos"
+    work.mkdir(parents=True, exist_ok=True)
+    a_cd = convection_diffusion_2d(DEMO_NX)
+    write_petsc_binary_matrix(str(work / "cd.petsc"), a_cd)
+    write_petsc_binary_vector(str(work / "cd_rhs.petsc"),
+                              np.random.default_rng(19).standard_normal(a_cd.nrows))
+    fem, _ = rcm_reorder(fem_p1_2d(HALO_FEM), keep_best=True)
+    write_matrix_market(str(work / "fem.mtx"), fem)
+    demo = [sys.executable, "-m", "spmv_torch.demos.demo_cg"]
+    cmds = {
+        "amg_gmres": demo + ["--lap2d", str(NX), "--dia", "--fp32", "--amg", "--solver",
+                             "gmres", "--rtol", str(KRYLOV_RTOL), "--kmax",
+                             str(AMG_KRYLOV_KMAX)],
+        "petsc_bicgstab": demo + ["--petsc", str(work / "cd.petsc"), "--rhs",
+                                  str(work / "cd_rhs.petsc"), "--dia", "--solver", "bicgstab",
+                                  "--rtol", str(DEMO_RTOL), "--kmax", str(DEMO_KMAX)],
+        "mtx_fsai": demo + ["--mtx", str(work / "fem.mtx"), "--format", "auto",
+                            "--symmetric", "--fp32", "--fsai", "--rtol", "1e-6",
+                            "--kmax", "20000"],
+        "restrict": [sys.executable, "-m", "spmv_torch.demos.demo_restrict", "--n",
+                     str(DEMO_RESTRICT_N), "--devices", "4"],
+    }
+    demos = Demos(work, cmds, {}, {}, time.perf_counter())
+    try:
+        for name, cmd in cmds.items():
+            demos.logs[name] = open(work / f"{name}.log", "w+")
+            demos.procs[name] = subprocess.Popen(
+                cmd, stdout=demos.logs[name], stderr=subprocess.STDOUT,
+                cwd=Path(__file__).resolve().parent)
+    except BaseException:
+        stop_demos(demos)
+        raise
+    return demos
+
+
+def stop_demos(demos: Demos) -> None:
+    """Kill whatever demo still runs and close the logs."""
+    for p in demos.procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for fh in demos.logs.values():
+        fh.close()
+
+
+def wait_demos(demos: Demos) -> None:
+    """Join every demo within DEMO_TIMEOUT of their start; fail past it."""
+    try:
+        for name, p in demos.procs.items():
+            try:
+                p.wait(timeout=max(DEMO_TIMEOUT - (time.perf_counter() - demos.t0), 1))
+            except subprocess.TimeoutExpired:
+                fail(f"19f {name}: still running after {DEMO_TIMEOUT} s")
+    finally:
+        demos.seconds = time.perf_counter() - demos.t0
+        stop_demos(demos)
+    show("19f.demos_done", seconds_all_demos=demos.seconds)
+
+
+def check_demos(demos: Demos, bump_run, dev) -> None:
+    """Phase 19f, second half: each demo exited 0, and its printed residual
+    agrees with the same solve in this process: (1) 19b's AMG-GMRES run on
+    the same Gaussian bump (the demo's AMG levels are ELL, this process's
+    DIA: iterations within 1, r.norm within DEMO_AMG_TOL); (2) and (3) the
+    same iterations and r.norm to 1e-10 and 1e-6, run here on the same
+    files; (4) its printed norms equal the host CSR's to 1e-12."""
+    from spmv_torch.demos.demo_restrict import restriction_1d
+
+    work = demos.work
+    a_cd = read_petsc_binary_matrix_host(str(work / "cd.petsc"))
+    A = build_dist_matrix(a_cd, n_devices=1, dtype=np.float64, local_format="dia", device=dev)
+    b = read_petsc_binary_vector_host(str(work / "cd_rhs.petsc"))
+    res = bicgstab(A.matvec, A.to_dist(b), kmax=DEMO_KMAX, rtol=DEMO_RTOL)
+    x = A.from_dist(res.x)
+    mine = {"petsc_bicgstab": dict(converged=res.converged, iterations=res.iterations,
+                                   r_norm=float(np.linalg.norm(a_cd.matvec(x) - b)),
+                                   x_norm=float(np.linalg.norm(x)))}
+    f = read_matrix_market(str(work / "fem.mtx"))
+    A = build_dist_matrix(f, n_devices=1, symmetric=True, dtype=np.float32,
+                          local_format="auto", device=dev)
+    bf = gaussian_bump(f.nrows, dtype=np.float32)
+    res = cg(A.matvec, A.to_dist(bf), kmax=20000, rtol=1e-6,
+             preconditioner=fsai_preconditioner(A, local_format="auto"))
+    x = A.from_dist(res.x)
+    mine["mtx_fsai"] = dict(converged=res.converged, iterations=res.iterations,
+                            r_norm=float(np.linalg.norm(
+                                f.matvec(x.astype(np.float64)) - bf.astype(np.float64))),
+                            x_norm=float(np.linalg.norm(x)))
+    mine["amg_gmres"] = dict(zip(("converged", "iterations", "r_norm", "x_norm"), bump_run))
+    rmat = restriction_1d(DEMO_RESTRICT_N)
+    coarse = rmat.matvec(gaussian_bump(DEMO_RESTRICT_N))
+    norms = {"|R f|    = ": np.linalg.norm(coarse),
+             "|R^T R f|= ": np.linalg.norm(rmat.transpose().matvec(coarse))}
+    for name, p in demos.procs.items():
+        out = (work / f"{name}.log").read_text()
+        cmd = " ".join(demos.cmds[name][1:])
+        if p.returncode != 0:
+            fail(f"19f {name}: exit {p.returncode}: {out[-2000:]}")
+        if name == "restrict":
+            got = {k: float(out.split(k)[1].split()[0]) for k in norms}
+            errs = {k: abs(got[k] - v) / v for k, v in norms.items()}
+            show("19f.demo", demo=name, cmd=cmd, printed=got,
+                 rel_diff_vs_host=list(errs.values()), seconds_all_demos=demos.seconds)
+            if max(errs.values()) > 1e-12 or "verified against the host CSR" not in out:
+                fail(f"19f restrict: printed norms {got}, host {norms}")
+            continue
+        got, want = demo_lines(out), mine[name]
+        tol_its, tol_r = {"amg_gmres": (1, DEMO_AMG_TOL), "petsc_bicgstab": (0, 1e-10),
+                          "mtx_fsai": (0, 1e-6)}[name]
+        rdiff = abs(got["r_norm"] - want["r_norm"]) / max(want["r_norm"], 1e-300)
+        show("19f.demo", demo=name, cmd=cmd, printed=got, this_process=want,
+             r_norm_rel_diff=rdiff, seconds_all_demos=demos.seconds)
+        # AMG-GMRES tests the true residual, which in float32 stops at the
+        # bump's floor (phase 18a: 0.13 ||b|| at NX^2): there the two runs
+        # must agree on not converging
+        converged_ok = (got["converged"] == want["converged"] if name == "amg_gmres"
+                        else got["converged"] and want["converged"])
+        if not (converged_ok and np.isfinite(got["r_norm"])
+                and abs(got["iterations"] - want["iterations"]) <= tol_its
+                and rdiff <= tol_r):
+            fail(f"19f {name}: printed {got}, this process's run {want}")
+
+
+def phase_krylov(a_lap, head, plain_solves, a_fem, A_fem, jacobi_its, dev, max_abs):
+    """Phase 19: the general Krylov path and the transpose operator (19a-f;
+    19f's demos run beside 19a and are checked last). Returns the
+    single-RHS launch counts of its gated runs."""
+    totals = {"dia": 0, "dia_sym": 0, "well": 0}
+    t0 = time.perf_counter()
+    demos = start_demos()
+    try:
+        a_cd, A_cd = phase_transpose(dev, max_abs, totals)
+    except BaseException:
+        stop_demos(demos)
+        raise
+    show("19a.seconds", seconds=time.perf_counter() - t0)
+    wait_demos(demos)
+    t0 = time.perf_counter()
+    As, bump_run = phase_general_krylov(a_lap, head, plain_solves, dev, totals)
+    show("19b.seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_fsai(a_fem, A_fem, jacobi_its, dev, max_abs, totals)
+    show("19c.seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_spai(dev, max_abs, totals)
+    show("19d.seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_lsqr_pipelined(a_cd, A_cd, As, plain_solves, dev, totals)
+    del A_cd, As
+    show("19e.seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    check_demos(demos, bump_run, dev)
+    show("19f.seconds", seconds=time.perf_counter() - t0,
+         demos_seconds_beside_19a=demos.seconds)
+    show("19.krylov", launches=totals)
+    return totals
+
+
 def dia_csr(A) -> CSRHost:
     """The host CSR of a one-shard DIA operator's stored entries."""
     k = len(A.dia_offsets)
@@ -2999,7 +3772,8 @@ def main() -> int:
     max_abs["spmv_well"], a4, w4 = phase_well_kernel(dev)
     show("7.seconds", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    counts["well"], fem_its, a_fem, A_fem, fem_abs, fem_fp64 = phase_fem_main_path(dev)
+    (counts["well"], fem_its, a_fem, A_fem, fem_abs, fem_fp64,
+     fem_jacobi_its) = phase_fem_main_path(dev)
     max_abs["spmv_well"] = max(max_abs["spmv_well"], fem_abs)
     show("8.seconds", seconds=time.perf_counter() - t0, it_per_s=fem_its)
     t0 = time.perf_counter()
@@ -3039,6 +3813,12 @@ def main() -> int:
     for key, n in amg_counts.items():
         counts[key] += n
     show("18.seconds", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    for key, n in phase_krylov(a, amg_head, plain_solves, a_fem, A_fem, fem_jacobi_its,
+                               dev, max_abs).items():
+        counts[key] += n
+    show("19.seconds", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     timing = phase_timing_all(a, times, a4, w4, a_fem, A_fem, dev)

@@ -8,7 +8,8 @@ spmv_tpu (JAX/Pallas)  spmv_torch (PyTorch/CUDA)
 formats.csr            formats.csr   (host CSR, numpy, carried across)
 ds                     ds            (double-single on torch tensors)
 gen                    gen           (numpy generators)
-formats.dia            formats.dia   (DiaMatrix holding a torch tensor)
+formats.dia            formats.dia   (DiaMatrix holding a torch tensor,
+                       dia_transpose)
 formats.well           formats.well  (WellMatrix, SymWellMatrix; numpy packer)
 ops.spmv_dia           ops.spmv_dia  (plain torch DIA apply, CPU path)
 ops.spmv_dia_pallas    ops.spmv_dia_cuda + csrc/spmv_dia.cu (sm_90a)
@@ -27,12 +28,20 @@ ops.spmm_well_pallas   ops.spmm_well (plain torch) + ops.spmm_well_cuda +
 corpus                 corpus        (numpy + scipy generators)
 reorder                reorder       (numpy RCM)
 io.matrix_market       io.matrix_market
+io.petsc               io.petsc      (numpy reader and writers)
 parallel.partition     parallel.partition
 parallel.comm_plan     parallel.comm_plan (shards stacked on one device)
 parallel.dist_matrix   parallel.dist_matrix (ell, dia, dia_ds, well,
                        well_ds, auto; matvec_ds, matmat, matmat_ds;
-                       rectangular ELL, hub rows)
-solvers.cg             solvers.cg
+                       rectangular ELL, hub rows; matvec_transpose,
+                       transposed)
+solvers.cg             solvers.cg    (cg, cg_pipelined)
+solvers.bicgstab       solvers.bicgstab
+solvers.gmres          solvers.gmres (GMRES(m) and FGMRES)
+solvers.minres         solvers.minres
+solvers.lsqr           solvers.lsqr
+solvers.spai           solvers.spai  (numpy setup, DistMatrix apply)
+solvers.fsai           solvers.fsai  (numpy setup, DistMatrix applies)
 solvers.refine         solvers.refine (cg_refined, cg_refined_dist)
 solvers.block_cg       solvers.block_cg (block_cg, block_cg_dia,
                        block_cg_refined, block_cg_refined_dist; inner
@@ -44,6 +53,7 @@ solvers.amg            solvers.amg   (numpy setup, cycle in plain torch
 solvers.precond        solvers.precond (block Jacobi)
 utils.timing           utils.timing  (CUDA events)
 demos.demo_cg          demos.demo_cg
+demos.demo_restrict    demos.demo_restrict
 ====================  ===================================================
 
 The package imports torch and numpy only — never jax or spmv_tpu.
@@ -51,7 +61,7 @@ The package imports torch and numpy only — never jax or spmv_tpu.
 
 from spmv_torch import corpus
 from spmv_torch.formats.csr import CSRHost, csr_matmul
-from spmv_torch.formats.dia import DiaMatrix, csr_to_dia
+from spmv_torch.formats.dia import DiaMatrix, csr_to_dia, dia_transpose
 from spmv_torch.formats.well import (
     SymWellMatrix,
     WellMatrix,
@@ -66,6 +76,12 @@ from spmv_torch.gen import (
     random_csr,
 )
 from spmv_torch.io.matrix_market import read_matrix_market, write_matrix_market
+from spmv_torch.io.petsc import (
+    read_petsc_binary_matrix_host,
+    read_petsc_binary_vector_host,
+    write_petsc_binary_matrix,
+    write_petsc_binary_vector,
+)
 from spmv_torch.ops.spmm_dia import spmm_dia, spmm_from_layout, spmm_to_layout
 from spmv_torch.ops.spmv_dia_ds import DiaDsMatrix, csr_to_dia_ds, spmv_dia_ds
 from spmv_torch.ops.spmv_well import spmv_well, spmv_well_sym
@@ -84,7 +100,8 @@ from spmv_torch.solvers.block_cg import (
     block_cg_refined_dist,
 )
 from spmv_torch.solvers.amg import AMGHierarchy, amg_preconditioner, amg_setup
-from spmv_torch.solvers.cg import CGResult, cg, cg_residual_history
+from spmv_torch.solvers.bicgstab import BiCGStabResult, bicgstab
+from spmv_torch.solvers.cg import CGResult, cg, cg_pipelined, cg_residual_history
 from spmv_torch.solvers.chebyshev import (
     ChebyshevResult,
     chebyshev,
@@ -99,8 +116,13 @@ from spmv_torch.solvers.lanczos import (
     lanczos_extreme_with_bounds,
     lanczos_factorization,
 )
+from spmv_torch.solvers.fsai import fsai_preconditioner, fsai_setup
+from spmv_torch.solvers.gmres import GMRESResult, gmres
+from spmv_torch.solvers.lsqr import LSQRResult, lsqr
+from spmv_torch.solvers.minres import MINRESResult, minres
 from spmv_torch.solvers.precond import block_jacobi_preconditioner
 from spmv_torch.solvers.refine import RefineResult, cg_refined, cg_refined_dist
+from spmv_torch.solvers.spai import spai_preconditioner, spai_setup
 
 __all__ = [
     "corpus",
@@ -108,6 +130,7 @@ __all__ = [
     "csr_matmul",
     "DiaMatrix",
     "csr_to_dia",
+    "dia_transpose",
     "WellMatrix",
     "SymWellMatrix",
     "csr_to_well",
@@ -125,6 +148,10 @@ __all__ = [
     "spmm_from_layout",
     "read_matrix_market",
     "write_matrix_market",
+    "read_petsc_binary_matrix_host",
+    "read_petsc_binary_vector_host",
+    "write_petsc_binary_matrix",
+    "write_petsc_binary_vector",
     "rcm_reorder",
     "select_local_format",
     "create_laplace_1d",
@@ -137,6 +164,19 @@ __all__ = [
     "CGResult",
     "cg",
     "cg_residual_history",
+    "cg_pipelined",
+    "BiCGStabResult",
+    "bicgstab",
+    "GMRESResult",
+    "gmres",
+    "MINRESResult",
+    "minres",
+    "LSQRResult",
+    "lsqr",
+    "spai_setup",
+    "spai_preconditioner",
+    "fsai_setup",
+    "fsai_preconditioner",
     "RefineResult",
     "cg_refined",
     "cg_refined_dist",

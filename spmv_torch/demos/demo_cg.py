@@ -1,12 +1,13 @@
 #!/usr/bin/env python
 """demo_cg — distributed CG solver CLI (PyTorch/CUDA port).
 
-Generates a Laplacian or reads a Matrix Market file, optionally reorders
-it (RCM), assembles the distributed operator with its shards stacked on one
-device, solves with CG, and verifies by recomputing r = A x - b on the
-host. Same flags and output lines as ``spmv_tpu/demos/demo_cg.py``; flags
-of the reference that are not ported yet exit with an error naming
-ROADMAP.md.
+Generates a Laplacian or reads a Matrix Market or PETSc file (and a PETSc
+right-hand side), optionally reorders it (RCM), assembles the distributed
+operator with its shards stacked on one device, solves with CG, MINRES,
+BiCGStab or GMRES (preconditioned by Jacobi, AMG, SPAI or FSAI), and
+verifies by recomputing r = A x - b on the host. Same flags and output
+lines as ``spmv_tpu/demos/demo_cg.py``; flags of the reference that are
+not ported yet exit with an error naming ROADMAP.md.
 
 Usage:
   python -m spmv_torch.demos.demo_cg --lap2d 3200 --dia --symmetric --fp32
@@ -17,6 +18,10 @@ Usage:
   python -m spmv_torch.demos.demo_cg --lap2d 1024 --refine --kmax 20000
   python -m spmv_torch.demos.demo_cg --lap2d 3200 --dia --fp32 --amg --rtol 1e-6
   python -m spmv_torch.demos.demo_cg --lap2d 1024 --refine --amg --rtol 1e-12
+  python -m spmv_torch.demos.demo_cg --lap2d 3200 --dia --fp32 --amg --solver gmres \
+      --rtol 1e-6
+  python -m spmv_torch.demos.demo_cg --petsc A.petsc --rhs b.petsc --solver bicgstab
+  python -m spmv_torch.demos.demo_cg --mtx A.mtx --format auto --fp32 --fsai
   python -m spmv_torch.demos.demo_cg --lap2d 48 --device cpu
 """
 from __future__ import annotations
@@ -30,15 +35,34 @@ import numpy as np
 # flags of the reference demo that this port does not run yet (ROADMAP.md),
 # with the reference's argparse settings
 _NOT_PORTED = {
-    "--rhs": {},
-    "--spai": dict(type=int, nargs="?", const=1, default=0),
     "--sstep": dict(type=int, default=0),
     "--mpk": dict(action="store_true"),
     "--newton": dict(type=int, default=0),
-    "--fsai": dict(action="store_true"),
     "--deflated": dict(type=int, default=0),
     "--cpu": dict(action="store_true"),
 }
+
+
+def _krylov(solver: str):
+    """The solve call of ``--solver``, as ``cg``'s signature: GMRES runs
+    restart min(30, kmax) and enough cycles for kmax steps, as the
+    reference demo does."""
+    if solver == "gmres":
+        from spmv_torch.solvers.gmres import gmres
+
+        def run(mv, b, kmax, rtol, preconditioner):
+            m = min(30, kmax)
+            return gmres(mv, b, restart=m, max_cycles=-(-kmax // m), rtol=rtol,
+                         preconditioner=preconditioner)
+        return run
+    if solver == "bicgstab":
+        from spmv_torch.solvers.bicgstab import bicgstab
+        return bicgstab
+    if solver == "minres":
+        from spmv_torch.solvers.minres import minres
+        return minres
+    from spmv_torch.solvers.cg import cg
+    return cg
 
 
 def main(argv=None) -> int:
@@ -47,8 +71,9 @@ def main(argv=None) -> int:
     src.add_argument("--lap2d", type=int, help="generate NxN 2-D Laplacian")
     src.add_argument("--lap1d", type=int, help="generate N-row 1-D operator")
     src.add_argument("--lap3d", type=int, help="generate NxNxN 3-D Laplacian")
-    src.add_argument("--petsc", help="PETSc binary matrix file (not ported yet)")
+    src.add_argument("--petsc", help="PETSc binary matrix file")
     src.add_argument("--mtx", help="Matrix Market file (.mtx / .mtx.gz)")
+    ap.add_argument("--rhs", help="PETSc binary RHS vector (default: Gaussian bump)")
     ap.add_argument("--kmax", type=int, default=100, help="max iterations")
     ap.add_argument("--rtol", type=float, default=1e-10, help="relative tolerance")
     ap.add_argument("--devices", type=int, default=0,
@@ -59,8 +84,19 @@ def main(argv=None) -> int:
                          "double-single dia_ds/well_ds for float64)")
     ap.add_argument("--dia", action="store_true", help="DIA local blocks (stencil fast path)")
     ap.add_argument("--jacobi", action="store_true", help="Jacobi (diagonal) preconditioning")
+    ap.add_argument("--spai", type=int, nargs="?", const=1, default=0,
+                    metavar="LEVEL",
+                    help="SPAI (sparse approximate inverse) preconditioning "
+                         "for the nonsymmetric solvers; LEVEL=1 uses "
+                         "pattern(A), 2 the denser pattern(|A|^2+|A|)")
+    ap.add_argument("--fsai", action="store_true",
+                    help="FSAI (factorized sparse approximate inverse) SPD "
+                         "preconditioning: M^-1 = G^T G, two SpMVs an apply "
+                         "(cg/minres)")
     ap.add_argument("--solver", choices=["cg", "minres", "bicgstab", "gmres"],
-                    default="cg", help="only cg is ported")
+                    default="cg",
+                    help="bicgstab/gmres handle non-symmetric operators, "
+                         "minres symmetric indefinite ones")
     ap.add_argument("--reorder", choices=["rcm"], default=None,
                     help="bandwidth-reduction reordering before assembly "
                          "(solves the permuted system; the printed solution "
@@ -88,12 +124,10 @@ def main(argv=None) -> int:
         ap.add_argument(flag, help="not ported yet", **kw)
     args = ap.parse_args(argv)
 
-    for flag in ("--petsc", *_NOT_PORTED):
+    for flag in _NOT_PORTED:
         dest = flag[2:].replace("-", "_")
         if getattr(args, dest) != ap.get_default(dest):
             ap.error(f"{flag} is not yet ported, see ROADMAP.md")
-    if args.solver != "cg":
-        ap.error(f"--solver {args.solver} is not yet ported, see ROADMAP.md")
     fmt = args.format or ("dia" if args.dia else "ell")
 
     import torch
@@ -109,7 +143,6 @@ def main(argv=None) -> int:
         gaussian_bump,
     )
     from spmv_torch.parallel.dist_matrix import build_dist_matrix
-    from spmv_torch.solvers.cg import cg
     from spmv_torch.utils.timing import PhaseTimer, device_sync
 
     device = torch.device(args.device)
@@ -117,7 +150,11 @@ def main(argv=None) -> int:
     timer = PhaseTimer()
 
     t0 = time.perf_counter()
-    if args.mtx:
+    if args.petsc:
+        from spmv_torch.io.petsc import read_petsc_binary_matrix_host
+
+        a = read_petsc_binary_matrix_host(args.petsc)
+    elif args.mtx:
         from spmv_torch.io.matrix_market import read_matrix_market
 
         a = read_matrix_market(args.mtx)
@@ -127,7 +164,12 @@ def main(argv=None) -> int:
         a = create_laplace_2d(args.lap2d, args.lap2d)
     else:
         a = create_laplace_1d(args.lap1d)
-    b_host = gaussian_bump(a.nrows, dtype=dtype)
+    if args.rhs:
+        from spmv_torch.io.petsc import read_petsc_binary_vector_host
+
+        b_host = read_petsc_binary_vector_host(args.rhs).astype(dtype)
+    else:
+        b_host = gaussian_bump(a.nrows, dtype=dtype)
     timer.add("0.ReadPetsc", time.perf_counter() - t0)
 
     order = None
@@ -176,7 +218,8 @@ def main(argv=None) -> int:
     except NotImplementedError as e:
         ap.error(str(e))
     b = A.to_dist(b_host)
-    precond = A.jacobi_preconditioner() if args.jacobi else None
+    krylov = _krylov(args.solver)
+    precond = None
     if args.amg:
         from spmv_torch.solvers.amg import _detect_strides, amg_setup
 
@@ -197,11 +240,28 @@ def main(argv=None) -> int:
         print(f"AMG: {hier.n_levels} levels, grid complexity "
               f"{hier.grid_complexity():.2f}", file=sys.stderr)
         precond = hier.as_preconditioner()
+    elif args.fsai:
+        from spmv_torch.solvers.fsai import fsai_preconditioner
+
+        t0 = time.perf_counter()
+        # G is triangular, not symmetric: plain storage whatever --symmetric,
+        # in the demo's own format (A's layout restored around each apply)
+        precond = fsai_preconditioner(A, local_format=fmt)
+        timer.add("0.FSAISetup", time.perf_counter() - t0)
+    elif args.spai:
+        from spmv_torch.solvers.spai import spai_preconditioner
+
+        t0 = time.perf_counter()
+        # M in ELL, as the reference demo builds it
+        precond = spai_preconditioner(A, pattern_level=args.spai, local_format="ell")
+        timer.add("0.SPAISetup", time.perf_counter() - t0)
+    elif args.jacobi:
+        precond = A.jacobi_preconditioner()
     device_sync(A.matvec(b))  # warm-up: builds the CUDA kernels on first use
 
     t0 = time.perf_counter()
-    res = cg(A.as_linear_operator(), b, kmax=args.kmax, rtol=args.rtol,
-             preconditioner=precond)
+    res = krylov(A.as_linear_operator(), b, kmax=args.kmax, rtol=args.rtol,
+                 preconditioner=precond)
     device_sync(res.x)
     timer.add("1.Solve", time.perf_counter() - t0)
 

@@ -100,6 +100,46 @@ def interleaved_to_flat(data, k: int):
     return blocks.reshape(k, r * LANES)
 
 
+def shift_transpose(flat: torch.Tensor, offsets: tuple[int, ...]
+                    ) -> tuple[torch.Tensor, tuple[int, ...]]:
+    """The transpose of square DIA data given as (..., K, npad) per-diagonal
+    rows: offset o becomes -o (ascending again) and its row shifts by o, so
+    flatT[..., d', i] = flat[..., d, i + o'] for o = -o' (zero where i + o'
+    falls outside). Leading axes (stacked shards) shift together."""
+    offsets_t = tuple(-o for o in reversed(offsets))
+    rows = []
+    for o_new in offsets_t:
+        row = flat[..., offsets.index(-o_new), :]
+        if o_new > 0:
+            row = torch.cat([row[..., o_new:], row.new_zeros((*row.shape[:-1], o_new))],
+                            dim=-1)
+        elif o_new < 0:
+            row = torch.cat([row.new_zeros((*row.shape[:-1], -o_new)), row[..., :o_new]],
+                            dim=-1)
+        rows.append(row)
+    return torch.stack(rows, dim=-2), offsets_t
+
+
+def dia_transpose(a: DiaMatrix) -> DiaMatrix:
+    """A^T as a DiaMatrix (the reference's ``dia_transpose``): the diagonal
+    of offset o becomes offset -o with the same data shifted by o rows, one
+    pass over the data. Symmetric-stored matrices are their own transpose
+    and are returned as they are; a non-square matrix raises."""
+    if a.symmetric:
+        return a
+    if a.nrows != a.ncols:
+        raise ValueError("dia_transpose requires a square matrix")
+    flat_t, offsets_t = shift_transpose(a.data_flat, a.offsets)
+    return DiaMatrix(
+        data=flat_to_interleaved(flat_t, a.ndiags).contiguous(),
+        offsets=offsets_t,
+        nrows=a.ncols,
+        ncols=a.nrows,
+        symmetric=False,
+        _nnz=a._nnz,
+    )
+
+
 def csr_to_dia(
     a: CSRHost,
     row_align: int = 128,

@@ -42,7 +42,7 @@ import torch
 
 from spmv_torch.ds import ds_add, ds_from_f64, ds_mul_f32
 from spmv_torch.formats.csr import CSRHost, coo_ell, ell_transpose
-from spmv_torch.formats.dia import LANES, host_dtype
+from spmv_torch.formats.dia import LANES, host_dtype, shift_transpose
 from spmv_torch.formats.well import _build_arrays, _pack, pack_rows, split_window
 from spmv_torch.ops.spmm_dia import spmm_from_layout, to_lanes
 from spmv_torch.ops.spmm_dia_cuda import spmm_dia_stacked
@@ -376,6 +376,60 @@ class DistMatrix:
                 "refinement")
         return _stacked_matmat_ds(self, xh, xl)
 
+    # ----- the transpose -----
+    def transposed(self) -> "DistMatrix":
+        """A^T as an operator of its own, built once and cached: one host
+        rebuild (``build_dist_matrix`` of the kept host matrix's transpose,
+        with the keyword arguments A was built with) whose ``matvec`` is the
+        transpose product at full kernel speed. ``A.transposed()`` returns
+        the same object on every call and ``A.transposed().transposed()`` is
+        A; a symmetric operator is its own transpose. Only operators from
+        ``build_dist_matrix`` keep the host matrix."""
+        if self.symmetric:
+            return self
+        cached = getattr(self, "_transposed_cache", None)
+        if cached is not None:
+            return cached
+        host = getattr(self, "_host_csr", None)
+        if host is None:
+            raise ValueError(
+                "transposed() needs the assembly-time host matrix, which only "
+                "build_dist_matrix keeps; rebuild the operator or use "
+                "matvec_transpose")
+        kw = dict(self._rebuild_kwargs)
+        at = host.transpose()
+        if kw["local_format"] in ("dia", "dia_ds") and at.nrows != at.ncols:
+            kw["local_format"] = "ell"
+        At = build_dist_matrix(at, **kw)
+        At._transposed_cache = self
+        self._transposed_cache = At
+        return At
+
+    def matvec_transpose(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A^T @ x: x in the row-side lane layout (D*row_pad/128, 128),
+        y in the column side (D*col_pad/128, 128).
+
+        A^T's rows owned by shard s are A's columns owned by s. Each term
+        of A has its transpose, built at first use from what the operator
+        keeps and cached on it (``_transpose_terms``): the DIA local block
+        as shifted data with negated offsets, applied by the same
+        ``dia_spmv`` kernel; the WELL local block as a WELL stack of its
+        own (its row lists, applied by ``well_spmv``, and an ELL far
+        remainder); the ELL local block, the remote block and the hub rows
+        as gathers over host-built tables. The remote block's
+        contributions land on ghost columns and go back to their owners by
+        the reverse exchange. No term sums with atomics. For many applies
+        of the same operator, ``transposed()`` pays one rebuild and
+        applies A^T as a forward operator."""
+        if self.symmetric:
+            return self.matvec(x)
+        if self.local_format.endswith("_ds"):
+            raise NotImplementedError(
+                f"matvec_transpose has no {self.local_format!r} branch (the "
+                "reference has none either); transposed() rebuilds A^T in "
+                "the same double-single format")
+        return _stacked_mult_transpose(self, x)
+
     def as_linear_operator(self):
         """Closure for solvers: matvec on the stacked padded layout."""
         return lambda p: self.matvec(p)
@@ -391,6 +445,22 @@ class DistMatrix:
             return torch.where(nz, r / safe, r)
 
         return apply
+
+
+def relayout(x: torch.Tensor, pad_out: int, nd: int) -> torch.Tensor:
+    """A stacked lane-layout vector (D*pad_in/128, 128) in the layout of
+    ``pad_out`` entries a shard: each shard's row zero-padded or truncated.
+    Operators on the same partition differ only in their padding (DIA pads
+    shards to 1024 rows, ELL to 128, WELL to its groups); truncation drops
+    only structural padding, since every layout keeps a shard's real
+    entries in [0, nlocal). Returns x itself where the pads agree."""
+    pad_in = x.shape[0] // nd * LANES
+    if pad_in == pad_out:
+        return x
+    v = x.reshape(nd, pad_in)
+    v = (torch.nn.functional.pad(v, (0, pad_out - pad_in)) if pad_out > pad_in
+         else v[:, :pad_out])
+    return v.reshape(nd * pad_out // LANES, LANES)
 
 
 def _stacked_mult(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
@@ -437,6 +507,134 @@ def _stacked_mult(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
             y = halo_scatter_add(gz, y, plan.send_idx, plan.recv_pos,
                                  plan.rounds)
     return y.reshape(nd * A.row_lane_rows, LANES)
+
+
+def _stacked_mult_transpose(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
+    """All shards' y = A_s^T @ x at once (the reference's
+    ``matvec_transpose``): the local block's transpose, the far remainder's
+    (WELL), the reverse exchange of the remote block's ghost-column
+    contributions, then the hub rows'."""
+    nd, plan = A.n_devices, A.plan
+    t = _transpose_terms(A)
+    x = x2.reshape(nd, A.row_pad)
+    if A.local_format == "dia":
+        y = spmv_dia_stacked(t["dia_data"], x2, t["dia_offsets"],
+                             False).reshape(nd, A.col_pad)
+    elif A.local_format == "well":
+        y = spmv_well_stacked(t["rows_values"], t["rows_pos"], t["rows_ptr"],
+                              t["w0"], x2, t["tile_groups"]).reshape(nd, A.col_pad)
+        if t["far_colind"] is not None:
+            y = y + _ell_apply(t["far_colind"], t["far_values"], x)
+    else:
+        y = _ell_apply(t["local_colind"], t["local_values"], x)
+    if plan.nghost_pad > 0 and len(plan.rounds) > 0:
+        gz = _ell_apply(t["remote_colind"], t["remote_values"], x)
+        y = halo_scatter_add(gz, y, plan.send_idx, plan.recv_pos, plan.rounds)
+    y = y.reshape(nd * A.lane_rows, LANES)
+    if A.hub_nnz > 0:
+        y = y + _hub_gather(t["hub"], x2, nd, A.row_pad, A.lane_rows)
+    return y
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _transpose_terms(A: DistMatrix) -> dict:
+    """The tables ``matvec_transpose`` applies, built on the first call and
+    kept on the operator (``_transpose_cache``): "dia_data"/"dia_offsets"
+    (the DIA local block shifted by ``formats.dia.shift_transpose``, on the
+    device); the WELL local block's transpose as row lists
+    (``_well_transpose``); "local_colind"/"local_values" ("ell", the local
+    block's transpose as an ELL rectangle); "remote_colind"/"remote_values"
+    (the remote block's transpose over the ghost slots); "hub" (the hub
+    block's transpose as ``_hub_tables``, outputs on the column side)."""
+    cached = getattr(A, "_transpose_cache", None)
+    if cached is not None:
+        return cached
+    nd, dev = A.n_devices, A.device
+    t: dict = {}
+
+    def put(arr):
+        return torch.as_tensor(np.ascontiguousarray(arr), device=dev)
+
+    if A.local_format == "dia":
+        k = len(A.dia_offsets)
+        lr = A.local_dia_data.shape[1]
+        flat = (A.local_dia_data.reshape(nd, lr, k, LANES).permute(0, 2, 1, 3)
+                .reshape(nd, k, lr * LANES))
+        flat_t, t["dia_offsets"] = shift_transpose(flat, A.dia_offsets)
+        t["dia_data"] = (flat_t.reshape(nd, k, lr, LANES).permute(0, 2, 1, 3)
+                         .reshape(nd, lr, k * LANES).contiguous())
+    elif A.local_format == "well":
+        t.update(_well_transpose(A))
+    else:
+        ci, v = ell_transpose(_host(A.local_colind), _host(A.local_values), A.col_pad)
+        t["local_colind"], t["local_values"] = put(ci), put(v)
+    if A.plan.nghost_pad > 0 and len(A.plan.rounds) > 0:
+        ci, v = ell_transpose(_host(A.remote_colind), _host(A.remote_values),
+                              A.plan.nghost_pad)
+        t["remote_colind"], t["remote_values"] = put(ci), put(v)
+    if A.hub_nnz > 0:
+        rows_g, cols_g, vals = A._hubs
+        t["hub"] = _hub_tables(cols_g, rows_g, vals.astype(_host(A.hub_values).dtype),
+                               owner_ranges(A.ncols_global, nd),
+                               owner_ranges(A.nrows_global, nd), A.col_pad, A.row_pad,
+                               dev)
+    A._transpose_cache = t
+    return t
+
+
+def _well_transpose(A: DistMatrix) -> dict:
+    """The transpose of a vanilla "well" operator's local block, packed as
+    a WELL stack of its own on the forward stack's geometry (G groups of
+    128 rows, ``tile_groups``), read by ``well_spmv`` through its row lists
+    (``pack_rows``). Each shard's block is read back from the WELL arrays
+    the operator keeps on the host (entry (128g + j, w0*128 + pos) of every
+    nonzero slot) and from its far remainder, transposed, and split and
+    packed as ``_stack_well`` packs a forward block (no slot cap: the
+    row lists store only the occupied slots); what falls outside the
+    windows is an ELL far remainder."""
+    nd, dev = A.n_devices, A.device
+    k_slots, _, tg, _ = A.well_meta
+    values, pos = _host(A.local_well_values), _host(A.local_well_pos).astype(np.int64)
+    w0 = _host(A.local_well_w0).astype(np.int64)
+    g = values.shape[2]
+    far = (None if A.far_rows is None else
+           tuple(_host(f) for f in (A.far_rows, A.far_cols, A.far_vals)))
+    near_t, far_t = [], []
+    for s in range(nd):
+        kk, gg, lane = np.nonzero(values[s])
+        rows = gg * LANES + lane
+        cols = w0[s, gg // tg] * LANES + pos[s, kk, gg, lane]
+        vals = values[s, kk, gg, lane]
+        if far is not None:
+            keep = far[2][s] != 0
+            rows = np.concatenate([rows, far[0][s][keep]])
+            cols = np.concatenate([cols, far[1][s][keep]])
+            vals = np.concatenate([vals, far[2][s][keep]])
+        bt = CSRHost.from_coo(cols, rows, vals, A.col_pad, A.row_pad)
+        near, fr = split_window(bt, tile_groups=tg, wseg_cap=WELL_WSEG_CAP)
+        near_t.append(_build_arrays(near, tg, max(bt.nnz, 1), values.dtype))
+        far_t.append(fr)
+    k = max(w[0].shape[0] for w in near_t)
+    wseg = max(w[3] for w in near_t)
+    sv = np.zeros((nd, k, g, LANES), dtype=values.dtype)
+    sp = np.zeros((nd, k, g, LANES), dtype=np.int32)
+    s0 = np.zeros((nd, g // tg), dtype=np.int32)
+    for s, (v, p, w, *_rest) in enumerate(near_t):
+        sv[s, : v.shape[0]], sp[s, : p.shape[0]], s0[s] = v, p, w
+    rows = pack_rows(sv, sp, wseg)
+    out = {"rows_values": rows.values, "rows_pos": rows.pos, "rows_ptr": rows.slice_ptr,
+           "w0": s0}
+    out = {key: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+           for key, v in out.items()}
+    out["tile_groups"] = tg
+    coo = _far_coo_stack(far_t, values.dtype)
+    out["far_colind"], out["far_values"] = (
+        (None, None) if coo[0] is None else
+        tuple(torch.as_tensor(v, device=dev) for v in coo_ell(*coo, A.col_pad)))
+    return out
 
 
 def _stacked_mult_ds(A: DistMatrix, xh2: torch.Tensor, xl2: torch.Tensor
@@ -627,25 +825,35 @@ def _ell_apply(colind: torch.Tensor, values: torch.Tensor,
 def _hub_apply(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
     """The hub-row term y_hub = H x (the reference's ``_hub_apply``): every
     shard's hub rows read the whole input vector (all shards' x,
-    flattened). Three gathers and no scatter-add: the chunk ELL sums
-    ``HUB_CHUNK``-long pieces of the hub rows, ``hub_chunks`` sums each hub
-    row's chunks, and ``hub_slot`` hands each output row its hub row's sum
-    (rows with no hub entry read a zero). x2 is a vector (D*col_pad/128,
-    128) or a column block (D, col_pad, nrhs); the result has y's shape."""
-    nd = A.n_devices
+    flattened). Three gathers and no scatter-add (``_hub_gather``). x2 is a
+    vector (D*col_pad/128, 128) or a column block (D, col_pad, nrhs); the
+    result has y's shape."""
+    return _hub_gather((A.hub_slot, A.hub_chunks, A.hub_colind, A.hub_values),
+                       x2, A.n_devices, A.col_pad, A.row_lane_rows)
+
+
+def _hub_gather(tables, x2: torch.Tensor, nd: int, in_pad: int,
+                out_lane_rows: int) -> torch.Tensor:
+    """Apply hub tables (``_hub_tables``) to x2, whose shards hold
+    ``in_pad`` entries each: the chunk ELL sums ``HUB_CHUNK``-long pieces
+    of the hub rows, ``chunks`` sums each hub row's chunks, and ``slot``
+    hands each output row its hub row's sum (rows with no hub entry read a
+    zero). A vector gives (D*out_lane_rows, 128); a column block
+    (D, in_pad, nrhs) gives (D, out rows, nrhs)."""
+    slot, chunks, colind, values = tables
     block = x2.dim() == 3
     tail = x2.shape[2:] if block else ()
-    xg = x2.reshape(1, nd * A.col_pad, *tail).expand(nd, -1, *tail)
+    xg = x2.reshape(1, nd * in_pad, *tail).expand(nd, -1, *tail)
 
     def with_zero(v):  # a zero slot at the end, where padding indices point
         return torch.cat([v, v.new_zeros((nd, 1, *tail))], dim=1)
 
-    yc = with_zero(_ell_apply(A.hub_colind, A.hub_values, xg))   # chunk sums
-    nh, kc = A.hub_chunks.shape[1:]
-    yh = torch.gather(yc, 1, expand_index(A.hub_chunks.reshape(nd, nh * kc), yc))
+    yc = with_zero(_ell_apply(colind, values, xg))                # chunk sums
+    nh, kc = chunks.shape[1:]
+    yh = torch.gather(yc, 1, expand_index(chunks.reshape(nd, nh * kc), yc))
     yh = with_zero(yh.reshape(nd, nh, kc, *tail).sum(2))          # hub-row sums
-    y = torch.gather(yh, 1, expand_index(A.hub_slot, yh))         # (D, R[, nrhs])
-    return y if block else y.reshape(nd * A.row_lane_rows, LANES)
+    y = torch.gather(yh, 1, expand_index(slot, yh))               # (D, R[, nrhs])
+    return y if block else y.reshape(nd * out_lane_rows, LANES)
 
 
 def _assemble(
@@ -986,28 +1194,51 @@ def _hub_split(a: CSRHost, hub_cap):
 
 
 def _attach_hubs(A: DistMatrix, hubs, dtype) -> DistMatrix:
-    """Stack the hub COO per shard for ``_hub_apply`` and fold hub diagonal
-    entries into ``jacobi_diag`` (square operators), as the reference's
-    ``_attach_hubs`` does. Each hub row's entries, in their COO order, are
-    cut into chunks of ``HUB_CHUNK``, stored as an ELL over the chunks
-    (columns in the padded-global input numbering, shard*col_pad + local
-    column); ``hub_chunks`` (D, H, C) lists each hub row's chunks (padding
-    points one past the last chunk) and ``hub_slot`` (D, R) each row's hub
-    slot (H = none). Chunks bound the padding of rows of very different
-    lengths: storage is about hub_nnz + H * (HUB_CHUNK + C) per shard."""
+    """Stack the hub COO per shard for ``_hub_apply`` (``_hub_tables``) and
+    fold hub diagonal entries into ``jacobi_diag`` (square operators), as
+    the reference's ``_attach_hubs`` does."""
     rows_g, cols_g, vals = hubs
     nd, cp, rp = A.n_devices, A.col_pad, A.row_pad
     row_ranges = owner_ranges(A.nrows_global, nd)
     col_ranges = owner_ranges(A.ncols_global, nd)
-    cshard = np.searchsorted(col_ranges, cols_g, side="right") - 1
-    pg_cols = cshard * np.int64(cp) + (cols_g - col_ranges[cshard])
-    rshard = np.searchsorted(row_ranges, rows_g, side="right") - 1
-    lrow = rows_g - row_ranges[rshard]
-    vdtype = dtype or vals.dtype
+    A.hub_slot, A.hub_chunks, A.hub_colind, A.hub_values = _hub_tables(
+        rows_g, cols_g, vals.astype(dtype or vals.dtype, copy=False), row_ranges,
+        col_ranges, rp, cp, A.device)
+    A.hub_nnz = int(len(rows_g))
+    A.nnz_global += int(len(rows_g))
+    if A.nrows_global == A.ncols_global:
+        on_diag = rows_g == cols_g
+        if on_diag.any():
+            rshard = np.searchsorted(row_ranges, rows_g, side="right") - 1
+            lrow = rows_g - row_ranges[rshard]
+            jd = A.jacobi_diag.cpu().numpy().copy()
+            np.add.at(jd, (rshard[on_diag], lrow[on_diag]),
+                      vals[on_diag].astype(jd.dtype))
+            A.jacobi_diag = torch.as_tensor(jd, device=A.device)
+    return A
+
+
+def _hub_tables(out_g, in_g, vals, out_ranges, in_ranges, out_pad: int,
+                in_pad: int, device):
+    """The gather tables of a hub block given as global COO (out_g, in_g,
+    vals): each output row's entries, in their COO order, are cut into
+    chunks of ``HUB_CHUNK``, stored as an ELL over the chunks (inputs in
+    the padded-global numbering, shard*in_pad + local index). Returns
+    (slot (D, out_pad) each output row's hub slot, H = none; chunks
+    (D, H, C) each hub row's chunks, padding one past the last chunk;
+    colind, values (D, Cn, Kc)) on ``device``. Chunks bound the padding of
+    rows of very different lengths: storage is about nnz + H * (HUB_CHUNK
+    + C) per shard. The forward hub term takes rows as outputs, its
+    transpose columns."""
+    nd = len(out_ranges) - 1
+    ishard = np.searchsorted(in_ranges, in_g, side="right") - 1
+    pg_in = ishard * np.int64(in_pad) + (in_g - in_ranges[ishard])
+    oshard = np.searchsorted(out_ranges, out_g, side="right") - 1
+    lout = out_g - out_ranges[oshard]
     per_shard = []
     for s in range(nd):
-        sel = np.flatnonzero(rshard == s)
-        hub_rows, slot = np.unique(lrow[sel], return_inverse=True)
+        sel = np.flatnonzero(oshard == s)
+        hub_rows, slot = np.unique(lout[sel], return_inverse=True)
         order = np.argsort(slot, kind="stable")       # by hub row, COO order
         sel, slot = sel[order], slot[order]
         counts = np.bincount(slot, minlength=len(hub_rows))
@@ -1023,33 +1254,19 @@ def _attach_hubs(A: DistMatrix, hubs, dtype) -> DistMatrix:
     f_max = max(max(len(p[1]) for p in per_shard), 1)
     crow = np.zeros((nd, f_max), np.int64)
     ccol = np.zeros((nd, f_max), np.int64)
-    cval = np.zeros((nd, f_max), vdtype)
-    slot_map = np.full((nd, rp), nh, dtype=np.int64)
+    cval = np.zeros((nd, f_max), vals.dtype)
+    slot_map = np.full((nd, out_pad), nh, dtype=np.int64)
     chunks = np.full((nd, nh, cmax), ncm, dtype=np.int64)
     for s, (hub_rows, sel, chunk, nchunk, chunk0) in enumerate(per_shard):
         ns = len(sel)
-        crow[s, :ns], ccol[s, :ns], cval[s, :ns] = chunk, pg_cols[sel], vals[sel]
+        crow[s, :ns], ccol[s, :ns], cval[s, :ns] = chunk, pg_in[sel], vals[sel]
         slot_map[s, hub_rows] = np.arange(len(hub_rows))
         owner = np.repeat(np.arange(len(hub_rows)), nchunk)  # each chunk's row
         c = np.arange(len(owner))
         chunks[s, owner, c - chunk0[owner]] = c
     # padding entries (value 0) are dropped by coo_ell
     ci, cv = coo_ell(crow, ccol, cval, ncm)
-    dev = A.device
-    A.hub_slot = torch.as_tensor(slot_map, device=dev)
-    A.hub_chunks = torch.as_tensor(chunks, device=dev)
-    A.hub_colind = torch.as_tensor(ci, device=dev)
-    A.hub_values = torch.as_tensor(cv, device=dev)
-    A.hub_nnz = int(len(rows_g))
-    A.nnz_global += int(len(rows_g))
-    if A.nrows_global == A.ncols_global:
-        on_diag = rows_g == cols_g
-        if on_diag.any():
-            jd = A.jacobi_diag.cpu().numpy().copy()
-            np.add.at(jd, (rshard[on_diag], lrow[on_diag]),
-                      vals[on_diag].astype(jd.dtype))
-            A.jacobi_diag = torch.as_tensor(jd, device=dev)
-    return A
+    return tuple(torch.as_tensor(t, device=device) for t in (slot_map, chunks, ci, cv))
 
 
 def _wants_ds(a: CSRHost, dtype) -> bool:
@@ -1183,4 +1400,22 @@ def build_dist_matrix(
     )
     if hubs is not None:
         A = _attach_hubs(A, hubs, dtype)
+    # what transposed() and the preconditioner setups rebuild from (plain
+    # attributes, as in the reference): the host matrix, whole (hub rows
+    # stitched back in), and the keyword arguments, never symmetric=True
+    A._host_csr = a
+    A._hubs = hubs
+    A._rebuild_kwargs = dict(
+        n_devices=n_devices, dtype=dtype, local_format=local_format,
+        hub_cap=hub_cap, dia_max_diags=dia_max_diags, well_max_k=well_max_k,
+        device=device)
+    if hubs is not None:
+        hr, hc, hv = hubs
+        rows_b = np.repeat(np.arange(a.nrows, dtype=np.int64), a.row_nnz())
+        A._host_csr = CSRHost.from_coo(
+            np.concatenate([rows_b, hr]),
+            np.concatenate([a.colind.astype(np.int64), hc]),
+            np.concatenate([a.values, hv]), a.nrows, a.ncols,
+            sum_duplicates=False)
+        A._rebuild_kwargs["local_format"] = "auto"  # A^T's body may differ
     return A

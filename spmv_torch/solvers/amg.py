@@ -34,6 +34,7 @@ import torch
 from spmv_torch.formats.csr import CSRHost, csr_matmul as _spgemm
 from spmv_torch.formats.dia import LANES
 from spmv_torch.parallel.dist_matrix import DistMatrix, build_dist_matrix
+from spmv_torch.parallel.dist_matrix import relayout as _relayout
 from spmv_torch.parallel.partition import owner_ranges
 from spmv_torch.solvers.chebyshev import chebyshev
 
@@ -266,12 +267,17 @@ class AMGHierarchy:
 
     def as_preconditioner(self) -> Callable[[torch.Tensor], torch.Tensor]:
         """z = M^-1 r closure for ``cg(preconditioner=...)``. A float64
-        residual runs through the float32 cycle and back."""
+        residual runs through the float32 cycle and back, and a residual in
+        a layout padded otherwise than the first level's (a float64 or
+        double-single operator gets a float32 ELL fine level of its own)
+        is re-padded on the way in and out."""
+        first = self.levels[0].A if self.levels else self.coarse_A
+        nd = first.n_devices
 
         def apply(r):
-            if r.dtype == torch.float64:
-                return _cycle(self, 0, r.to(torch.float32)).to(r.dtype)
-            return _cycle(self, 0, r)
+            pad = r.shape[0] // nd * LANES
+            z = _cycle(self, 0, _relayout(r.to(torch.float32), first.row_pad, nd))
+            return _relayout(z, pad, nd).to(r.dtype)
 
         return apply
 
@@ -290,17 +296,6 @@ def _fit(v: torch.Tensor, n: int) -> torch.Tensor:
     """(D, m) -> (D, n): zero-pad or truncate each shard's row."""
     m = v.shape[1]
     return torch.nn.functional.pad(v, (0, n - m)) if n > m else v[:, :n]
-
-
-def _relayout(x: torch.Tensor, pad_out: int, nd: int) -> torch.Tensor:
-    """Per-shard zero-pad / truncate between lane layouts whose per-shard
-    padded lengths differ (DIA pads rows to 1024, ELL to 128). Truncation
-    only drops structural padding: every layout keeps its real entries in
-    [0, nlocal)."""
-    pad_in = x.shape[0] // nd * LANES
-    if pad_in == pad_out:
-        return x
-    return _fit(x.reshape(nd, pad_in), pad_out).reshape(nd * pad_out // LANES, LANES)
 
 
 def _interval_stages(lvl: AMGLevel) -> list[int]:

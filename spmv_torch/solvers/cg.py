@@ -127,3 +127,53 @@ def cg_residual_history(
         rnorm2 = rnorm2_new
         hist.append(torch.sqrt(rnorm2))
     return x, torch.stack(hist) if hist else b.new_zeros((0,))
+
+
+def cg_pipelined(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    kmax: int = 100,
+    rtol: float = 1e-10,
+    preconditioner: Callable[[torch.Tensor], torch.Tensor] | None = None,
+) -> CGResult:
+    """Single-reduction CG (the Chronopoulos-Gear recurrence), the
+    reference's ``cg_pipelined``: s = A p is kept by recurrence, so both
+    scalars of an iteration (gamma = r.u and delta = w.u) come from vectors
+    that are ready together, one reduction where a distributed run has
+    one. The same math as ``cg`` in exact arithmetic, other rounding. One
+    apply (and one preconditioner apply) an iteration, plus one each to
+    start."""
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    precond = preconditioner if preconditioner is not None else (lambda r: r)
+    eps = torch.finfo(b.dtype).tiny
+
+    r = b - matvec(x0)
+    u = precond(r)
+    w = matvec(u)
+    gamma = _dot(r, u)
+    delta = _dot(w, u)
+    rnorm2 = _dot(r, r) if preconditioner is not None else gamma
+    rnorm0 = torch.sqrt(rnorm2)
+    alpha = gamma / delta
+    beta = torch.zeros_like(gamma)
+    x, p, s = x0, torch.zeros_like(b), torch.zeros_like(b)
+    k = 0
+    while k < kmax and bool(_rel(rnorm2, rnorm0, eps) >= rtol):
+        p = u + beta * p
+        s = w + beta * s
+        x = x + alpha * p
+        r = r - alpha * s
+        u = precond(r)
+        w = matvec(u)
+        gamma_new = _dot(r, u)
+        delta = _dot(w, u)
+        rnorm2 = _dot(r, r) if preconditioner is not None else gamma_new
+        beta = gamma_new / gamma
+        alpha = gamma_new / (delta - beta * gamma_new / alpha)
+        gamma = gamma_new
+        k += 1
+    rnorm = torch.sqrt(rnorm2)
+    return CGResult(x=x, iterations=k, rnorm=rnorm, rnorm0=rnorm0,
+                    converged=bool(_rel(rnorm2, rnorm0, eps) < rtol), r=r, p=None)

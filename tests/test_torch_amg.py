@@ -237,3 +237,30 @@ def test_amg_rejects_rectangular():
     A = build_dist_matrix(_port_csr(_lap(8, 8)), device="cpu")
     with pytest.raises(ValueError, match="square"):
         amg_setup(rect, A)
+
+
+@pytest.mark.parametrize("nx", [40, 72])
+def test_amg_on_a_float64_dia_operator_of_other_padding(nx):
+    """A float64 DIA operator gets a float32 ELL fine level of its own,
+    padded to 128 rows a shard where the DIA operator pads to 1024: at 40^2
+    over 2 shards (no level: the ELL operator is the coarsest) and 72^2
+    (one level) the preconditioner re-pads the residual, and PCG converges
+    (the reference's coarse solve raises a shape error at 40^2)."""
+    a = pt_csr.CSRHost.from_coo(*_triplets(_lap(nx)), nx * nx, nx * nx)
+    A = build_dist_matrix(a, n_devices=2, dtype=np.float64, local_format="dia",
+                          device="cpu")
+    h = amg_setup(a, A, aggregate="interval2d", interval_size=4, cycle=2)
+    first = h.levels[0].A if h.levels else h.coarse_A
+    assert first.row_pad != A.row_pad
+    b = A.to_dist(gaussian_bump(a.nrows))
+    res = cg(A.as_linear_operator(), b, kmax=200, rtol=1e-10,
+             preconditioner=h.as_preconditioner())
+    x = A.from_dist(res.x)
+    assert res.converged
+    assert np.linalg.norm(a.matvec(x) - gaussian_bump(a.nrows)) <= 1e-9 * np.linalg.norm(
+        gaussian_bump(a.nrows))
+
+
+def _triplets(a):
+    rows = np.repeat(np.arange(a.nrows), a.row_nnz())
+    return rows, a.colind, a.values.astype(np.float64)

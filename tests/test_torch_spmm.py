@@ -525,19 +525,27 @@ def _long_range_sym(n=80_000, pairs=300, seed=3):
     return pt_csr.CSRHost.from_coo(rows, cols, vals, n, n)
 
 
-@pytest.mark.parametrize("case", ["well-far", "ell-ghosts", "well_sym-far"])
+@pytest.mark.parametrize("case", ["well-far", "ell-ghosts", "well_sym-far",
+                                  "transpose-well-far", "transpose-dia-ghosts",
+                                  "transpose-ell-hubs"])
 def test_applies_call_no_scatter_add(case, monkeypatch):
     """matvec and matmat of a symmetric fp32 "well" operator with far
     remainders in both triangles, and of a symmetric "ell" operator with
     ghosts at np 4 (and the format-level spmv_well_sym with far
     remainders) call no index_add / scatter_add, which sum with atomics on
-    the card; they still agree with the host oracle."""
+    the card; they still agree with the host oracle. So does
+    matvec_transpose of non-symmetric fp32 operators: "well" with far
+    remainders, "dia" with ghosts at np 4, "ell" with hub rows and ghosts
+    at np 2 (its tables built before the patch, at the first apply)."""
     from spmv_torch.formats.well import csr_to_well_sym
     from spmv_torch.ops.spmv_well import spmv_well_sym
 
     def refuse(*args, **kwargs):
         raise AssertionError("an apply called a scatter-add")
 
+    if case.startswith("transpose"):
+        _transpose_no_scatter_add(case, refuse, monkeypatch)
+        return
     pt = _random_sym()[1] if case == "ell-ghosts" else _long_range_sym()
     rng = np.random.default_rng(12)
     X = rng.standard_normal((pt.nrows, 3)).astype(np.float32)
@@ -564,6 +572,37 @@ def test_applies_call_no_scatter_add(case, monkeypatch):
     y = P.from_dist(P.matvec(P.to_dist(X[:, 0].copy())))
     Y = P.from_dist_block(P.matmat(P.to_dist_block(X)))
     assert _rel(y, want[:, 0]) <= 2e-6 and _rel(Y, want) <= 2e-6
+
+
+def _transpose_no_scatter_add(case, refuse, monkeypatch):
+    from spmv_torch.corpus import powerlaw_laplacian
+
+    fmt, n_dev = {"transpose-well-far": ("well", 1), "transpose-dia-ghosts": ("dia", 4),
+                  "transpose-ell-hubs": ("ell", 2)}[case]
+    if fmt == "well":
+        pt = _long_range_sym()
+    elif fmt == "dia":
+        pt = pt_gen.create_laplace_2d(40, 40)
+    else:
+        pt = powerlaw_laplacian(3000, seed=1, dtype=np.float64)
+    # row scaling makes each operator non-symmetric
+    s = np.random.default_rng(13).uniform(0.5, 1.5, pt.nrows)
+    pt = pt_csr.CSRHost(pt.rowptr, pt.colind, pt.values * np.repeat(s, pt.row_nnz()),
+                        pt.ncols)
+    P = build_dist_matrix(pt, n_devices=n_dev, dtype=np.float32, local_format=fmt,
+                          hub_cap=16 if fmt == "ell" else "auto", device="cpu")
+    assert (P.well_far_nnz > 0 if fmt == "well" else P.plan.nghost_pad > 0)
+    assert fmt != "ell" or P.hub_nnz > 0
+    q = np.random.default_rng(14).standard_normal(pt.nrows).astype(np.float32)
+    qd = P.to_dist(q, side="row")
+    first = P.matvec_transpose(qd)
+    for owner, name in ((torch.Tensor, "index_add_"), (torch.Tensor, "index_add"),
+                        (torch.Tensor, "scatter_add_"), (torch.Tensor, "scatter_add"),
+                        (torch, "index_add"), (torch, "scatter_add")):
+        monkeypatch.setattr(owner, name, refuse)
+    y = P.matvec_transpose(qd)
+    assert torch.equal(y, first)
+    assert _rel(P.from_dist(y, side="col"), pt.transpose().matvec(q.astype(np.float64))) <= 2e-6
 
 
 def test_matmat_refusals_match_reference():
