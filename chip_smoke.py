@@ -175,6 +175,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      writers, --mtx --fsai on a Matrix Market FEM of the port's writer,
      demo_restrict --n 4194304 --devices 4, each exit 0 and its printed
      residual read back against the same solve in this process;
+ 20. the communication-avoiding solvers: (a) the matrix-powers basis at
+     NX^2 float64, vanilla DIA on 4 stacked shards, s = 4: the depth-4
+     plan (its host seconds, its ghost growth), the window's dia_spmv vs
+     its plain version, then chebyshev_powers_basis vs the 4-matvec basis
+     (<= 1e-12 relative), exactly 1 halo gather and 4 dia_spmv launches,
+     the same bits twice; (b) cg_sstep(s=4) at NX^2 float64, rtol 1e-6, on
+     phase 4's symmetric operator (D = 1) and through the MPK (D = 4):
+     converged, the host residual within 1e-8 ||b|| of the reported, one
+     host sync a block, exact launches (and one halo gather a block with
+     the MPK), the same bits on a second solve, beside phase 4's CG; (c)
+     gmres_sstep(s=4, restart=32) on A o M with 18a's AMG W-cycle (float32,
+     b = A x*, gated as 19b, beside 19b's GMRES), then a 48-step Arnoldi
+     Ritz harvest on the 1024^2 convection-diffusion (float64, D = 4) and
+     gmres_sstep with the Newton basis through the MPK beside the s-apply
+     Newton basis (10 cycles: the same steps, residuals within 1e-6); (d)
+     LOBPCG and deflated CG at 1024^2 float32 on symmetric DIA as
+     demo_cg --deflated 4 sets them up (dia_sym_spmm vs plain at nrhs 4
+     first; exact launches; the Ritz values inside the spectrum; both
+     converged; the iterations beside CG's); (e) three demos as
+     subprocesses beside (c), (d) and (f): demo_cg --sstep 4 --mpk --devices 4,
+     --sstep 4 --solver gmres --newton 16 --mpk on 19f's PETSc files, and
+     --deflated 4, each read back against the same solve in this process;
+     (f) cg_pipelined in float64 on phase 4's symmetric operator beside CG;
  10. (run last) ms per apply of every ported kernel, kernel and plain in
      turns, with the library yardstick (one torch CSR @ x call, cuSPARSE,
      float64 for the DS kernels; the port never calls it) and the bytes
@@ -264,16 +287,35 @@ from spmv_torch.ops.spmv_well_ds import (
     spmv_well_ds_rows_plain,
     spmv_well_ds_stacked_plain,
 )
+import spmv_torch.parallel.dist_matrix as dist_matrix_mod
+import spmv_torch.parallel.powers as powers_mod
+import spmv_torch.solvers.cg_sstep as cg_sstep_mod
+import spmv_torch.solvers.gmres_sstep as gmres_sstep_mod
 from spmv_torch.parallel.dist_matrix import HOST_FIELDS, WELL_WSEG_CAP, build_dist_matrix
+from spmv_torch.parallel.powers import (
+    build_powers_plan,
+    chebyshev_powers_basis,
+    newton_powers_basis,
+    powers_ghost_stats,
+)
 from spmv_torch.reorder import rcm_reorder
 from spmv_torch.solvers.amg import amg_setup
 from spmv_torch.solvers.bicgstab import bicgstab
 from spmv_torch.solvers.block_cg import block_cg, block_cg_dia, block_cg_refined_dist
+from spmv_torch.solvers.arnoldi import arnoldi_ritz
 from spmv_torch.solvers.cg import cg, cg_pipelined
+from spmv_torch.solvers.cg_sstep import cg_sstep, chebyshev_basis
+from spmv_torch.solvers.deflation import cg_deflated
 from spmv_torch.solvers.fsai import fsai_preconditioner
 from spmv_torch.solvers.gmres import gmres
+from spmv_torch.solvers.gmres_sstep import gmres_sstep
 from spmv_torch.solvers.lsqr import lsqr
 from spmv_torch.solvers.minres import minres
+from spmv_torch.solvers.newton_basis import (
+    modified_leja,
+    newton_basis_ops,
+    newton_shifts_from_operator,
+)
 from spmv_torch.solvers.refine import cg_refined, cg_refined_dist
 from spmv_torch.solvers.spai import spai_preconditioner
 from spmv_torch.utils.timing import bench_chained, measure_copy_bandwidth_gbs
@@ -335,6 +377,30 @@ DEMO_RESTRICT_N = 4_194_304
 DEMO_AMG_TOL = 0.25  # the AMG demo's r.norm vs this process's (ELL vs DIA
 #                      levels; both at the float32 floor of the bump's solve)
 DEMO_TIMEOUT = 420   # seconds, all four demos together
+# profiler sessions of a plain version's or a library call's device time in
+# phase 10 (a kernel's takes the median of three): one, with 18f's K > 64
+# plain versions timed over one step, keeps the run inside its 1200 s
+# (on the H100 80GB HBM3 at 700 W, phase 10 took 257 s with three sessions
+# and 82 s with one)
+YARDSTICK_SESSIONS = 1
+# phase 20: the communication-avoiding solvers
+SSTEP_S = 4
+SSTEP_KMAX, SSTEP_RTOL = 20000, 1e-6
+SSTEP_RESIDUAL_GATE = 1e-8  # x ||b||: float64 host residual vs the reported
+MPK_DEVICES = 4
+MPK_TOL = 1e-12      # 20a: MPK basis vs the s-matvec basis, relative L2
+MPK_INTERVAL = 8.8   # 20a: the basis interval [0, 1.1 * 8] of the Laplacian
+NEWTON_NX = 1024     # 20c: the convection-diffusion grid of the Newton basis
+NEWTON_M = 48        # 20c: Arnoldi steps of the Ritz harvest
+NEWTON_CYCLES = 10   # 20c: restart cycles of 32 steps (unpreconditioned)
+NEWTON_TOL = 1e-6    # 20c: MPK vs s-apply Newton basis, final rnorm relative
+DEFLATED_D = 4       # 20d: the deflation basis (demo_cg --deflated 4)
+RITZ_TOL = 1e-6      # 20d: float32 Rayleigh quotients of a norm-8 operator
+SSTEP_DEMO_NX = 1024  # 20d, 20e
+DEMO_NEWTON_M = 16   # 20e: demo_cg --newton 16
+DEMO_SSTEP_TOL = {"sstep_mpk": (0, 1e-6), "newton_mpk": (0, 1e-6),  # 20e: the demo's
+                  "deflated": (2, 0.05)}  # iterations and r.norm vs this process's
+#                      (float32 LOBPCG at tol 1e-3 carries any rounding into W)
 
 
 def fail(msg: str) -> None:
@@ -458,7 +524,8 @@ def phase_kernels(a, dev):
 
 def phase_main_path(a, dev):
     """Phase 4: the main path through the port's entry points. Returns the
-    launch counts, iterations/s and {run: (iterations, solve seconds)}."""
+    launch counts, iterations/s, {run: (iterations, solve seconds)} and the
+    symmetric float64 operator (phase 20's)."""
     # build first (host assembly is set-up), then zero the counters just
     # before the solves
     runs = []
@@ -533,7 +600,7 @@ def phase_main_path(a, dev):
             fail(f"main path launched no {key} kernel")
     show("4.main_path", launches=counts)
     phase_plain_witness(a, runs[1], results[1][3])
-    return counts, its_per_s, solves
+    return counts, its_per_s, solves, runs[0][2]
 
 
 def phase_plain_witness(a, run, res_kernel):
@@ -1170,7 +1237,7 @@ def time_in_turns(kernel, plain, x0, iters_k=100, iters_p=25):
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel: one a step, to count steps
 
 
-def device_ms(step, x0, iters: int = 50) -> float:
+def device_ms(step, x0, iters: int = 50, sessions: int = 3) -> float:
     """Device ms per call of a chained x -> step(x) loop: the time of every
     CUDA kernel it launches, from torch.profiler's CUPTI records. A chained
     loop timed with events is bound by the host once a call's kernels take
@@ -1180,13 +1247,14 @@ def device_ms(step, x0, iters: int = 50) -> float:
     read half the time, and one kept no marker), so each step also launches
     a marker kernel: a kernel's time a step is its mean time a recorded
     launch times its recorded launches a recorded marker, rounded; and the
-    result is the median of three sessions that recorded markers (of at
-    most six)."""
+    result is the median of ``sessions`` sessions that recorded markers (of
+    at most twice as many tries): three for a kernel, YARDSTICK_SESSIONS
+    for a plain version or a library call."""
     x = step(x0)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    sessions = []
-    for _ in range(6):
+    wanted, sessions = sessions, []
+    for _ in range(2 * wanted):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 x = step(x)
@@ -1198,14 +1266,19 @@ def device_ms(step, x0, iters: int = 50) -> float:
         if steps:
             sessions.append(sum(e.self_device_time_total / e.count * round(e.count / steps)
                                 for e in events if MARKER not in e.key) / 1e3)
-        if len(sessions) == 3:
+        if len(sessions) == wanted:
             break
     if not sessions:
-        fail("device_ms: the profiler recorded no step in six sessions")
+        fail(f"device_ms: the profiler recorded no step in {2 * wanted} sessions")
     ms = sorted(sessions)[len(sessions) // 2]
     if not ms > 0:
         fail("device_ms: the profiler recorded no device time")
     return ms
+
+
+def yardstick_ms(step, x0, iters: int = 50) -> float:
+    """``device_ms`` of a plain version or a library call: one session."""
+    return device_ms(step, x0, iters, sessions=YARDSTICK_SESSIONS)
 
 
 def cold_l2_ms(step, x0, dev) -> float:
@@ -1242,7 +1315,7 @@ def library_device_ms(a: CSRHost, dev, scale: float, dtype=np.float32) -> float:
     """``device_ms`` of the same torch CSR @ x."""
     m = csr_tensor(a, dev, scale, dtype)
     x0 = torch.as_tensor(gaussian_bump(a.ncols, dtype=dtype), device=dev)
-    ms = device_ms(lambda v: m @ v, x0)
+    ms = yardstick_ms(lambda v: m @ v, x0)
     del m
     return ms
 
@@ -1317,7 +1390,7 @@ def phase_timing_all(a_lap, dia_times, a4, w4, a_fem, A_fem, dev):
         # device times (the chained loop of a kernel this short is bound by
         # the host), the chained event times beside them
         chained_k, chained_p, runs_k, runs_p = time_in_turns(kernel, plain, x2)
-        ms_k, ms_p = device_ms(kernel, x2), device_ms(plain, x2, iters=10)
+        ms_k, ms_p = device_ms(kernel, x2), yardstick_ms(plain, x2, 10)
         nbytes = (nnz * (values.element_size() + pos.element_size())
                   + w0.numel() * 4 + ptr.numel() * 8 + (ncols + nrows) * 4)
         vec_bytes = 2 * x.size * 4
@@ -1737,7 +1810,7 @@ def phase_ds_timing(a_lap, a4, w4ds, A_fem_ds, a_fem, dev):
         # device times, as for spmv_well; the chained event times beside
         x0 = ds_pair(x, dev)
         r = row(kernel, plain, x0, nbytes, a_lib, lib_scale)
-        r = dict(r, ms=device_ms(kernel, x0), plain_ms=device_ms(plain, x0, iters=5),
+        r = dict(r, ms=device_ms(kernel, x0), plain_ms=yardstick_ms(plain, x0, 5),
                  library_ms=library_device_ms(a_lib, dev, lib_scale, np.float64),
                  timing="device", chained_ms=r["ms"], plain_chained_ms=r["plain_ms"],
                  library_chained_ms=r["library_ms"])
@@ -2332,9 +2405,9 @@ def phase_block_timing(a_lap, d32, a4, w4, w4ds, single_ms, circuit_ops, dev):
              ds_block(gen, nrows_c, NRHS, dev),
              lists_bytes(cdrows, near.nnz, 8, near.nrows, near.ncols, 8), np.float64)):
         chained_k, chained_p, runs_k, runs_p = time_in_turns(kernel, plain, x0, iters_p=5)
-        lib = library_block_ms(near, dev, scale, lib_dtype, NRHS, timer=device_ms)
+        lib = library_block_ms(near, dev, scale, lib_dtype, NRHS, timer=yardstick_ms)
         lib_chained = library_block_ms(near, dev, scale, lib_dtype, NRHS)
-        shape = dict(ms=device_ms(kernel, x0), plain_ms=device_ms(plain, x0, iters=5),
+        shape = dict(ms=device_ms(kernel, x0), plain_ms=yardstick_ms(plain, x0, 5),
                      library_ms=min(lib["row_major"], lib["column_major"]),
                      bound_ms=bound_ms(nbytes), bytes=nbytes, nrhs=NRHS,
                      timing="device", chained_ms=chained_k, plain_chained_ms=chained_p,
@@ -2370,9 +2443,9 @@ def sym_block_timing(gen, dev) -> tuple[str, dict]:
         return spmm_dia_stacked_plain(data, v, d.offsets, True)
 
     chained_k, chained_p, runs_k, runs_p = time_in_turns(kernel, plain, xs, iters_p=10)
-    lib = library_block_ms(a, dev, 1.0 / 9.0, np.float64, NRHS, timer=device_ms)
+    lib = library_block_ms(a, dev, 1.0 / 9.0, np.float64, NRHS, timer=yardstick_ms)
     nbytes = (len(d.offsets) + 2 * NRHS) * d.nrows_pad * 8
-    row = dict(ms=device_ms(kernel, xs), plain_ms=device_ms(plain, xs, iters=5),
+    row = dict(ms=device_ms(kernel, xs), plain_ms=yardstick_ms(plain, xs, 5),
                library_ms=min(lib["row_major"], lib["column_major"]),
                bound_ms=bound_ms(nbytes), bytes=nbytes, nrhs=NRHS, dtype="float64",
                timing="device", chained_ms=chained_k, plain_chained_ms=chained_p)
@@ -2941,8 +3014,9 @@ def phase_general_krylov(a, head, plain_solves, dev, totals):
     a second solve gives the same bits; the float64 host residual (MINRES:
     in the preconditioner's norm, the quantity it reports) within
     KRYLOV_RESIDUAL_GATE * rtol of the reported one. Returns the symmetric
-    fp32 operator (19e) and the AMG-GMRES run on the Gaussian bump (19f's
-    yardstick for the demo)."""
+    fp32 operator (19e), the AMG-GMRES run on the Gaussian bump (19f's
+    yardstick for the demo) and each solver's iterations (20c's
+    yardstick)."""
     A, h = head
     per_cycle = sum(amg_cycle_applies(h))
     prec = h.as_preconditioner()
@@ -3028,7 +3102,7 @@ def phase_general_krylov(a, head, plain_solves, dev, totals):
          gmres_converged=res.converged, gmres_solve_s=seconds,
          gmres_reported_rel_residual=float(res.rnorm) / float(res.rnorm0),
          amg_pcg_iterations=pcg.iterations, amg_pcg_converged=pcg.converged)
-    return As, bump_run
+    return As, bump_run, out
 
 
 def phase_fsai(a_fem, A_fem, jacobi_its, dev, max_abs, totals):
@@ -3215,13 +3289,31 @@ def demo_lines(out: str) -> dict:
 
 @dataclasses.dataclass
 class Demos:
-    """19f's demo subprocesses: their commands, processes, logs and inputs."""
+    """Demo subprocesses (19f, 20e): their phase tag, commands, processes,
+    logs and inputs."""
     work: Path
     cmds: dict
     procs: dict
     logs: dict
     t0: float
     seconds: float = 0.0
+    tag: str = "19f"
+
+
+def launch_demos(work: Path, cmds: dict, tag: str) -> Demos:
+    """Start every command as a subprocess on the card, all together, each
+    writing its output to work/<name>.log."""
+    demos = Demos(work, cmds, {}, {}, time.perf_counter(), tag=tag)
+    try:
+        for name, cmd in cmds.items():
+            demos.logs[name] = open(work / f"{name}.log", "w+")
+            demos.procs[name] = subprocess.Popen(
+                cmd, stdout=demos.logs[name], stderr=subprocess.STDOUT,
+                cwd=Path(__file__).resolve().parent)
+    except BaseException:
+        stop_demos(demos)
+        raise
+    return demos
 
 
 def start_demos() -> Demos:
@@ -3257,17 +3349,7 @@ def start_demos() -> Demos:
         "restrict": [sys.executable, "-m", "spmv_torch.demos.demo_restrict", "--n",
                      str(DEMO_RESTRICT_N), "--devices", "4"],
     }
-    demos = Demos(work, cmds, {}, {}, time.perf_counter())
-    try:
-        for name, cmd in cmds.items():
-            demos.logs[name] = open(work / f"{name}.log", "w+")
-            demos.procs[name] = subprocess.Popen(
-                cmd, stdout=demos.logs[name], stderr=subprocess.STDOUT,
-                cwd=Path(__file__).resolve().parent)
-    except BaseException:
-        stop_demos(demos)
-        raise
-    return demos
+    return launch_demos(work, cmds, "19f")
 
 
 def stop_demos(demos: Demos) -> None:
@@ -3287,11 +3369,11 @@ def wait_demos(demos: Demos) -> None:
             try:
                 p.wait(timeout=max(DEMO_TIMEOUT - (time.perf_counter() - demos.t0), 1))
             except subprocess.TimeoutExpired:
-                fail(f"19f {name}: still running after {DEMO_TIMEOUT} s")
+                fail(f"{demos.tag} {name}: still running after {DEMO_TIMEOUT} s")
     finally:
         demos.seconds = time.perf_counter() - demos.t0
         stop_demos(demos)
-    show("19f.demos_done", seconds_all_demos=demos.seconds)
+    show(f"{demos.tag}.demos_done", seconds_all_demos=demos.seconds)
 
 
 def check_demos(demos: Demos, bump_run, dev) -> None:
@@ -3361,7 +3443,8 @@ def check_demos(demos: Demos, bump_run, dev) -> None:
 def phase_krylov(a_lap, head, plain_solves, a_fem, A_fem, jacobi_its, dev, max_abs):
     """Phase 19: the general Krylov path and the transpose operator (19a-f;
     19f's demos run beside 19a and are checked last). Returns the
-    single-RHS launch counts of its gated runs."""
+    single-RHS launch counts of its gated runs and 19b's iterations by
+    solver."""
     totals = {"dia": 0, "dia_sym": 0, "well": 0}
     t0 = time.perf_counter()
     demos = start_demos()
@@ -3373,7 +3456,7 @@ def phase_krylov(a_lap, head, plain_solves, a_fem, A_fem, jacobi_its, dev, max_a
     show("19a.seconds", seconds=time.perf_counter() - t0)
     wait_demos(demos)
     t0 = time.perf_counter()
-    As, bump_run = phase_general_krylov(a_lap, head, plain_solves, dev, totals)
+    As, bump_run, krylov_its = phase_general_krylov(a_lap, head, plain_solves, dev, totals)
     show("19b.seconds", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     phase_fsai(a_fem, A_fem, jacobi_its, dev, max_abs, totals)
@@ -3390,8 +3473,528 @@ def phase_krylov(a_lap, head, plain_solves, a_fem, A_fem, jacobi_its, dev, max_a
     show("19f.seconds", seconds=time.perf_counter() - t0,
          demos_seconds_beside_19a=demos.seconds)
     show("19.krylov", launches=totals)
-    return totals
+    return totals, krylov_its
 
+
+# ----------------------------------------------------------------- phase 20
+
+@contextlib.contextmanager
+def counting(*targets):
+    """Count calls of module-level functions while the block runs:
+    ``targets`` are (module, name) pairs that share one counter (a module
+    that imports a function by name holds its own reference, so each is
+    patched); yields the one-element counter list."""
+    count = [0]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def wrap(fn):
+        def counted(*args, **kwargs):
+            count[0] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for mod, name, fn in saved:
+        setattr(mod, name, wrap(fn))
+    try:
+        yield count
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def gather_counter():
+    """``counting`` over the halo gathers of the matvec and of the MPK."""
+    return counting((dist_matrix_mod, "halo_gather"), (powers_mod, "halo_gather"))
+
+
+def sync_counter():
+    """``counting`` over the s-step solvers' host syncs."""
+    return counting((cg_sstep_mod, "host_sync"), (gmres_sstep_mod, "host_sync"))
+
+
+def single_counts() -> dict:
+    """The single-RHS (``launch_counts``) and block launch counters."""
+    return {**launch_counts(), **block_launches()}
+
+
+def phase20_gate(tag: str, got: dict, want: dict) -> None:
+    """Exact launch counts: ``want`` for its kernels and none of any other
+    kernel (every single-RHS and block kernel counted)."""
+    others = (single_launches() + sum(block_launches().values())
+              - sum(got.get(k, 0) for k in want))
+    if any(got.get(k, 0) != n for k, n in want.items()) or others:
+        fail(f"{tag}: launches {got} (+{others} others), want {want}")
+
+
+def start_sstep_demos() -> Demos:
+    """Phase 20e, first half: the three demos of the s-step group as
+    subprocesses, started together after 20b and joined in 20e:
+    (1) demo_cg --lap2d SSTEP_DEMO_NX --dia --sstep 4 --mpk --devices 4;
+    (2) demo_cg on 19f's convection-diffusion PETSc files, --dia --sstep 4
+    --solver gmres --newton 16 --mpk --devices 4 (the reference demo's
+    kmax and rtol); (3) demo_cg --lap2d SSTEP_DEMO_NX --dia --symmetric
+    --fp32 --deflated 4, which 20d runs in this process."""
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_demos"
+    demo = [sys.executable, "-m", "spmv_torch.demos.demo_cg"]
+    solve = ["--kmax", str(SSTEP_KMAX), "--rtol", str(SSTEP_RTOL)]
+    cmds = {
+        "sstep_mpk": demo + ["--lap2d", str(SSTEP_DEMO_NX), "--dia", "--sstep", str(SSTEP_S),
+                             "--mpk", "--devices", str(MPK_DEVICES), *solve],
+        "newton_mpk": demo + ["--petsc", str(work / "cd.petsc"), "--rhs",
+                              str(work / "cd_rhs.petsc"), "--dia", "--sstep", str(SSTEP_S),
+                              "--solver", "gmres", "--newton", str(DEMO_NEWTON_M), "--mpk",
+                              "--devices", str(MPK_DEVICES)],
+        "deflated": demo + ["--lap2d", str(SSTEP_DEMO_NX), "--dia", "--symmetric", "--fp32",
+                            "--deflated", str(DEFLATED_D), *solve],
+    }
+    return launch_demos(work, cmds, "20e")
+
+
+def phase_mpk(a, dev, max_abs, totals):
+    """Phase 20a: the matrix-powers basis at NX^2, float64, vanilla DIA on
+    MPK_DEVICES stacked shards, s = SSTEP_S. The depth-s plan (its host BFS
+    and window packing timed), its ghost growth; the window's dia_spmv vs
+    its plain version on a random input at the window's shape (folded into
+    max_abs); then chebyshev_powers_basis against the s-matvec basis
+    (relative L2 <= MPK_TOL), exactly one halo_gather and s dia_spmv
+    launches a basis and nothing else, the same bits on a second build.
+    Returns (A, plan) for 20b."""
+    t0 = time.perf_counter()
+    A = build_dist_matrix(a, n_devices=MPK_DEVICES, dtype=np.float64, local_format="dia",
+                          device=dev)
+    t_asm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pp = build_powers_plan(a, A, s=SSTEP_S)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    if pp.local_format != "dia":
+        fail(f"20a: the powers plan took {pp.local_format}, not dia")
+    stats = powers_ghost_stats(pp, A)
+    # both depths pad their ghost buffers to col_pad (as the reference's
+    # plans do); the logical ghost rows show the stencil's growth
+    ghosts = (int(pp.plan.nghosts.max()), int(A.plan.nghosts.max()))
+    stats.update(ghost_rows_depth_s=ghosts[0], ghost_rows_depth_1=ghosts[1],
+                 ghost_rows_growth=ghosts[0] / max(ghosts[1], 1))
+    gen = torch.Generator(device=dev).manual_seed(20)
+    xw = torch.randn((MPK_DEVICES * pp.dia_rows // 128, 128), generator=gen,
+                     dtype=torch.float64, device=dev)
+    _, err, mabs, _ = compare("20a window dia_spmv", pp.dia_data, xw, pp.dia_offsets, False,
+                              TOL_KERNEL["float64"])
+    max_abs["dia_spmv"] = max(max_abs["dia_spmv"], mabs)
+    show("20a.kernel", kernel="dia_spmv", matrix=f"laplace2d {NX}^2 window, D={MPK_DEVICES}",
+         dtype="float64", window_rows=pp.dia_rows, offsets=list(pp.dia_offsets),
+         rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
+         **plan_fields(pp.dia_data, pp.dia_offsets, False, 1))
+    del xw
+    x = A.to_dist(gaussian_bump(a.nrows))
+    c = e = MPK_INTERVAL / 2
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        reset_counters()
+        with gather_counter() as gathers:
+            t0 = time.perf_counter()
+            V = chebyshev_powers_basis(pp, x, c, e)
+            torch.cuda.synchronize()
+            runs.append((V, time.perf_counter() - t0, single_counts(), gathers[0]))
+    V, t_mpk, got, n_gather = runs[1]
+    phase20_gate("20a MPK basis", got, {"dia": SSTEP_S})
+    if n_gather != 1 or runs[0][3] != 1:
+        fail(f"20a: {n_gather} halo gathers for one MPK basis, want 1")
+    if not torch.equal(runs[0][0], V):
+        fail("20a: a second MPK basis gave other bits")
+    add_counts(totals, got)
+    torch.cuda.synchronize()
+    reset_counters()
+    with gather_counter() as gathers:
+        t0 = time.perf_counter()
+        Vn = chebyshev_basis(A.matvec, x, SSTEP_S, c, e)
+        torch.cuda.synchronize()
+        t_naive = time.perf_counter() - t0
+    phase20_gate("20a naive basis", single_counts(), {"dia": SSTEP_S})
+    add_counts(totals, single_counts())
+    rel = float(torch.linalg.vector_norm(V - Vn) / torch.linalg.vector_norm(Vn))
+    show("20a.mpk", matrix=f"laplace2d {NX}^2", dtype="float64", devices=MPK_DEVICES,
+         s=SSTEP_S, assemble_s=t_asm, plan_s=t_plan, ghost_stats=stats,
+         window_rows=pp.dia_rows, gl_pad=pp.gl_pad, rel_l2_vs_naive=rel, gate=MPK_TOL,
+         halo_gathers_mpk=n_gather, halo_gathers_naive=gathers[0], launches_mpk=got,
+         basis_s_mpk=t_mpk, basis_s_naive=t_naive, second_build_same_bits=True)
+    if not rel <= MPK_TOL:
+        fail(f"20a: MPK basis {rel:.3e} from the naive basis")
+    del V, Vn, runs
+    return A, pp
+
+
+def sstep_run(tag, A, b, kernel, builder, solves):
+    """One gated cg_sstep(s=SSTEP_S) solve at NX^2 float64, run twice:
+    converged, the same bits both times; one host sync a block (setup reads
+    |r0| and the power iteration's lmax, the end the true residual, and the
+    best-iterate fallback one more); the launches exact: ``kernel`` once for
+    |r0|, 12 times for lmax, s times a block and once or twice at the end,
+    and (with the MPK ``builder``) one halo gather a block beside the
+    plain applies'."""
+    out = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        reset_counters()
+        with sync_counter() as syncs, gather_counter() as gathers:
+            t0 = time.perf_counter()
+            res = cg_sstep(A.matvec, b, s=SSTEP_S, kmax=SSTEP_KMAX, rtol=SSTEP_RTOL,
+                           basis_builder=builder)
+            torch.cuda.synchronize()
+            out.append((res, time.perf_counter() - t0, single_counts(), syncs[0], gathers[0]))
+    res, seconds, got, n_sync, n_gather = out[0]
+    if not (torch.equal(out[1][0].x, res.x) and out[1][0].iterations == res.iterations):
+        fail(f"{tag}: a second solve gave other bits")
+    blocks = res.iterations // SSTEP_S
+    if n_sync not in (blocks + 3, blocks + 4):
+        fail(f"{tag}: {n_sync} host syncs for {blocks} blocks, want one a block")
+    tail = n_sync - blocks - 2  # the final residual, and the fallback's
+    phase20_gate(tag, got, {kernel: 13 + SSTEP_S * blocks + tail, **(
+        {"dia_sym": 0} if kernel == "dia" else {"dia": 0})})
+    if builder is not None and n_gather != 13 + blocks + tail:
+        fail(f"{tag}: {n_gather} halo gathers for {blocks} blocks, want one a block")
+    x = A.from_dist(res.x)
+    bh = A.from_dist(b, side="col")
+    host = float(np.linalg.norm(bh - solves["a"].matvec(x)))
+    bn = float(np.linalg.norm(bh))
+    fields = dict(run=tag, iterations=res.iterations, blocks=blocks, converged=res.converged,
+                  reported_rel_residual=float(res.rnorm) / bn, host_rel_residual=host / bn,
+                  host_syncs=n_sync, halo_gathers=n_gather, launches=got, solve_s=seconds,
+                  it_per_s=res.iterations / seconds, cg_iterations=solves["cg"],
+                  second_solve_same_bits=True)
+    show("20b.cg_sstep", **fields)
+    if not res.converged:
+        fail(f"{tag}: not converged in {res.iterations} iterations")
+    if abs(host - float(res.rnorm)) > SSTEP_RESIDUAL_GATE * bn:
+        fail(f"{tag}: host residual {host / bn:.3e} vs reported "
+             f"{float(res.rnorm) / bn:.3e}")
+    return res.iterations
+
+
+def phase_sstep_cg(a, As64, A4, pp, cg_its, dev, totals):
+    """Phase 20b: cg_sstep(s=SSTEP_S) at NX^2 float64 on the Gaussian bump,
+    rtol SSTEP_RTOL: on phase 4's symmetric DIA operator at D = 1
+    (dia_sym_spmv), and through the MPK at D = MPK_DEVICES (20a's plan,
+    dia_spmv on the windows); each gated by ``sstep_run``, the iterations
+    beside phase 4's CG."""
+    solves = {"a": a, "cg": cg_its}
+    its = {}
+    for tag, A, kernel, builder in (
+            ("20b D=1 symmetric", As64, "dia_sym", None),
+            (f"20b D={MPK_DEVICES} mpk", A4, "dia",
+             lambda r, c, e: chebyshev_powers_basis(pp, r, c, e))):
+        b = A.to_dist(gaussian_bump(a.nrows))
+        its[tag] = sstep_run(tag, A, b, kernel, builder, solves)
+        add_counts(totals, single_counts())
+    return its
+
+
+def phase_sstep_gmres(a_lap, head, gmres_its, dev, totals):
+    """Phase 20c: gmres_sstep(s=SSTEP_S, restart=32) on A o M, M 18a's AMG
+    W-cycle (its hierarchy reused), NX^2 float32, on 19b's b = A x*, x =
+    M u; gated as 19b (converged, exact launches: every A o M apply 1 +
+    the cycle's dia_spmv launches, the same bits on a second solve, the
+    float64 host residual within KRYLOV_RESIDUAL_GATE rtol of the
+    reported), the steps beside 19b's GMRES(30). Then the Newton basis: an
+    NEWTON_M-step Arnoldi harvest on the NEWTON_NX^2 convection-diffusion
+    operator (float64 vanilla DIA, D = MPK_DEVICES, b = A x*),
+    gmres_sstep(newton_ops=, basis_builder=newton_powers_basis) for
+    NEWTON_CYCLES cycles beside the same solve with the s-apply Newton
+    basis: the same steps, residuals within NEWTON_TOL relative; one halo
+    gather and one host sync a block, exact launches, the reported
+    residual the host's within 1e-8 ||b||."""
+    A, h = head
+    per_cycle = sum(amg_cycle_applies(h))
+    prec = h.as_preconditioner()
+    n = a_lap.nrows
+    b_host = a_lap.matvec(np.random.default_rng(19).standard_normal(n)).astype(np.float32)
+    b = A.to_dist(b_host)
+    cycles = -(-AMG_KRYLOV_KMAX // 32)
+
+    def am(v):
+        return A.matvec(prec(v))
+
+    out = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        res = gmres_sstep(am, b, s=SSTEP_S, restart=32, max_cycles=cycles, rtol=KRYLOV_RTOL)
+        x = prec(res.x)
+        torch.cuda.synchronize()
+        out.append((res, x, time.perf_counter() - t0, single_counts()))
+    res, x, seconds, got = out[0]
+    if not (torch.equal(out[1][1], x) and out[1][0].iterations == res.iterations):
+        fail("20c AMG: a second solve gave other bits")
+    applies = 1 + 12 + res.iterations + res.cycles
+    phase20_gate("20c AMG", got, {"dia": applies * (1 + per_cycle) + per_cycle,
+                                  "dia_sym": 0})
+    add_counts(totals, got)
+    r64 = b_host.astype(np.float64) - a_lap.matvec(A.from_dist(x).astype(np.float64))
+    true_rel = float(np.linalg.norm(r64) / np.linalg.norm(b_host.astype(np.float64)))
+    rep_rel = float(res.rnorm) / float(res.rnorm0)
+    show("20c.amg", solver="gmres_sstep", matrix=f"laplace2d {NX}^2", preconditioner="amg",
+         s=SSTEP_S, restart=32, rtol=KRYLOV_RTOL, iterations=res.iterations,
+         cycles=res.cycles, converged=res.converged, gmres_19b_iterations=gmres_its,
+         solve_s=seconds, reported_rel_residual=rep_rel, host_rel_residual=true_rel,
+         launches=got, second_solve_same_bits=True)
+    if not res.converged:
+        fail(f"20c AMG: not converged in {res.iterations} steps")
+    if not abs(true_rel - rep_rel) <= KRYLOV_RESIDUAL_GATE * KRYLOV_RTOL:
+        fail(f"20c AMG: host residual {true_rel:.3e} vs reported {rep_rel:.3e}")
+
+    a_cd = convection_diffusion_2d(NEWTON_NX)
+    t0 = time.perf_counter()
+    Acd = build_dist_matrix(a_cd, n_devices=MPK_DEVICES, dtype=np.float64, local_format="dia",
+                            device=dev)
+    pp = build_powers_plan(a_cd, Acd, s=SSTEP_S)
+    t_setup = time.perf_counter() - t0
+    bh = a_cd.matvec(np.random.default_rng(20).standard_normal(a_cd.nrows))
+    b = Acd.to_dist(bh)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    ritz = newton_shifts_from_operator(Acd.matvec, b, m=NEWTON_M)
+    torch.cuda.synchronize()
+    t_ritz = time.perf_counter() - t0
+    phase20_gate("20c Arnoldi", single_counts(), {"dia": NEWTON_M})
+    add_counts(totals, single_counts())
+    ops = newton_basis_ops(ritz, SSTEP_S)
+    runs = {}
+    for tag, builder in (("mpk", lambda q: newton_powers_basis(pp, q, ops)), ("naive", None)):
+        torch.cuda.synchronize()
+        reset_counters()
+        with sync_counter() as syncs, gather_counter() as gathers:
+            t0 = time.perf_counter()
+            r = gmres_sstep(Acd.matvec, b, s=SSTEP_S, restart=32, max_cycles=NEWTON_CYCLES,
+                            rtol=KRYLOV_RTOL, newton_ops=ops, basis_builder=builder)
+            torch.cuda.synchronize()
+            runs[tag] = (r, time.perf_counter() - t0, single_counts(), syncs[0], gathers[0])
+    r, seconds, got, n_sync, n_gather = runs["mpk"]
+    rn = runs["naive"][0]
+    blocks = r.iterations // SSTEP_S
+    phase20_gate("20c Newton MPK", got, {"dia": 1 + SSTEP_S * blocks + r.cycles, "dia_sym": 0})
+    add_counts(totals, got)
+    add_counts(totals, runs["naive"][2])
+    host = float(np.linalg.norm(bh - a_cd.matvec(Acd.from_dist(r.x))))
+    bn = float(np.linalg.norm(bh))
+    rdiff = abs(float(r.rnorm) - float(rn.rnorm)) / float(rn.rnorm)
+    show("20c.newton", matrix=f"convection-diffusion {NEWTON_NX}^2", dtype="float64",
+         devices=MPK_DEVICES, s=SSTEP_S, restart=32, arnoldi_m=NEWTON_M,
+         setup_s=t_setup, ritz_s=t_ritz, max_abs_imag=float(np.abs(ritz.imag).max()),
+         leja_shifts=[[float(z.real), float(z.imag)] for z in modified_leja(ritz)[:SSTEP_S]],
+         ops=[list(o) for o in ops], iterations=r.iterations, cycles=r.cycles,
+         converged=r.converged, rel_residual=float(r.rnorm) / bn, host_rel_residual=host / bn,
+         naive_iterations=rn.iterations, naive_rel_residual=float(rn.rnorm) / bn,
+         rnorm_rel_diff_vs_naive=rdiff, host_syncs=n_sync, halo_gathers=n_gather,
+         launches=got, solve_s=seconds, naive_solve_s=runs["naive"][1])
+    if not (np.isfinite(float(r.rnorm)) and float(r.rnorm) < float(r.rnorm0)):
+        fail(f"20c Newton: no progress ({float(r.rnorm):.3e} from {float(r.rnorm0):.3e})")
+    if (r.iterations, r.cycles) != (rn.iterations, rn.cycles) or not rdiff <= NEWTON_TOL:
+        fail(f"20c Newton: MPK {r.iterations} steps, rnorm {float(r.rnorm):.6e}; naive "
+             f"{rn.iterations}, {float(rn.rnorm):.6e}")
+    if n_sync != 1 + blocks + r.cycles or n_gather != 1 + blocks + r.cycles:
+        fail(f"20c Newton: {n_sync} host syncs, {n_gather} halo gathers for {blocks} "
+             f"blocks and {r.cycles} cycles")
+    if abs(host - float(r.rnorm)) > SSTEP_RESIDUAL_GATE * bn:
+        fail(f"20c Newton: host residual {host / bn:.3e} vs reported {float(r.rnorm) / bn:.3e}")
+    return res.iterations
+
+
+def phase_deflated(dev, max_abs, totals):
+    """Phase 20d: LOBPCG and deflated CG at SSTEP_DEMO_NX^2 float32 on
+    symmetric DIA storage, as ``demo_cg --deflated 4`` sets them up
+    (``demo_cg.deflation_basis``: a 32-step Lanczos bound, LOBPCG with
+    the degree-16 Chebyshev filter, maxiter 100, tol 1e-3), beside CG on
+    the same Gaussian bump, rtol SSTEP_RTOL. First dia_sym_spmm vs its
+    plain version at the block's width (nrhs DEFLATED_D); then exact
+    launches (Lanczos: 32 dia_sym_spmv; LOBPCG: 1 + 17 dia_sym_spmm an
+    iteration; cg_deflated: D + 1 + k dia_sym_spmv), the Ritz values
+    inside the spectrum (above lambda_1 less RITZ_TOL: Rayleigh quotients
+    of a symmetric operator cannot fall below it), both solves converged,
+    the same bits on a second deflated solve; the iterations printed
+    beside CG's, not gated (a basis short of the bottom eigenvectors can
+    slow CG down). Returns (iterations, r.norm on the host, x.norm) for
+    20e's demo."""
+    from spmv_torch.demos.demo_cg import deflation_basis
+
+    a = create_laplace_2d(SSTEP_DEMO_NX, SSTEP_DEMO_NX)
+    A = build_dist_matrix(a, n_devices=1, symmetric=True, dtype=np.float32,
+                          local_format="dia", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    xs = (lanes_block(gen, A.local_dia_data.shape[1], DEFLATED_D, torch.float32, dev),)
+    block_check(max_abs, "20d", "dia_sym_spmm", f"laplace2d {SSTEP_DEMO_NX}^2", "float32",
+                DEFLATED_D,
+                lambda x: spmm_dia_cuda.spmm_dia_stacked(A.local_dia_data, x, A.dia_offsets,
+                                                         True),
+                lambda x: spmm_dia_stacked_plain(A.local_dia_data, x, A.dia_offsets, True),
+                lambda x: spmv_dia_cuda.spmv_dia_stacked(A.local_dia_data, x, A.dia_offsets,
+                                                         True), xs, TOL_KERNEL["float32"])
+    del xs
+    b_host = gaussian_bump(a.nrows, dtype=np.float32)
+    b = A.to_dist(b_host)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    W, eig = deflation_basis(A, DEFLATED_D, np.float32)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    got = single_counts()
+    phase20_gate("20d set-up", got, {"dia_sym": 32, "dia_sym_spmm": 1 + 17 * eig.iterations})
+    add_counts(totals, got)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        res = cg_deflated(A.matvec, b, W, kmax=SSTEP_KMAX, rtol=SSTEP_RTOL)
+        torch.cuda.synchronize()
+        runs.append((res, time.perf_counter() - t0, single_counts()))
+    res, seconds, got = runs[0]
+    if not (torch.equal(runs[1][0].x, res.x) and runs[1][0].iterations == res.iterations):
+        fail("20d: a second deflated solve gave other bits")
+    phase20_gate("20d cg_deflated", got, {"dia_sym": DEFLATED_D + 1 + res.iterations})
+    add_counts(totals, got)
+    reset_counters()
+    t0 = time.perf_counter()
+    plain = cg(A.matvec, b, kmax=SSTEP_KMAX, rtol=SSTEP_RTOL)
+    torch.cuda.synchronize()
+    t_cg = time.perf_counter() - t0
+    add_counts(totals, single_counts())
+    bh = b_host.astype(np.float64)
+    x, xc = A.from_dist(res.x).astype(np.float64), A.from_dist(plain.x).astype(np.float64)
+    r_norm = float(np.linalg.norm(a.matvec(x) - bh))
+    bn = float(np.linalg.norm(bh))
+    # the 5-point Laplacian's extreme eigenvalues
+    lam1 = 4 - 4 * np.cos(np.pi / (SSTEP_DEMO_NX + 1))
+    lam_max = 4 + 4 * np.cos(np.pi / (SSTEP_DEMO_NX + 1))
+    ritz = np.asarray(eig.eigenvalues, np.float64)
+    show("20d.deflated", matrix=f"laplace2d {SSTEP_DEMO_NX}^2 symmetric dia float32",
+         d=DEFLATED_D, setup_s=t_setup, lobpcg_iterations=eig.iterations,
+         lobpcg_converged=eig.converged, ritz_values=ritz.tolist(),
+         lambda_1=lam1, iterations=res.iterations, converged=res.converged,
+         reported_rel_residual=float(res.rnorm) / float(res.rnorm0),
+         host_rel_residual=r_norm / bn, solve_s=seconds, cg_iterations=plain.iterations,
+         cg_converged=plain.converged, cg_host_rel_residual=float(
+             np.linalg.norm(a.matvec(xc) - bh)) / bn, cg_solve_s=t_cg, launches=got,
+         second_solve_same_bits=True)
+    if not (res.converged and plain.converged):
+        fail(f"20d: deflated CG converged {res.converged}, CG {plain.converged}")
+    if not (np.all(ritz >= lam1 - RITZ_TOL) and np.all(ritz <= lam_max + RITZ_TOL)):
+        fail(f"20d: LOBPCG Ritz values {ritz} outside [{lam1}, {lam_max}]")
+    return res.iterations, r_norm, float(np.linalg.norm(x))
+
+
+def check_sstep_demos(demos: Demos, deflated_run, dev) -> None:
+    """Phase 20e, second half: each demo exited 0 and printed the result of
+    the same solve run here: (1) s-step CG through the MPK at
+    SSTEP_DEMO_NX^2 float64 D = 4; (2) the Newton MPK CA-GMRES on 19f's
+    PETSc files (a 16-step Ritz harvest, restart 32, 4 cycles: the
+    reference demo's kmax 100 and rtol 1e-10); (3) 20d's deflated solve.
+    The same convergence, iterations and r.norm within DEMO_SSTEP_TOL."""
+    a = create_laplace_2d(SSTEP_DEMO_NX, SSTEP_DEMO_NX)
+    A = build_dist_matrix(a, n_devices=MPK_DEVICES, dtype=np.float64, local_format="dia",
+                          device=dev)
+    pp = build_powers_plan(a, A, s=SSTEP_S)
+    bh = gaussian_bump(a.nrows)
+    res = cg_sstep(A.matvec, A.to_dist(bh), s=SSTEP_S, kmax=SSTEP_KMAX, rtol=SSTEP_RTOL,
+                   basis_builder=lambda r, c, e: chebyshev_powers_basis(pp, r, c, e))
+    x = A.from_dist(res.x)
+    mine = {"sstep_mpk": dict(converged=res.converged, iterations=res.iterations,
+                              r_norm=float(np.linalg.norm(a.matvec(x) - bh)),
+                              x_norm=float(np.linalg.norm(x)))}
+    work = demos.work
+    a_cd = read_petsc_binary_matrix_host(str(work / "cd.petsc"))
+    bh = read_petsc_binary_vector_host(str(work / "cd_rhs.petsc"))
+    A = build_dist_matrix(a_cd, n_devices=MPK_DEVICES, dtype=np.float64, local_format="dia",
+                          device=dev)
+    b = A.to_dist(bh)
+    ritz = arnoldi_ritz(A.matvec, b, m=DEMO_NEWTON_M).values
+    ops = newton_basis_ops(ritz, SSTEP_S)
+    pp = build_powers_plan(a_cd, A, s=SSTEP_S)
+    res = gmres_sstep(A.matvec, b, s=SSTEP_S, restart=32, max_cycles=4, rtol=1e-10,
+                      shifts=ritz, basis_builder=lambda q: newton_powers_basis(pp, q, ops))
+    x = A.from_dist(res.x)
+    mine["newton_mpk"] = dict(converged=res.converged, iterations=res.iterations,
+                              r_norm=float(np.linalg.norm(a_cd.matvec(x) - bh)),
+                              x_norm=float(np.linalg.norm(x)))
+    its, r_norm, x_norm = deflated_run
+    mine["deflated"] = dict(converged=True, iterations=its, r_norm=r_norm, x_norm=x_norm)
+    for name, p in demos.procs.items():
+        out = (work / f"{name}.log").read_text()
+        if p.returncode != 0:
+            fail(f"20e {name}: exit {p.returncode}: {out[-2000:]}")
+        got, want = demo_lines(out), mine[name]
+        rdiff = abs(got["r_norm"] - want["r_norm"]) / max(want["r_norm"], 1e-300)
+        show("20e.demo", demo=name, cmd=" ".join(demos.cmds[name][1:]), printed=got,
+             this_process=want, r_norm_rel_diff=rdiff, seconds_all_demos=demos.seconds,
+             mpk_line=next((ln for ln in out.splitlines() if ln.startswith("MPK:")), None),
+             newton_line=next((ln for ln in out.splitlines() if ln.startswith("Newton")),
+                              None))
+        tol_its, tol_r = DEMO_SSTEP_TOL[name]
+        if not (got["converged"] == want["converged"] and np.isfinite(got["r_norm"])
+                and abs(got["iterations"] - want["iterations"]) <= tol_its
+                and rdiff <= tol_r):
+            fail(f"20e {name}: printed {got}, this process's run {want}")
+
+
+def phase_pipelined_fp64(a, As64, cg_its, totals) -> None:
+    """Phase 20f: cg_pipelined in float64 on phase 4's symmetric NX^2
+    operator and Gaussian bump, rtol 1e-6, beside phase 4's CG: converged,
+    2 + k dia_sym_spmv launches. In float64 the recurrence does not drift
+    as in float32 (19e: 8825 against 7107), so the counts should meet."""
+    b = As64.to_dist(gaussian_bump(a.nrows))
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = cg_pipelined(As64.matvec, b, kmax=20000, rtol=1e-6)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = single_counts()
+    phase20_gate("20f cg_pipelined", got, {"dia_sym": 2 + res.iterations, "dia": 0})
+    add_counts(totals, got)
+    show("20f.cg_pipelined", matrix=f"laplace2d {NX}^2 symmetric dia float64", rtol=1e-6,
+         iterations=res.iterations, cg_iterations=cg_its, converged=res.converged,
+         solve_s=seconds, it_per_s=res.iterations / seconds,
+         reported_rel_residual=float(res.rnorm) / float(res.rnorm0), launches=got)
+    if not res.converged:
+        fail(f"20f cg_pipelined: not converged in {res.iterations}")
+
+
+def phase_sstep(a, As64, head, plain_solves, gmres_its, dev, max_abs):
+    """Phase 20: the communication-avoiding solvers (20a-f; 20e's demos
+    run beside 20c-f and are checked last). Returns the launch counts of
+    its gated runs."""
+    totals = {}
+    cg_its = plain_solves["symmetric float64"][0]
+    t0 = time.perf_counter()
+    A4, pp = phase_mpk(a, dev, max_abs, totals)
+    show("20a.seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_sstep_cg(a, As64, A4, pp, cg_its, dev, totals)
+    del A4, pp
+    show("20b.seconds", seconds=time.perf_counter() - t0)
+    demos = start_sstep_demos()
+    try:
+        t0 = time.perf_counter()
+        phase_sstep_gmres(a, head, gmres_its, dev, totals)
+        show("20c.seconds", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        deflated_run = phase_deflated(dev, max_abs, totals)
+        show("20d.seconds", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        phase_pipelined_fp64(a, As64, cg_its, totals)
+        show("20f.seconds", seconds=time.perf_counter() - t0)
+    except BaseException:
+        stop_demos(demos)
+        raise
+    wait_demos(demos)
+    t0 = time.perf_counter()
+    check_sstep_demos(demos, deflated_run, dev)
+    show("20e.seconds", seconds=time.perf_counter() - t0, demos_seconds=demos.seconds)
+    show("20.sstep", launches=totals)
+    return totals
 
 def dia_csr(A) -> CSRHost:
     """The host CSR of a one-shard DIA operator's stored entries."""
@@ -3439,7 +4042,7 @@ def phase_amg_timing(head, dev, max_abs) -> dict:
             return spmv_dia_stacked_plain(d, v, o, False)
 
         nbytes = (len(offs) + 2) * La.row_pad * 4
-        row = dict(ms=device_ms(kernel, x2), plain_ms=device_ms(plain, x2, iters=10),
+        row = dict(ms=device_ms(kernel, x2), plain_ms=yardstick_ms(plain, x2, 10),
                    library_ms=library_device_ms(csr, dev, s), bound_ms=bound_ms(nbytes),
                    bytes=nbytes, timing="device", rows=La.nrows_global, ndiags=len(offs),
                    launches_per_pcg_iteration=applies[i],
@@ -3480,7 +4083,7 @@ def phase_amg_timing(head, dev, max_abs) -> dict:
             nrhs = NRHS if block else 1
             nbytes = (d.ndiags + 2 * nrhs) * d.nrows_pad * 2
             lib_ms, lib_text = library_bf16(a, dev, 1.0 / 9.0, nrhs)
-            row = dict(ms=device_ms(kernel, xs), plain_ms=device_ms(plain, xs, iters=5),
+            row = dict(ms=device_ms(kernel, xs), plain_ms=yardstick_ms(plain, xs, 5),
                        library_ms=lib_ms, bound_ms=bound_ms(nbytes), bytes=nbytes,
                        timing="device", dtype="bfloat16", nrhs=nrhs,
                        rel_l2_vs_plain=err, max_abs_vs_plain=mabs, bit_equal_to_plain=True,
@@ -3517,7 +4120,7 @@ def phase_amg_timing(head, dev, max_abs) -> dict:
                 max_abs[kname] = max(max_abs[kname], mabs)
                 nrhs = v.shape[1] // 128
                 nbytes = (len(offs) + 2 * nrhs) * nr * 128 * data.element_size()
-                row = dict(ms=device_ms(kernel, v), plain_ms=device_ms(plain, v, iters=3),
+                row = dict(ms=device_ms(kernel, v), plain_ms=yardstick_ms(plain, v, 1),
                            library_ms=None, bound_ms=bound_ms(nbytes), bytes=nbytes,
                            timing="device", rows=nr * 128, ndiags=len(offs), nrhs=nrhs,
                            dtype=dname, rel_l2_vs_plain=err, max_abs_vs_plain=mabs,
@@ -3758,7 +4361,7 @@ def main() -> int:
     max_abs = phase_kernels(a, dev)
     show("3.seconds", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    counts, its_per_s, plain_solves = phase_main_path(a, dev)
+    counts, its_per_s, plain_solves, As64 = phase_main_path(a, dev)
     show("4.seconds", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     phase_halo(dev)
@@ -3815,20 +4418,31 @@ def main() -> int:
     show("18.seconds", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    for key, n in phase_krylov(a, amg_head, plain_solves, a_fem, A_fem, fem_jacobi_its,
-                               dev, max_abs).items():
+    krylov_counts, krylov_its = phase_krylov(a, amg_head, plain_solves, a_fem, A_fem,
+                                             fem_jacobi_its, dev, max_abs)
+    for key, n in krylov_counts.items():
         counts[key] += n
     show("19.seconds", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
+    for key, n in phase_sstep(a, As64, amg_head, plain_solves, krylov_its["gmres"], dev,
+                              max_abs).items():
+        counts[key] = counts.get(key, 0) + n
+    del As64
+    show("20.seconds", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
     timing = phase_timing_all(a, times, a4, w4, a_fem, A_fem, dev)
+    show("10a.seconds", seconds=time.perf_counter() - t0)
     timing.update(phase_ds_timing(a, a4, w4ds, A_fem_ds, a_fem, dev))
+    show("10b.seconds", seconds=time.perf_counter() - t0)
     single_ms = {"dia_spmv": times["dia_spmv"][0], "dia_sym_spmv": times["dia_sym_spmv"][0],
                  "spmv_well": timing["spmv_well"]["other_shapes"][f"bench {N_WELL}"]["ms"],
                  "dia_ds_spmv": timing["dia_ds_spmv"]["ms"],
                  "well_ds_spmv":
                      timing["well_ds_spmv"]["other_shapes"][f"bench {N_WELL}"]["ms"]}
     timing.update(phase_block_timing(a, d32, a4, w4, w4ds, single_ms, circuit_ops, dev))
+    show("10c.seconds", seconds=time.perf_counter() - t0)
     for kname, shapes in phase_amg_timing(amg_head, dev, max_abs).items():
         timing[kname].setdefault("other_shapes", {}).update(shapes)
     del amg_head

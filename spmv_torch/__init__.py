@@ -35,7 +35,17 @@ parallel.dist_matrix   parallel.dist_matrix (ell, dia, dia_ds, well,
                        well_ds, auto; matvec_ds, matmat, matmat_ds;
                        rectangular ELL, hub rows; matvec_transpose,
                        transposed)
+parallel.powers        parallel.powers (the matrix-powers kernel: depth-s
+                       ghost plans, DIA windows on dia_spmv or ELL; no
+                       two-tier plans)
 solvers.cg             solvers.cg    (cg, cg_pipelined)
+solvers.cg_sstep       solvers.cg_sstep (one host sync per s-block)
+solvers.gmres_sstep    solvers.gmres_sstep (CA-GMRES, Chebyshev or Newton
+                       basis)
+solvers.arnoldi        solvers.arnoldi
+solvers.newton_basis   solvers.newton_basis (numpy, copied)
+solvers.lobpcg         solvers.lobpcg
+solvers.deflation      solvers.deflation (cg_deflated)
 solvers.bicgstab       solvers.bicgstab
 solvers.gmres          solvers.gmres (GMRES(m) and FGMRES)
 solvers.minres         solvers.minres
@@ -91,7 +101,15 @@ from spmv_torch.parallel.dist_matrix import (
     build_dist_matrix,
     select_local_format,
 )
+from spmv_torch.parallel.powers import (
+    PowersPlan,
+    build_powers_plan,
+    chebyshev_powers_basis,
+    newton_powers_basis,
+    powers_ghost_stats,
+)
 from spmv_torch.reorder import rcm_reorder
+from spmv_torch.solvers.arnoldi import ArnoldiRitz, arnoldi_factorization, arnoldi_ritz
 from spmv_torch.solvers.block_cg import (
     BlockCGResult,
     block_cg,
@@ -102,6 +120,8 @@ from spmv_torch.solvers.block_cg import (
 from spmv_torch.solvers.amg import AMGHierarchy, amg_preconditioner, amg_setup
 from spmv_torch.solvers.bicgstab import BiCGStabResult, bicgstab
 from spmv_torch.solvers.cg import CGResult, cg, cg_pipelined, cg_residual_history
+from spmv_torch.solvers.cg_sstep import cg_sstep
+from spmv_torch.solvers.deflation import cg_deflated
 from spmv_torch.solvers.chebyshev import (
     ChebyshevResult,
     chebyshev,
@@ -118,8 +138,16 @@ from spmv_torch.solvers.lanczos import (
 )
 from spmv_torch.solvers.fsai import fsai_preconditioner, fsai_setup
 from spmv_torch.solvers.gmres import GMRESResult, gmres
+from spmv_torch.solvers.gmres_sstep import gmres_sstep
+from spmv_torch.solvers.lobpcg import LOBPCGResult, lane_block_ops, lobpcg
 from spmv_torch.solvers.lsqr import LSQRResult, lsqr
 from spmv_torch.solvers.minres import MINRESResult, minres
+from spmv_torch.solvers.newton_basis import (
+    modified_leja,
+    newton_basis_ops,
+    newton_recurrence_matrix,
+    newton_shifts_from_operator,
+)
 from spmv_torch.solvers.precond import block_jacobi_preconditioner
 from spmv_torch.solvers.refine import RefineResult, cg_refined, cg_refined_dist
 from spmv_torch.solvers.spai import spai_preconditioner, spai_setup
@@ -165,6 +193,24 @@ __all__ = [
     "cg",
     "cg_residual_history",
     "cg_pipelined",
+    "cg_sstep",
+    "gmres_sstep",
+    "cg_deflated",
+    "PowersPlan",
+    "build_powers_plan",
+    "chebyshev_powers_basis",
+    "newton_powers_basis",
+    "powers_ghost_stats",
+    "ArnoldiRitz",
+    "arnoldi_factorization",
+    "arnoldi_ritz",
+    "modified_leja",
+    "newton_basis_ops",
+    "newton_recurrence_matrix",
+    "newton_shifts_from_operator",
+    "LOBPCGResult",
+    "lobpcg",
+    "lane_block_ops",
     "BiCGStabResult",
     "bicgstab",
     "GMRESResult",

@@ -4,10 +4,13 @@
 Generates a Laplacian or reads a Matrix Market or PETSc file (and a PETSc
 right-hand side), optionally reorders it (RCM), assembles the distributed
 operator with its shards stacked on one device, solves with CG, MINRES,
-BiCGStab or GMRES (preconditioned by Jacobi, AMG, SPAI or FSAI), and
-verifies by recomputing r = A x - b on the host. Same flags and output
-lines as ``spmv_tpu/demos/demo_cg.py``; flags of the reference that are
-not ported yet exit with an error naming ROADMAP.md.
+BiCGStab or GMRES (preconditioned by Jacobi, AMG, SPAI or FSAI), s-step CG
+or GMRES (``--sstep``, with the matrix-powers basis ``--mpk`` and the
+Newton basis ``--newton``), or CG deflated against LOBPCG's bottom
+eigenvectors (``--deflated``), and verifies by recomputing r = A x - b on
+the host. Same flags and output lines as ``spmv_tpu/demos/demo_cg.py``;
+``--cpu``, which the reference uses to pick JAX's CPU backend, is
+``--device cpu`` here and exits with an error naming ROADMAP.md.
 
 Usage:
   python -m spmv_torch.demos.demo_cg --lap2d 3200 --dia --symmetric --fp32
@@ -22,6 +25,12 @@ Usage:
       --rtol 1e-6
   python -m spmv_torch.demos.demo_cg --petsc A.petsc --rhs b.petsc --solver bicgstab
   python -m spmv_torch.demos.demo_cg --mtx A.mtx --format auto --fp32 --fsai
+  python -m spmv_torch.demos.demo_cg --lap2d 1024 --dia --sstep 4 --mpk --devices 4 \
+      --kmax 20000 --rtol 1e-6
+  python -m spmv_torch.demos.demo_cg --petsc A.petsc --rhs b.petsc --dia --sstep 4 \
+      --solver gmres --newton 16 --mpk --devices 4
+  python -m spmv_torch.demos.demo_cg --lap2d 1024 --dia --symmetric --fp32 --deflated 4 \
+      --kmax 20000 --rtol 1e-6
   python -m spmv_torch.demos.demo_cg --lap2d 48 --device cpu
 """
 from __future__ import annotations
@@ -32,13 +41,9 @@ import time
 
 import numpy as np
 
-# flags of the reference demo that this port does not run yet (ROADMAP.md),
+# flags of the reference demo that this port does not run (ROADMAP.md),
 # with the reference's argparse settings
 _NOT_PORTED = {
-    "--sstep": dict(type=int, default=0),
-    "--mpk": dict(action="store_true"),
-    "--newton": dict(type=int, default=0),
-    "--deflated": dict(type=int, default=0),
     "--cpu": dict(action="store_true"),
 }
 
@@ -63,6 +68,90 @@ def _krylov(solver: str):
         return minres
     from spmv_torch.solvers.cg import cg
     return cg
+
+
+def deflation_basis(A, d: int, dtype):
+    """The reference demo's deflation basis (``spmv_tpu/demos/demo_cg.py``
+    :272-296): d approximate bottom eigenvectors of A from a short LOBPCG
+    run (maxiter 100, tol 1e-3, random start from seed 0) behind a degree-16
+    Chebyshev filter on [(2/16)^2 lmax, lmax], lmax from a 32-step Lanczos
+    run (plain LOBPCG stalls on the Laplacian's clustered bottom; deflation
+    needs the subspace, not converged pairs). Returns (W, the LOBPCG
+    result), W of shape (d, *vector shape): column j of the block layout is
+    the single-vector lane layout."""
+    import torch
+
+    from spmv_torch.ops.spmm_dia import columns
+    from spmv_torch.solvers.chebyshev import chebyshev_preconditioner
+    from spmv_torch.solvers.lanczos import lanczos_extreme
+    from spmv_torch.solvers.lobpcg import lane_block_ops, lobpcg
+
+    n = A.nrows_global
+    _, lmax_d = lanczos_extreme(A.as_linear_operator(), A.to_dist(np.ones(n, dtype)), m=32)
+    lmax = float(lmax_d) * 1.05
+    deg = 16
+    X0 = A.to_dist_block(np.random.default_rng(0).standard_normal((n, d)).astype(dtype))
+    eig = lobpcg(A.matmat, X0, k=d, maxiter=100, tol=1e-3,
+                 preconditioner=chebyshev_preconditioner(
+                     A.matmat, (2.0 / deg) ** 2 * lmax, lmax, degree=deg),
+                 block_ops=lane_block_ops())
+    return torch.stack(columns(eig.X)), eig
+
+
+def sstep_solve(args, a, A, b, timer):
+    """The ``--sstep`` solve of the reference demo (:321-391): s-step CG, or
+    s-step GMRES(min(32, kmax)) with ``--solver gmres``; ``--newton M``
+    harvests M-step Arnoldi Ritz values once for the Newton basis, and
+    ``--mpk`` builds each block's basis through a depth-S powers plan
+    (plan seconds timed, ghost growth printed). Returns the solve call."""
+    from spmv_torch.solvers.cg_sstep import cg_sstep
+    from spmv_torch.solvers.gmres_sstep import gmres_sstep
+
+    s = args.sstep
+    restart = min(32, args.kmax)
+    cycles = -(-args.kmax // restart)
+    ritz = newton_ops = None
+    if args.newton:
+        from spmv_torch.solvers.arnoldi import arnoldi_ritz
+        from spmv_torch.solvers.newton_basis import newton_basis_ops
+
+        t0 = time.perf_counter()
+        ritz = arnoldi_ritz(A.as_linear_operator(), b, m=args.newton).values
+        newton_ops = newton_basis_ops(ritz, s)
+        timer.add("0.RitzHarvest", time.perf_counter() - t0)
+        print(f"Newton basis: {args.newton}-step Ritz harvest, "
+              f"max |Im| = {float(abs(ritz.imag).max()):.3g}", file=sys.stderr)
+    builder = None
+    if args.mpk:
+        from spmv_torch.parallel.powers import (
+            build_powers_plan,
+            chebyshev_powers_basis,
+            newton_powers_basis,
+            powers_ghost_stats,
+        )
+
+        t0 = time.perf_counter()
+        pp = build_powers_plan(a, A, s=s)
+        timer.add("0.PowersPlan", time.perf_counter() - t0)
+        st = powers_ghost_stats(pp, A)
+        print(f"MPK: depth-{s} ghosts {st['nghost_pad_depth_s']} vs depth-1 "
+              f"{st['nghost_pad_depth_1']} (growth {st['growth']:.1f}x)", file=sys.stderr)
+        if args.newton:
+            def builder(r):
+                return newton_powers_basis(pp, r, newton_ops)
+        else:
+            def builder(r, c, e):
+                return chebyshev_powers_basis(pp, r, c, e)
+
+    def solve():
+        if args.solver == "gmres":
+            return gmres_sstep(A.as_linear_operator(), b, s=s, restart=restart,
+                               max_cycles=cycles, rtol=args.rtol, shifts=ritz,
+                               basis_builder=builder)
+        return cg_sstep(A.as_linear_operator(), b, s=s, kmax=args.kmax, rtol=args.rtol,
+                        basis_builder=builder)
+
+    return solve
 
 
 def main(argv=None) -> int:
@@ -93,6 +182,23 @@ def main(argv=None) -> int:
                     help="FSAI (factorized sparse approximate inverse) SPD "
                          "preconditioning: M^-1 = G^T G, two SpMVs an apply "
                          "(cg/minres)")
+    ap.add_argument("--sstep", type=int, default=0, metavar="S",
+                    help="s-step (communication-avoiding) Krylov: one host "
+                         "sync per S iterations for CG, per S Arnoldi steps "
+                         "with --solver gmres (CA-GMRES, non-symmetric)")
+    ap.add_argument("--mpk", action="store_true",
+                    help="with --sstep: build the Krylov basis through the "
+                         "matrix-powers kernel (depth-S ghost plan): one "
+                         "halo exchange per S iterations; ghost growth printed")
+    ap.add_argument("--newton", type=int, default=0, metavar="M",
+                    help="with --sstep --solver gmres: harvest M-step Arnoldi "
+                         "Ritz values once and run the Leja-ordered Newton "
+                         "basis instead of shifted Chebyshev (composes with "
+                         "--mpk)")
+    ap.add_argument("--deflated", type=int, default=0, metavar="D",
+                    help="deflated CG: project out D approximate bottom "
+                         "eigenvectors (a short LOBPCG run behind a Chebyshev "
+                         "filter, set-up timed separately)")
     ap.add_argument("--solver", choices=["cg", "minres", "bicgstab", "gmres"],
                     default="cg",
                     help="bicgstab/gmres handle non-symmetric operators, "
@@ -211,6 +317,15 @@ def main(argv=None) -> int:
         print(f"x.norm = {np.linalg.norm(res.x):.12e}")
         return 0
 
+    if args.mpk and not args.sstep:
+        ap.error("--mpk builds the s-step Krylov basis; it needs --sstep S")
+    if args.newton and not (args.sstep and args.solver == "gmres"):
+        ap.error("--newton is the CA-GMRES Newton basis; it needs "
+                 "--sstep S --solver gmres")
+    if args.sstep and (args.amg or args.spai or args.fsai or args.deflated):
+        ap.error("--sstep is unpreconditioned s-step CG; it cannot combine "
+                 "with --amg/--spai/--fsai/--deflated")
+
     try:
         A = build_dist_matrix(a, n_devices=args.devices or 1,
                               symmetric=args.symmetric, dtype=dtype,
@@ -220,6 +335,7 @@ def main(argv=None) -> int:
     b = A.to_dist(b_host)
     krylov = _krylov(args.solver)
     precond = None
+    solve = None  # a solve other than krylov(..., preconditioner=precond)
     if args.amg:
         from spmv_torch.solvers.amg import _detect_strides, amg_setup
 
@@ -248,6 +364,19 @@ def main(argv=None) -> int:
         # in the demo's own format (A's layout restored around each apply)
         precond = fsai_preconditioner(A, local_format=fmt)
         timer.add("0.FSAISetup", time.perf_counter() - t0)
+    elif args.deflated:
+        from spmv_torch.solvers.deflation import cg_deflated
+
+        if args.solver != "cg":
+            ap.error("--deflated is a CG variant; drop --solver")
+        t0 = time.perf_counter()
+        W, _eig = deflation_basis(A, args.deflated, dtype)
+        timer.add("0.DeflSetup", time.perf_counter() - t0)
+        jacobi = A.jacobi_preconditioner() if args.jacobi else None
+
+        def solve():
+            return cg_deflated(A.as_linear_operator(), b, W, kmax=args.kmax,
+                               rtol=args.rtol, preconditioner=jacobi)
     elif args.spai:
         from spmv_torch.solvers.spai import spai_preconditioner
 
@@ -255,13 +384,21 @@ def main(argv=None) -> int:
         # M in ELL, as the reference demo builds it
         precond = spai_preconditioner(A, pattern_level=args.spai, local_format="ell")
         timer.add("0.SPAISetup", time.perf_counter() - t0)
+    elif args.sstep:
+        if args.solver not in ("cg", "gmres") or args.jacobi:
+            ap.error("--sstep is unpreconditioned s-step CG (or s-step "
+                     "GMRES with --solver gmres); drop --solver/--jacobi")
+        solve = sstep_solve(args, a, A, b, timer)
     elif args.jacobi:
         precond = A.jacobi_preconditioner()
+    if solve is None:
+        def solve():
+            return krylov(A.as_linear_operator(), b, kmax=args.kmax, rtol=args.rtol,
+                          preconditioner=precond)
     device_sync(A.matvec(b))  # warm-up: builds the CUDA kernels on first use
 
     t0 = time.perf_counter()
-    res = krylov(A.as_linear_operator(), b, kmax=args.kmax, rtol=args.rtol,
-                 preconditioner=precond)
+    res = solve()
     device_sync(res.x)
     timer.add("1.Solve", time.perf_counter() - t0)
 

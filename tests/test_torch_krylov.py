@@ -25,6 +25,7 @@ import spmv_tpu.formats.csr as ref_csr
 from spmv_tpu.demos import demo_cg as ref_demo
 from spmv_tpu.parallel.dist_matrix import build_dist_matrix as ref_build
 from spmv_tpu.solvers.bicgstab import bicgstab as ref_bicgstab
+from spmv_tpu.solvers.cg import cg as ref_cg
 from spmv_tpu.solvers.cg import cg_pipelined as ref_cg_pipelined
 from spmv_tpu.solvers.gmres import gmres as ref_gmres
 from spmv_tpu.solvers.lsqr import lsqr as ref_lsqr
@@ -395,9 +396,54 @@ def test_demo_cg_solvers_match_reference_demo(solver, extra, capsys, monkeypatch
     assert abs(port[3] - ref[3]) <= (1e-9 if amg else 1e-10) * ref[3]
 
 
+def test_cg_pipelined_fp64_counts_equal_cg_and_reference():
+    """In float64 the pipelined recurrence takes cg's count, in both
+    packages, on a Laplacian where cg needs over 500 iterations (200^2, b
+    standard normal from seed 0, rtol 1e-6: 504 each). In float32 the
+    reference's own pipelined CG takes more than its cg (2484 against 1897
+    at 600^2), which is the recurrence's float32 drift, not the port's."""
+    a = pt_gen.create_laplace_2d(200, 200)
+    P = build_dist_matrix(a, n_devices=1, local_format="dia", device="cpu")
+    R = ref_build(ref_csr.CSRHost(a.rowptr, a.colind, a.values, a.ncols), n_devices=1,
+                  local_format="dia")
+    b = np.random.default_rng(0).standard_normal(a.nrows)
+    counts = [f(P.matvec, P.to_dist(b), kmax=5000, rtol=1e-6).iterations
+              for f in (cg, cg_pipelined)]
+    counts += [int(jax.jit(lambda A_, bb, f=f: f(A_.as_linear_operator(), bb, kmax=5000,
+                                                   rtol=1e-6))(R, R.to_dist(b)).iterations)
+               for f in (ref_cg, ref_cg_pipelined)]
+    assert counts[0] >= 500 and len(set(counts)) == 1, counts
+
+
 def test_demo_cg_still_refuses_the_s_step_group(capsys):
-    for argv in (["--sstep", "4"], ["--mpk"], ["--newton", "8"], ["--deflated", "4"],
-                 ["--cpu"]):
-        with pytest.raises(SystemExit):
-            pt_demo.main(["--lap2d", "16", "--device", "cpu", *argv])
-        assert "not yet ported" in capsys.readouterr().err
+    """Of the reference demo's flags only --cpu (JAX's CPU backend; here
+    --device cpu) is not ported; the s-step group (--sstep, --mpk,
+    --newton, --deflated) runs now (tests/test_torch_sstep.py,
+    test_torch_powers.py, test_torch_lobpcg.py)."""
+    with pytest.raises(SystemExit):
+        pt_demo.main(["--lap2d", "16", "--device", "cpu", "--cpu"])
+    assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mpk"], ["--newton", "8"], ["--newton", "8", "--sstep", "4"],
+    ["--sstep", "4", "--amg"], ["--sstep", "4", "--spai"], ["--sstep", "4", "--fsai"],
+    ["--sstep", "4", "--deflated", "2"], ["--sstep", "4", "--jacobi"],
+    ["--sstep", "4", "--solver", "minres"], ["--deflated", "2", "--solver", "gmres"]])
+def test_demo_cg_flag_errors_match_reference(argv, capsys, monkeypatch):
+    """The s-step group's flag checks: both demos exit with argparse's
+    status 2 and the same message."""
+    common = ["--lap2d", "16", *argv]
+
+    def error(run):
+        with pytest.raises(SystemExit) as exc:
+            run()
+        assert exc.value.code == 2
+        return capsys.readouterr().err.split("error: ")[-1].strip()
+
+    jax.devices()
+    port = error(lambda: pt_demo.main(common + ["--device", "cpu"]))
+    monkeypatch.setattr(sys, "argv", ["demo_cg"] + common + ["--cpu"])
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
+    ref = error(ref_demo.main)
+    assert port == ref and port
