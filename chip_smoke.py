@@ -198,6 +198,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      --sstep 4 --solver gmres --newton 16 --mpk on 19f's PETSc files, and
      --deflated 4, each read back against the same solve in this process;
      (f) cg_pipelined in float64 on phase 4's symmetric operator beside CG;
+ 21. the spectral toolbox and demo_spmv (after 20): (a) demo_spmv as five
+     subprocesses one after another (--dia, --dia --symmetric --fp32 and
+     --format auto at NX^2; --format well --fp32 and --format well_ds at
+     1024^2, where the WELL assembly stays inside the phase's time), each
+     exit 0 and its norm(y) against the same chain run here through the
+     plain versions (1e-12 fp64 and DS, 1e-5 fp32), this process's
+     warm-up and 100 chained applies exactly 101 launches of the kernel;
+     meanwhile this process builds its operators and writes 21g's
+     checkpoints; (b) expm_multiply (t = -1, m = 48) on phase 4's
+     symmetric float64 operator against the exact Kronecker propagator
+     (<= 1e-10), the plain version within 1e-13, 48 dia_sym_spmv launches;
+     (c) demo_eig --logdet 32 --probes 16 at NX^2: 513 dia_spmv launches,
+     the same probes through the plain version within 1e-12, the distance
+     to the exact log det printed; (d) demo_eig --svd 48 -k 4 at 1024²:
+     98 dia_spmv launches, every sigma under the closed form, every
+     certificate equal to the host residual; (e) demo_eig -k 4 --cheb 16
+     --maxiter 100 at 1024² and 48² (float64 dia_spmm at nrhs 4, first
+     against its plain version): exact launches, Ritz values above the
+     closed form, converged at 48², and dia_spmm's timing row there; (f)
+     demo_eig --convdiff 1024 --arnoldi 60 (ELL): Ritz values inside the
+     field-of-values bound; (g) checkpoints (NX^2 DIA, a 50k FEM WELL) load
+     with the same bits, a Jacobi-PCG resumed from saved state converges,
+     from_scipy -> build_dist_matrix -> matvec against scipy;
  10. (run last) ms per apply of every ported kernel, kernel and plain in
      turns, with the library yardstick (one torch CSR @ x call, cuSPARSE,
      float64 for the DS kernels; the port never calls it) and the bytes
@@ -236,6 +259,7 @@ import importlib.util
 import json
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -3513,11 +3537,13 @@ def sync_counter():
 
 
 def single_counts() -> dict:
-    """The single-RHS (``launch_counts``) and block launch counters."""
-    return {**launch_counts(), **block_launches()}
+    """Every kernel's launch counter: the single-RHS (``launch_counts``),
+    the double-single single-RHS and the block ones."""
+    return {**launch_counts(), "dia_ds": spmv_dia_ds_cuda.launches["dia_ds"],
+            "well_ds": spmv_well_ds_cuda.launches["well_ds"], **block_launches()}
 
 
-def phase20_gate(tag: str, got: dict, want: dict) -> None:
+def launch_gate(tag: str, got: dict, want: dict) -> None:
     """Exact launch counts: ``want`` for its kernels and none of any other
     kernel (every single-RHS and block kernel counted)."""
     others = (single_launches() + sum(block_launches().values())
@@ -3598,7 +3624,7 @@ def phase_mpk(a, dev, max_abs, totals):
             torch.cuda.synchronize()
             runs.append((V, time.perf_counter() - t0, single_counts(), gathers[0]))
     V, t_mpk, got, n_gather = runs[1]
-    phase20_gate("20a MPK basis", got, {"dia": SSTEP_S})
+    launch_gate("20a MPK basis", got, {"dia": SSTEP_S})
     if n_gather != 1 or runs[0][3] != 1:
         fail(f"20a: {n_gather} halo gathers for one MPK basis, want 1")
     if not torch.equal(runs[0][0], V):
@@ -3611,7 +3637,7 @@ def phase_mpk(a, dev, max_abs, totals):
         Vn = chebyshev_basis(A.matvec, x, SSTEP_S, c, e)
         torch.cuda.synchronize()
         t_naive = time.perf_counter() - t0
-    phase20_gate("20a naive basis", single_counts(), {"dia": SSTEP_S})
+    launch_gate("20a naive basis", single_counts(), {"dia": SSTEP_S})
     add_counts(totals, single_counts())
     rel = float(torch.linalg.vector_norm(V - Vn) / torch.linalg.vector_norm(Vn))
     show("20a.mpk", matrix=f"laplace2d {NX}^2", dtype="float64", devices=MPK_DEVICES,
@@ -3650,7 +3676,7 @@ def sstep_run(tag, A, b, kernel, builder, solves):
     if n_sync not in (blocks + 3, blocks + 4):
         fail(f"{tag}: {n_sync} host syncs for {blocks} blocks, want one a block")
     tail = n_sync - blocks - 2  # the final residual, and the fallback's
-    phase20_gate(tag, got, {kernel: 13 + SSTEP_S * blocks + tail, **(
+    launch_gate(tag, got, {kernel: 13 + SSTEP_S * blocks + tail, **(
         {"dia_sym": 0} if kernel == "dia" else {"dia": 0})})
     if builder is not None and n_gather != 13 + blocks + tail:
         fail(f"{tag}: {n_gather} halo gathers for {blocks} blocks, want one a block")
@@ -3728,7 +3754,7 @@ def phase_sstep_gmres(a_lap, head, gmres_its, dev, totals):
     if not (torch.equal(out[1][1], x) and out[1][0].iterations == res.iterations):
         fail("20c AMG: a second solve gave other bits")
     applies = 1 + 12 + res.iterations + res.cycles
-    phase20_gate("20c AMG", got, {"dia": applies * (1 + per_cycle) + per_cycle,
+    launch_gate("20c AMG", got, {"dia": applies * (1 + per_cycle) + per_cycle,
                                   "dia_sym": 0})
     add_counts(totals, got)
     r64 = b_host.astype(np.float64) - a_lap.matvec(A.from_dist(x).astype(np.float64))
@@ -3758,7 +3784,7 @@ def phase_sstep_gmres(a_lap, head, gmres_its, dev, totals):
     ritz = newton_shifts_from_operator(Acd.matvec, b, m=NEWTON_M)
     torch.cuda.synchronize()
     t_ritz = time.perf_counter() - t0
-    phase20_gate("20c Arnoldi", single_counts(), {"dia": NEWTON_M})
+    launch_gate("20c Arnoldi", single_counts(), {"dia": NEWTON_M})
     add_counts(totals, single_counts())
     ops = newton_basis_ops(ritz, SSTEP_S)
     runs = {}
@@ -3774,7 +3800,7 @@ def phase_sstep_gmres(a_lap, head, gmres_its, dev, totals):
     r, seconds, got, n_sync, n_gather = runs["mpk"]
     rn = runs["naive"][0]
     blocks = r.iterations // SSTEP_S
-    phase20_gate("20c Newton MPK", got, {"dia": 1 + SSTEP_S * blocks + r.cycles, "dia_sym": 0})
+    launch_gate("20c Newton MPK", got, {"dia": 1 + SSTEP_S * blocks + r.cycles, "dia_sym": 0})
     add_counts(totals, got)
     add_counts(totals, runs["naive"][2])
     host = float(np.linalg.norm(bh - a_cd.matvec(Acd.from_dist(r.x))))
@@ -3841,7 +3867,7 @@ def phase_deflated(dev, max_abs, totals):
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     got = single_counts()
-    phase20_gate("20d set-up", got, {"dia_sym": 32, "dia_sym_spmm": 1 + 17 * eig.iterations})
+    launch_gate("20d set-up", got, {"dia_sym": 32, "dia_sym_spmm": 1 + 17 * eig.iterations})
     add_counts(totals, got)
     runs = []
     for _ in range(2):
@@ -3854,7 +3880,7 @@ def phase_deflated(dev, max_abs, totals):
     res, seconds, got = runs[0]
     if not (torch.equal(runs[1][0].x, res.x) and runs[1][0].iterations == res.iterations):
         fail("20d: a second deflated solve gave other bits")
-    phase20_gate("20d cg_deflated", got, {"dia_sym": DEFLATED_D + 1 + res.iterations})
+    launch_gate("20d cg_deflated", got, {"dia_sym": DEFLATED_D + 1 + res.iterations})
     add_counts(totals, got)
     reset_counters()
     t0 = time.perf_counter()
@@ -3952,7 +3978,7 @@ def phase_pipelined_fp64(a, As64, cg_its, totals) -> None:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     got = single_counts()
-    phase20_gate("20f cg_pipelined", got, {"dia_sym": 2 + res.iterations, "dia": 0})
+    launch_gate("20f cg_pipelined", got, {"dia_sym": 2 + res.iterations, "dia": 0})
     add_counts(totals, got)
     show("20f.cg_pipelined", matrix=f"laplace2d {NX}^2 symmetric dia float64", rtol=1e-6,
          iterations=res.iterations, cg_iterations=cg_its, converged=res.converged,
@@ -3995,6 +4021,544 @@ def phase_sstep(a, As64, head, plain_solves, gmres_its, dev, max_abs):
     show("20e.seconds", seconds=time.perf_counter() - t0, demos_seconds=demos.seconds)
     show("20.sstep", launches=totals)
     return totals
+
+
+# ---------------------------------------------------------------- phase 21
+SPMV_WELL_NX = 1024  # 21a's WELL cases: the 3200^2 WELL assembly would pass the phase's time
+EIG_NX = 1024        # 21d, 21e: transposed() takes 12.6-15.6 s at 3200^2 (PERF.md)
+EIG_CONVERGE_NX = 48  # 21e: the reference's demo converges here on the CPU (69 iterations)
+EXPM_T, EXPM_M = -1.0, 48
+EXPM_TOL = 1e-10     # 21b: vs the exact Kronecker propagator, relative L2
+LOGDET_M, LOGDET_PROBES = 32, 16
+SLQ_PLAIN_TOL = 1e-12  # 21c: the same probes through the plain versions, relative
+SVD_M, EIG_K, CHEB_DEG, EIG_MAXITER = 48, 4, 16, 100
+ARNOLDI_M = 60
+SPMV_ITERS = 100
+# 21a: the demo's flags, its grid, the kernel counter its applies move and
+# the tolerance of its norm(y) against the same chain through the plain versions
+SPMV_DEMOS = (
+    ("dia", ["--dia"], NX, "dia", 1e-12),
+    ("dia_sym_fp32", ["--dia", "--symmetric", "--fp32"], NX, "dia_sym", 1e-5),
+    ("auto", ["--format", "auto"], NX, "dia_ds", 1e-12),
+    ("well_fp32", ["--format", "well", "--fp32"], SPMV_WELL_NX, "well", 1e-5),
+    ("well_ds", ["--format", "well_ds"], SPMV_WELL_NX, "well_ds", 1e-12),
+)
+SPMV_DEMO_TIMEOUT = 300  # seconds, the five demos one after another
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The operator applies of ``DistMatrix`` run the plain torch versions
+    of the single-RHS kernels while the block is inside."""
+    swaps = {"spmv_dia_stacked": spmv_dia_stacked_plain,
+             "spmv_dia_ds_stacked": spmv_dia_ds_stacked_plain,
+             "spmv_well_stacked": spmv_well_rows_plain,
+             "spmv_well_ds_stacked": spmv_well_ds_rows_plain}
+    saved = {name: getattr(dist_matrix_mod, name) for name in swaps}
+    for name, fn in swaps.items():
+        setattr(dist_matrix_mod, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(dist_matrix_mod, name, fn)
+
+
+class DemoChain:
+    """Commands run one after another in a thread (21a's demos, so that no
+    two share the card), each writing work/<name>.log."""
+
+    def __init__(self, work: Path, cmds: dict):
+        self.work, self.cmds, self.codes, self.current = work, cmds, {}, None
+        self.stopped, self.t0, self.seconds = False, time.perf_counter(), 0.0
+        self.lock = threading.Lock()  # a command starts only while not stopped
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        for name, cmd in self.cmds.items():
+            with open(self.work / f"{name}.log", "w") as log:
+                with self.lock:
+                    if self.stopped:
+                        return
+                    self.current = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                                    cwd=Path(__file__).resolve().parent)
+                left = SPMV_DEMO_TIMEOUT - (time.perf_counter() - self.t0)
+                try:
+                    self.codes[name] = self.current.wait(timeout=max(left, 1))
+                except subprocess.TimeoutExpired:
+                    self.stop_current()
+                    self.codes[name] = self.current.wait()
+
+    def stop_current(self):
+        with self.lock:
+            self.stopped = True
+            if self.current is not None and self.current.poll() is None:
+                self.current.kill()
+
+    def stop(self):
+        self.stop_current()
+        self.thread.join(timeout=60)
+        if self.thread.is_alive():
+            fail("21a: the demo thread did not stop")
+
+    def join(self):
+        self.thread.join(timeout=SPMV_DEMO_TIMEOUT + 5)
+        self.seconds = time.perf_counter() - self.t0
+        self.stop()
+
+
+def spmv_demo_lines(out: str) -> dict:
+    """A demo_spmv run's printed result: ms/apply, GFLOP/s and norm(y)."""
+    line = next(ln for ln in out.splitlines() if ln.startswith("SpMV:"))
+    return dict(ms_per_apply=float(line.split()[1]), gflops=float(line.split()[3]),
+                norm_y=float(out.split("norm(y) = ")[1].split()[0]))
+
+
+def spmv_operators(a_lap, A64, dev) -> dict:
+    """21a: the operator each demo builds, built here the same way (A64 is
+    the vanilla float64 one)."""
+    a_well = create_laplace_2d(SPMV_WELL_NX, SPMV_WELL_NX)
+    ops = {}
+    for name, flags, nx, _key, _tol in SPMV_DEMOS:
+        a = a_lap if nx == NX else a_well
+        if name == "dia":
+            ops[name] = (a, A64)
+            continue
+        fp32 = "--fp32" in flags
+        fmt = flags[flags.index("--format") + 1] if "--format" in flags else "dia"
+        ops[name] = (a, build_dist_matrix(a, symmetric="--symmetric" in flags,
+                                          dtype=np.float32 if fp32 else np.float64,
+                                          local_format=fmt, device=dev))
+    return ops
+
+
+def phase_spmv_demos(chain_run: DemoChain, ops: dict) -> dict:
+    """21a, after the demos: each exited 0; in this process the same
+    operator's warm-up and SPMV_ITERS chained applies launch its kernel
+    exactly SPMV_ITERS + 1 times and nothing else; the chain through the
+    plain versions gives the demo's norm(y) (and this process's kernel
+    chain's) within the case's tolerance. Each demo's ms/apply is printed
+    beside this process's chained kernel ms/apply (CUDA events). Returns the
+    launch counts."""
+    from spmv_torch.demos.demo_spmv import SCALE, chain
+
+    totals = {}
+    for name, flags, nx, key, tol in SPMV_DEMOS:
+        out = (chain_run.work / f"21a_{name}.log").read_text()
+        code = chain_run.codes.get(f"21a_{name}")
+        if code != 0:
+            fail(f"21a demo_spmv {' '.join(flags)}: exit {code}: {out[-2000:]}")
+        printed = spmv_demo_lines(out)
+        a, A = ops[name]
+        dtype = np.float32 if "--fp32" in flags else np.float64
+        scale = float(dtype(SCALE))
+        x = A.to_dist(gaussian_bump(a.nrows, dtype=dtype))
+        torch.cuda.synchronize()
+        reset_counters()
+        chain(A, x, 1, scale)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = chain(A, x, SPMV_ITERS, scale)
+        end.record()
+        end.synchronize()
+        got = single_counts()
+        launch_gate(f"21a {name}", got, {key: SPMV_ITERS + 1})
+        add_counts(totals, got)
+        with plain_kernels():
+            y_plain = chain(A, x, SPMV_ITERS, scale)
+        norm_k = float(np.linalg.norm(A.from_dist(y)))
+        norm_p = float(np.linalg.norm(A.from_dist(y_plain)))
+        if not np.isfinite(norm_k):
+            fail(f"21a {name}: non-finite norm(y)")
+        diff_demo = abs(printed["norm_y"] - norm_p) / norm_p
+        diff_here = abs(norm_k - norm_p) / norm_p
+        show("21a.demo_spmv", demo=name, cmd=" ".join(chain_run.cmds[f"21a_{name}"][1:]),
+             rows=a.nrows, nnz=a.nnz, local_format=A.local_format, printed=printed,
+             norm_plain_chain=norm_p, norm_kernel_chain=norm_k,
+             rel_diff_demo_vs_plain=diff_demo, rel_diff_kernel_vs_plain=diff_here,
+             tolerance=tol, kernel_chain_ms_per_apply=start.elapsed_time(end) / SPMV_ITERS,
+             launches=got, seconds_all_demos=chain_run.seconds)
+        if not (diff_demo <= tol and diff_here <= tol):
+            fail(f"21a {name}: norm(y) demo {printed['norm_y']}, kernel chain {norm_k}, "
+                 f"plain chain {norm_p}")
+        del y, y_plain, x
+    return totals
+
+
+def laplace_1d_expm(n: int, t: float, u: np.ndarray) -> np.ndarray:
+    """exp(t T) u for T = tridiag(-1, 2, -1) of order n, from T's sine
+    eigenbasis: s_k(i) = sqrt(2/(n+1)) sin(i k pi/(n+1)), mu_k = 2 - 2
+    cos(k pi/(n+1))."""
+    i = np.arange(1, n + 1)
+    S = np.sqrt(2.0 / (n + 1)) * np.sin(np.outer(i, i) * np.pi / (n + 1))
+    mu = 2.0 - 2.0 * np.cos(i * np.pi / (n + 1))
+    return S @ (np.exp(t * mu) * (S @ u))
+
+
+def phase_expm(As64) -> dict:
+    """21b: expm_multiply(t = EXPM_T, m = EXPM_M) on phase 4's symmetric
+    float64 NX^2 DIA operator, v = u (x) u with u a 1-D Gaussian bump. The
+    2-D Laplacian is T (x) I + I (x) T, so exp(tA)(u (x) u) = (e^{tT}u) (x)
+    (e^{tT}u), exact on the host. Gates: relative error <= EXPM_TOL, the same
+    run through the plain version within 1e-13, exactly EXPM_M dia_sym_spmv
+    launches."""
+    from spmv_torch.solvers.funm import expm_multiply
+
+    u = gaussian_bump(NX)
+    v = As64.to_dist(np.kron(u, u))
+    eu = laplace_1d_expm(NX, EXPM_T, u)
+    exact = np.kron(eu, eu)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    y, est = expm_multiply(As64.matvec, v, t=EXPM_T, m=EXPM_M)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = single_counts()
+    launch_gate("21b expm", got, {"dia_sym": EXPM_M})
+    yk = As64.from_dist(y, side="col")
+    del y
+    torch.cuda.empty_cache()
+
+    def plain(p):
+        return spmv_dia_stacked_plain(As64.local_dia_data, p, As64.dia_offsets, True)
+
+    yp, _ = expm_multiply(plain, v, t=EXPM_T, m=EXPM_M)
+    yp = As64.from_dist(yp, side="col")
+    torch.cuda.empty_cache()
+    err, vs_plain = rel_l2(yk, exact), rel_l2(yk, yp)
+    show("21b.expm", matrix=f"laplace2d {NX}^2 symmetric dia float64", t=EXPM_T, m=EXPM_M,
+         rel_err_vs_exact=err, err_est=est, rel_diff_vs_plain=vs_plain, seconds=seconds,
+         launches=got)
+    if not (err <= EXPM_TOL and vs_plain <= 1e-13):
+        fail(f"21b: expm error {err:.3e} (<= {EXPM_TOL}), vs plain {vs_plain:.3e}")
+    return got
+
+
+def run_eig_demo(argv, a, A, tag):
+    """demo_eig's mode on this process's operator (``demo_eig.run``),
+    counters zeroed just before: its printed lines, result and launches."""
+    from spmv_torch.demos import demo_eig
+    from spmv_torch.utils.timing import PhaseTimer
+
+    args = demo_eig.parse_args(argv + ["--device", A.device.type])
+    timer = PhaseTimer()
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    lines, result = demo_eig.run(args, a, A, timer)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = single_counts()
+    for line in lines:
+        print(f"# {tag} {line}", flush=True)
+    return lines, result, got, seconds
+
+
+def phase_logdet(a, A64) -> dict:
+    """21c: demo_eig --lap2d NX --logdet LOGDET_M --probes LOGDET_PROBES on
+    the vanilla float64 DIA operator: 1 + probes * m dia_spmv launches; the
+    same probes through the plain version give the same estimate within
+    SLQ_PLAIN_TOL. The distance to the exact log det, sum over (i, j) of
+    log(4 - 2 cos(i pi/(NX+1)) - 2 cos(j pi/(NX+1))), is printed in standard
+    errors, not gated: the reference's own 16-probe, m = 32 estimate at
+    512^2 sits 0.9-2.4 standard errors above the exact value on four seeds
+    (tests/slq_bias_reference.py), a quadrature bias above one sigma."""
+    from spmv_torch.solvers.funm import slq_logdet
+
+    argv = ["--lap2d", str(NX), "--logdet", str(LOGDET_M), "--probes", str(LOGDET_PROBES)]
+    _lines, (mean, se), got, seconds = run_eig_demo(argv, a, A64, "21c")
+    launch_gate("21c logdet", got, {"dia": 1 + LOGDET_M * LOGDET_PROBES})
+
+    def plain(p):
+        return spmv_dia_stacked_plain(A64.local_dia_data, p, A64.dia_offsets, False)
+
+    mean_p, se_p = slq_logdet(plain, A64.to_dist(np.ones(a.nrows)),
+                              torch.Generator().manual_seed(0), n_probes=LOGDET_PROBES,
+                              m=LOGDET_M)
+    c = 2.0 * np.cos(np.arange(1, NX + 1) * np.pi / (NX + 1))
+    exact = float(np.sum(np.log(4.0 - c[:, None] - c[None, :])))
+    vs_plain = abs(mean - mean_p) / abs(mean_p)
+    show("21c.logdet", matrix=f"laplace2d {NX}^2 dia float64", m=LOGDET_M,
+         probes=LOGDET_PROBES, logdet=mean, stderr=se, plain_logdet=mean_p, plain_stderr=se_p,
+         rel_diff_vs_plain=vs_plain, exact=exact, sigmas_from_exact=(mean - exact) / se,
+         seconds=seconds, launches=got)
+    if not vs_plain <= SLQ_PLAIN_TOL:
+        fail(f"21c: the plain versions' estimate {mean_p} differs from {mean}")
+    return got
+
+
+def laplace_2d_eigs(n: int) -> np.ndarray:
+    """The n^2 eigenvalues of the n x n 5-point Laplacian, ascending."""
+    c = 2.0 - 2.0 * np.cos(np.arange(1, n + 1) * np.pi / (n + 1))
+    return np.sort((c[:, None] + c[None, :]).ravel())
+
+
+def eig_operator(argv, dev):
+    """demo_eig's host matrix and operator for ``argv`` on ``dev`` (host
+    work)."""
+    from spmv_torch.demos import demo_eig
+
+    args = demo_eig.parse_args(argv + ["--device", dev.type])
+    a = demo_eig.load_matrix(args)
+    return a, demo_eig.build_operator(args, a)
+
+
+SVD_ARGV = ["--lap2d", str(EIG_NX), "--svd", str(SVD_M), "-k", str(EIG_K)]
+ARNOLDI_ARGV = ["--convdiff", str(EIG_NX), "--arnoldi", str(ARNOLDI_M)]
+
+
+def lobpcg_argv(nx: int) -> list:
+    return ["--lap2d", str(nx), "-k", str(EIG_K), "--cheb", str(CHEB_DEG), "--maxiter",
+            str(EIG_MAXITER)]
+
+
+def eig_operators(dev) -> dict:
+    """21d-21f's operators, built while the demos run: the 1024^2 vanilla
+    float64 DIA operator with its transposed() (21d), the LOBPCG operators
+    at EIG_NX^2 and EIG_CONVERGE_NX^2 (21e) and the convection-diffusion
+    ELL operator (21f)."""
+    ops = {"21d": eig_operator(SVD_ARGV, dev), "21e": eig_operator(lobpcg_argv(EIG_NX), dev),
+           "21e2": eig_operator(lobpcg_argv(EIG_CONVERGE_NX), dev),
+           "21f": eig_operator(ARNOLDI_ARGV, dev)}
+    ops["21d"][1].transposed()  # cached: 21d's run finds it built
+    return ops
+
+
+def phase_svd(a, A) -> dict:
+    """21d: demo_eig --lap2d EIG_NX --svd SVD_M -k EIG_K (vanilla float64
+    DIA, A^T by transposed()): 1 + 2m + 1 dia_spmv launches (the warm-up, m
+    of A, m + 1 of A^T); each sigma_j at most the closed-form sigma_j (1 +
+    1e-12) (Golub-Kahan Ritz values are lower bounds); each certificate
+    equal to the host |A^T u - s v| within the reference test's 1e-8
+    relative (tests/test_svds.py:35), or both under its converged floor
+    1e-10 sigma_0."""
+    _lines, r, got, seconds = run_eig_demo(SVD_ARGV, a, A, "21d")
+    launch_gate("21d svd", got, {"dia": 2 + 2 * SVD_M})
+    want = laplace_2d_eigs(EIG_NX)[::-1][: len(r.s)]
+    at = a.transpose()
+    host = np.array([np.linalg.norm(at.matvec(A.from_dist(r.u[j], side="row"))
+                                    - r.s[j] * A.from_dist(r.v[j], side="col"))
+                     for j in range(len(r.s))])
+    show("21d.svd", matrix=f"laplace2d {EIG_NX}^2 dia float64", m=SVD_M, steps=r.steps,
+         sigma=r.s.tolist(), closed_form=want.tolist(), certificates=r.residuals.tolist(),
+         host_residuals=host.tolist(), seconds=seconds, launches=got)
+    if not np.all(r.s <= want * (1 + 1e-12)):
+        fail(f"21d: sigma {r.s} above the closed form {want}")
+    if not np.all(np.abs(r.residuals - host) <= 1e-8 * host + 1e-10 * r.s[0]):
+        fail(f"21d: certificates {r.residuals} against host residuals {host}")
+    return got
+
+
+def lobpcg_block_timing(A, dev) -> tuple[str, dict]:
+    """dia_spmm where LOBPCG runs it (21e): float64 at EIG_NX^2, nrhs
+    EIG_K, the operator's own data scaled by 1/9: device time of kernel and
+    plain version, the chained time beside, cuSPARSE SpMM on the same block
+    (device time), the bytes bound (K + 2 nrhs) npad 8 B."""
+    a = create_laplace_2d(EIG_NX, EIG_NX)
+    data = A.local_dia_data / 9.0
+    xs = lanes_block(torch.Generator(device=dev).manual_seed(23), data.shape[1], EIG_K,
+                     torch.float64, dev)
+
+    def kernel(v):
+        return spmm_dia_cuda.spmm_dia_stacked(data, v, A.dia_offsets, False)
+
+    def plain(v):
+        return spmm_dia_stacked_plain(data, v, A.dia_offsets, False)
+
+    chained_k, chained_p, runs_k, runs_p = time_in_turns(kernel, plain, xs, iters_p=10)
+    lib = library_block_ms(a, dev, 1.0 / 9.0, np.float64, EIG_K, timer=yardstick_ms)
+    npad = data.shape[1] * 128
+    nbytes = (len(A.dia_offsets) + 2 * EIG_K) * npad * 8
+    row = dict(ms=device_ms(kernel, xs), plain_ms=yardstick_ms(plain, xs, 5),
+               library_ms=min(lib["row_major"], lib["column_major"]),
+               bound_ms=bound_ms(nbytes), bytes=nbytes, nrhs=EIG_K, dtype="float64",
+               timing="device", chained_ms=chained_k, plain_chained_ms=chained_p)
+    matrix = f"float64 laplace2d {EIG_NX}^2 nrhs {EIG_K}, LOBPCG (demo_eig)"
+    show("21e.timing", kernel="dia_spmm", matrix=matrix, **row, ms_runs=runs_k,
+         plain_ms_runs=runs_p, library_block_ms=lib,
+         **plan_fields(data, A.dia_offsets, False, EIG_K))
+    return matrix, row
+
+
+def lobpcg_case(nx: int, a, A, dev, max_abs, tag):
+    """demo_eig --lap2d nx -k EIG_K --cheb CHEB_DEG --maxiter EIG_MAXITER
+    on the vanilla float64 DIA operator A (matmat: dia_spmm at nrhs EIG_K);
+    first dia_spmm against its plain version at that shape.
+    Gates: 1 + 32 dia_spmv launches (the warm-up, the Lanczos bound) and 1 +
+    (CHEB_DEG + 1) k dia_spmm launches; theta_j at least the closed-form
+    lambda_j (1 - 1e-12) (Rayleigh-Ritz values are upper bounds); the
+    demo's printed host residuals (four digits) equal to LOBPCG's own
+    within 1e-3 relative, or within 1e-9 where both sit at the rounding
+    floor (eps |A| / max|theta| is 2e-11 at 1024^2). Returns (result, counts,
+    closed-form eigenvalues)."""
+    xs = (lanes_block(torch.Generator(device=dev).manual_seed(22), A.local_dia_data.shape[1],
+                      EIG_K, torch.float64, dev),)
+    block_check(max_abs, tag, "dia_spmm", f"laplace2d {nx}^2", "float64", EIG_K,
+                lambda x: spmm_dia_cuda.spmm_dia_stacked(A.local_dia_data, x, A.dia_offsets,
+                                                         False),
+                lambda x: spmm_dia_stacked_plain(A.local_dia_data, x, A.dia_offsets, False),
+                lambda x: spmv_dia_cuda.spmv_dia_stacked(A.local_dia_data, x, A.dia_offsets,
+                                                         False), xs, TOL_KERNEL["float64"],
+                **plan_fields(A.local_dia_data, A.dia_offsets, False, EIG_K))
+    del xs
+    lines, res, got, seconds = run_eig_demo(lobpcg_argv(nx), a, A, tag)
+    launch_gate(f"{tag} LOBPCG", got, {"dia": 33, "dia_spmm": 1 + (CHEB_DEG + 1)
+                                        * res.iterations})
+    theta = np.asarray(res.eigenvalues, np.float64)
+    lam = laplace_2d_eigs(nx)[:EIG_K]
+    scale = np.abs(theta).max()
+    printed = np.array([float(ln.split("=")[-1]) for ln in lines[1:]])
+    own = np.asarray(res.resid_norms, np.float64) / scale
+    show(f"{tag}.lobpcg", matrix=f"laplace2d {nx}^2 dia float64", k=EIG_K, cheb=CHEB_DEG,
+         maxiter=EIG_MAXITER, iterations=res.iterations, converged=res.converged,
+         theta=theta.tolist(), closed_form=lam.tolist(), printed_host_residuals=printed.tolist(),
+         lobpcg_residuals=own.tolist(), seconds=seconds, launches=got)
+    if not np.all(theta >= lam * (1 - 1e-12)):
+        fail(f"{tag}: Ritz values {theta} below the closed form {lam}")
+    if not np.all(np.abs(printed - own) <= 1e-3 * own + 1e-9):
+        fail(f"{tag}: printed host residuals {printed} against LOBPCG's {own}")
+    return res, got, lam
+
+
+def phase_lobpcg(eig_ops, dev, max_abs) -> tuple[dict, tuple]:
+    """21e at EIG_NX^2 (maxiter EIG_MAXITER; converged is reported, not
+    gated: the reference stops short there on the CPU too) and at
+    EIG_CONVERGE_NX^2, where the reference converges: converged, and each
+    theta within tol * max|theta| of the closed form. Then the block
+    kernel's timing row at EIG_NX^2."""
+    _res, got, _lam = lobpcg_case(EIG_NX, *eig_ops["21e"], dev, max_abs, "21e")
+    totals = dict(got)
+    timing = lobpcg_block_timing(eig_ops["21e"][1], dev)
+    res2, got2, lam2 = lobpcg_case(EIG_CONVERGE_NX, *eig_ops["21e2"], dev, max_abs, "21e2")
+    add_counts(totals, got2)
+    theta2 = np.asarray(res2.eigenvalues, np.float64)
+    if not (res2.converged and np.all(np.abs(theta2 - lam2) <= 1e-6 * np.abs(theta2).max())):
+        fail(f"21e at {EIG_CONVERGE_NX}^2: converged {res2.converged}, theta {theta2}, "
+             f"closed form {lam2}")
+    return totals, timing
+
+
+def phase_arnoldi(a, A) -> dict:
+    """21f: demo_eig --convdiff EIG_NX --arnoldi ARNOLDI_M (ELL: plain torch
+    gathers, no kernel): every Ritz value inside the field of values' bound,
+    |theta| <= sqrt(|A|_1 |A|_inf) (1 + 1e-6)."""
+    _lines, r, got, seconds = run_eig_demo(ARNOLDI_ARGV, a, A, "21f")
+    launch_gate("21f arnoldi", got, {})
+    absa = CSRHost(a.rowptr, a.colind, np.abs(a.values), a.ncols)
+    norm_inf = float(absa.matvec(np.ones(a.ncols)).max())
+    norm_1 = float(absa.transpose().matvec(np.ones(a.nrows)).max())
+    bound = np.sqrt(norm_1 * norm_inf)
+    show("21f.arnoldi", matrix=f"convection-diffusion {EIG_NX}^2 ell float64", m=ARNOLDI_M,
+         steps=r.steps, spectral_radius=r.spectral_radius, bound=bound,
+         rightmost=[r.rightmost.real, r.rightmost.imag], seconds=seconds)
+    if not np.all(np.abs(r.values) <= bound * (1 + 1e-6)):
+        fail(f"21f: Ritz values past {bound}: {np.abs(r.values).max()}")
+    return got
+
+
+def phase_checkpoint(a_lap, A64, ckpt, dev) -> None:
+    """21g: the NX^2 vanilla float64 DIA operator and an RCM'd
+    fem_p1_2d(HALO_FEM) symmetric float32 WELL operator, saved before the
+    demos were joined, load with the same bits on a matvec; a Jacobi-PCG
+    on the FEM (rtol 1e-6) stopped at 50 iterations, saved and resumed
+    from the saved x, converges; from_scipy -> build_dist_matrix (ELL, 4
+    stacked shards) -> matvec matches scipy @ x within 1e-12."""
+    from spmv_torch.interop import from_scipy, to_scipy
+    from spmv_torch.io.checkpoint import load_dist_matrix, load_solver_state, save_solver_state
+
+    (fem, F, paths, save_s) = ckpt
+    t0 = time.perf_counter()
+    loaded = [load_dist_matrix(p, device=dev) for p in paths]
+    load_s = time.perf_counter() - t0
+    for (a, A), B, name in zip(((a_lap, A64), (fem, F)), loaded, ("dia", "well")):
+        x = A.to_dist(np.random.default_rng(24).standard_normal(a.nrows).astype(
+            np.float64 if name == "dia" else np.float32))
+        if not torch.equal(A.matvec(x), B.matvec(x)):
+            fail(f"21g: the loaded {name} operator's matvec gave other bits")
+    b = F.to_dist(gaussian_bump(fem.nrows, dtype=np.float32))
+    jac = loaded[1].jacobi_preconditioner()
+    part = cg(loaded[1].matvec, b, kmax=50, rtol=1e-6, preconditioner=jac)
+    state = str(paths[1]).replace("fem_well", "fem_state")
+    save_solver_state(state, loaded[1], part.x, iteration=part.iterations)
+    vecs, it = load_solver_state(state, loaded[1])
+    res = cg(loaded[1].matvec, b, x0=vecs["x"], kmax=20000, rtol=1e-6, preconditioner=jac)
+    s = to_scipy(fem)
+    xs = np.random.default_rng(25).standard_normal(fem.ncols)
+    Ai = build_dist_matrix(from_scipy(s), n_devices=4, local_format="ell", device=dev)
+    interop = rel_l2(Ai.from_dist(Ai.matvec(Ai.to_dist(xs))), s @ xs)
+    show("21g.checkpoint", operators=[f"laplace2d {NX}^2 dia float64",
+                                      f"fem_p1_2d({HALO_FEM}) rcm symmetric well float32"],
+         save_s=save_s, load_s=load_s, matvec_same_bits=True, resumed_from_iteration=it,
+         resumed_iterations=res.iterations, resumed_converged=res.converged,
+         interop_rel_err=interop)
+    if not (it == 50 and res.converged and interop <= 1e-12):
+        fail(f"21g: resume from {it}: converged {res.converged}; interop {interop:.3e}")
+
+
+def save_checkpoints(A64, dev) -> tuple:
+    """21g's first half, host work while the demos run: the FEM operator and
+    both operators' checkpoints under build/chip_smoke_demos."""
+    from spmv_torch.io.checkpoint import save_dist_matrix
+
+    fem, _ = rcm_reorder(fem_p1_2d(HALO_FEM), keep_best=True)
+    F = build_dist_matrix(fem, symmetric=True, dtype=np.float32, local_format="well",
+                          device=dev)
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_demos"
+    paths = [str(work / "lap_dia.npz"), str(work / "fem_well.npz")]
+    t0 = time.perf_counter()
+    save_dist_matrix(paths[0], A64)
+    save_dist_matrix(paths[1], F)
+    return fem, F, paths, time.perf_counter() - t0
+
+
+def phase_eig_spmv(a, As64, dev, max_abs) -> tuple[dict, dict]:
+    """Phase 21: the spectral toolbox and demo_spmv. The five demo_spmv
+    runs start first, one after another in a thread; this process builds
+    its operators and writes the checkpoints (host work) meanwhile, joins
+    the demos, then runs 21a's in-process gates and 21b-21g on the card.
+    Returns (launch counts, {kernel: {shape: timing row}})."""
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_demos"
+    work.mkdir(parents=True, exist_ok=True)
+    demo = [sys.executable, "-m", "spmv_torch.demos.demo_spmv"]
+    cmds = {f"21a_{name}": demo + ["--lap2d", str(nx), *flags, "--iters", str(SPMV_ITERS)]
+            for name, flags, nx, _key, _tol in SPMV_DEMOS}
+    chain_run = DemoChain(work, cmds)
+    totals = {}
+    try:
+        t0 = time.perf_counter()
+        A64 = build_dist_matrix(a, dtype=np.float64, local_format="dia", device=dev)
+        ops = spmv_operators(a, A64, dev)
+        ckpt = save_checkpoints(A64, dev)
+        eig_ops = eig_operators(dev)
+        show("21.host_seconds", seconds=time.perf_counter() - t0)
+        chain_run.join()
+        t0 = time.perf_counter()
+        add_counts(totals, phase_spmv_demos(chain_run, ops))
+        del ops
+        show("21a.seconds", seconds=time.perf_counter() - t0, demos_seconds=chain_run.seconds)
+        for tag, step in (("21b", lambda: phase_expm(As64)),
+                          ("21c", lambda: phase_logdet(a, A64)),
+                          ("21d", lambda: phase_svd(*eig_ops["21d"]))):
+            t0 = time.perf_counter()
+            add_counts(totals, step())
+            show(f"{tag}.seconds", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got, (matrix, row) = phase_lobpcg(eig_ops, dev, max_abs)
+        add_counts(totals, got)
+        show("21e.seconds", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        add_counts(totals, phase_arnoldi(*eig_ops["21f"]))
+        show("21f.seconds", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        phase_checkpoint(a, A64, ckpt, dev)
+        show("21g.seconds", seconds=time.perf_counter() - t0)
+    finally:
+        chain_run.stop()
+    show("21.eig_spmv", launches=totals)
+    return totals, {"dia_spmm": {matrix: row}}
+
 
 def dia_csr(A) -> CSRHost:
     """The host CSR of a one-shard DIA operator's stored entries."""
@@ -4428,8 +4992,14 @@ def main() -> int:
     for key, n in phase_sstep(a, As64, amg_head, plain_solves, krylov_its["gmres"], dev,
                               max_abs).items():
         counts[key] = counts.get(key, 0) + n
-    del As64
     show("20.seconds", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    eig_counts, eig_shapes = phase_eig_spmv(a, As64, dev, max_abs)
+    for key, n in eig_counts.items():
+        counts[key] = counts.get(key, 0) + n
+    del As64
+    show("21.seconds", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     timing = phase_timing_all(a, times, a4, w4, a_fem, A_fem, dev)
@@ -4444,6 +5014,8 @@ def main() -> int:
     timing.update(phase_block_timing(a, d32, a4, w4, w4ds, single_ms, circuit_ops, dev))
     show("10c.seconds", seconds=time.perf_counter() - t0)
     for kname, shapes in phase_amg_timing(amg_head, dev, max_abs).items():
+        timing[kname].setdefault("other_shapes", {}).update(shapes)
+    for kname, shapes in eig_shapes.items():
         timing[kname].setdefault("other_shapes", {}).update(shapes)
     del amg_head
     show("10.seconds", seconds=time.perf_counter() - t0,

@@ -11,6 +11,9 @@ gen                    gen           (numpy generators)
 formats.dia            formats.dia   (DiaMatrix holding a torch tensor,
                        dia_transpose)
 formats.well           formats.well  (WellMatrix, SymWellMatrix; numpy packer)
+formats.ell            formats.ell   (EllMatrix; numpy packer, transpose
+                       terms built on the host)
+ops.spmv_ell           ops.spmv_ell  (plain torch gathers, no scatter-add)
 ops.spmv_dia           ops.spmv_dia  (plain torch DIA apply, CPU path)
 ops.spmv_dia_pallas    ops.spmv_dia_cuda + csrc/spmv_dia.cu (sm_90a)
 ops.spmv_well_pallas   ops.spmv_well (plain torch, CPU path) +
@@ -58,12 +61,22 @@ solvers.block_cg       solvers.block_cg (block_cg, block_cg_dia,
                        solver "cg" or "chebyshev")
 solvers.chebyshev      solvers.chebyshev
 solvers.lanczos        solvers.lanczos
+solvers.funm           solvers.funm  (Lanczos f(A) v, SLQ; eigh on the host)
+solvers.svds           solvers.svds  (Golub-Kahan; B's SVD on the host)
 solvers.amg            solvers.amg   (numpy setup, cycle in plain torch
                        around the level operators' kernels)
 solvers.precond        solvers.precond (block Jacobi)
-utils.timing           utils.timing  (CUDA events)
+utils.timing           utils.timing  (CUDA events, spmv_traffic_bytes)
+utils.profiling        utils.profiling (torch.profiler regions, NVTX,
+                       Chrome traces)
+interop                interop       (scipy.sparse; torch sparse COO/CSR
+                       in place of BCOO)
+io.checkpoint          io.checkpoint (the reference's file format; one-tier
+                       plans)
 demos.demo_cg          demos.demo_cg
 demos.demo_restrict    demos.demo_restrict
+demos.demo_eig         demos.demo_eig
+demos.demo_spmv        demos.demo_spmv
 ====================  ===================================================
 
 The package imports torch and numpy only — never jax or spmv_tpu.
@@ -72,6 +85,7 @@ The package imports torch and numpy only — never jax or spmv_tpu.
 from spmv_torch import corpus
 from spmv_torch.formats.csr import CSRHost, csr_matmul
 from spmv_torch.formats.dia import DiaMatrix, csr_to_dia, dia_transpose
+from spmv_torch.formats.ell import EllMatrix, csr_to_ell
 from spmv_torch.formats.well import (
     SymWellMatrix,
     WellMatrix,
@@ -92,6 +106,8 @@ from spmv_torch.io.petsc import (
     write_petsc_binary_matrix,
     write_petsc_binary_vector,
 )
+from spmv_torch.interop import from_scipy, from_torch_sparse, to_scipy, to_torch_sparse
+from spmv_torch.ops.spmv_ell import spmv_ell, spmv_ell_transpose
 from spmv_torch.ops.spmm_dia import spmm_dia, spmm_from_layout, spmm_to_layout
 from spmv_torch.ops.spmv_dia_ds import DiaDsMatrix, csr_to_dia_ds, spmv_dia_ds
 from spmv_torch.ops.spmv_well import spmv_well, spmv_well_sym
@@ -136,6 +152,14 @@ from spmv_torch.solvers.lanczos import (
     lanczos_extreme_with_bounds,
     lanczos_factorization,
 )
+from spmv_torch.solvers.funm import (
+    expm_multiply,
+    funm_multiply,
+    inv_sqrt_multiply,
+    slq_logdet,
+    slq_trace,
+    sqrt_multiply,
+)
 from spmv_torch.solvers.fsai import fsai_preconditioner, fsai_setup
 from spmv_torch.solvers.gmres import GMRESResult, gmres
 from spmv_torch.solvers.gmres_sstep import gmres_sstep
@@ -151,9 +175,18 @@ from spmv_torch.solvers.newton_basis import (
 from spmv_torch.solvers.precond import block_jacobi_preconditioner
 from spmv_torch.solvers.refine import RefineResult, cg_refined, cg_refined_dist
 from spmv_torch.solvers.spai import spai_preconditioner, spai_setup
+from spmv_torch.solvers.svds import SVDSResult, gk_factorization, svds
 
 __all__ = [
     "corpus",
+    "from_scipy",
+    "to_scipy",
+    "from_torch_sparse",
+    "to_torch_sparse",
+    "EllMatrix",
+    "csr_to_ell",
+    "spmv_ell",
+    "spmv_ell_transpose",
     "CSRHost",
     "csr_matmul",
     "DiaMatrix",
@@ -245,4 +278,13 @@ __all__ = [
     "lanczos_extreme_with_bounds",
     "lanczos_factorization",
     "block_jacobi_preconditioner",
+    "SVDSResult",
+    "gk_factorization",
+    "svds",
+    "expm_multiply",
+    "funm_multiply",
+    "inv_sqrt_multiply",
+    "sqrt_multiply",
+    "slq_logdet",
+    "slq_trace",
 ]

@@ -1,1 +1,2 @@
-"""Utilities: phase timers and CUDA-event benchmark helpers."""
+"""Utilities: phase timers, CUDA-event benchmark helpers and profiler
+regions."""

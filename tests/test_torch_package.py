@@ -1076,3 +1076,119 @@ def test_sstep_solvers_on_cuda_match_cpu(cuda):
         its.append((r1.iterations, r2.iterations, spmv_dia_cuda.launches["dia_sym"]))
     (c1, g1, n_gpu), (c2, g2, n_cpu) = its
     assert (c1, g1) == (c2, g2) and n_cpu == 0 and n_gpu > c1 + g1
+
+
+def test_eig_and_spmv_demos_refuse_missing_cuda():
+    from spmv_torch.demos import demo_eig, demo_spmv
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for demo in (demo_eig, demo_spmv):
+        with pytest.raises(SystemExit):
+            demo.main(["--lap2d", "8"])
+
+
+@pytest.mark.cuda
+def test_svds_on_cuda_matches_cpu(cuda):
+    """Golub-Kahan on the card (vanilla DIA, A^T by transposed()): the CPU
+    run's steps, singular values within 1e-12 and certificates within 1e-6,
+    and exactly 2m + 1 dia_spmv launches (m of A, m + 1 of A^T)."""
+    from spmv_torch.parallel.dist_matrix import build_dist_matrix
+    from spmv_torch.solvers.svds import svds
+
+    a = create_laplace_2d(64, 64)
+    b = np.random.default_rng(3).standard_normal(a.nrows)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        A = build_dist_matrix(a, local_format="dia", device=dev)
+        At = A.transposed()
+        spmv_dia_cuda.reset_launches()
+        r = svds(A.as_linear_operator(), At.as_linear_operator(),
+                 A.to_dist(b, side="row"), k=4, m=24)
+        out.append((r, spmv_dia_cuda.launches["dia"]))
+    (rg, ng), (rc, nc) = out
+    assert rg.steps == rc.steps and ng == 2 * 24 + 1 and nc == 0
+    np.testing.assert_allclose(rg.s, rc.s, rtol=1e-12)
+    np.testing.assert_allclose(rg.residuals, rc.residuals, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_funm_and_slq_on_cuda_match_cpu(cuda):
+    """expm_multiply on symmetric DIA (m dia_sym_spmv launches) within
+    1e-12 of the CPU run; SLQ with the same probes (a CPU generator) within
+    1e-12 of the CPU estimate."""
+    from spmv_torch.gen import gaussian_bump
+    from spmv_torch.parallel.dist_matrix import build_dist_matrix
+    from spmv_torch.solvers.funm import expm_multiply, slq_logdet
+
+    a = create_laplace_2d(64, 64)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        A = build_dist_matrix(a, symmetric=True, local_format="dia", device=dev)
+        spmv_dia_cuda.reset_launches()
+        y, _ = expm_multiply(A.matvec, A.to_dist(gaussian_bump(a.nrows)), t=-1.0, m=32)
+        n = spmv_dia_cuda.launches["dia_sym"]
+        mean, se = slq_logdet(A.matvec, A.to_dist(np.ones(a.nrows)),
+                              torch.Generator().manual_seed(5), n_probes=4, m=24)
+        out.append((A.from_dist(y), n, mean, se))
+    (yg, ng, mg, sg), (yc, nc, mc, sc) = out
+    assert ng == 32 and nc == 0
+    assert np.linalg.norm(yg - yc) <= 1e-12 * np.linalg.norm(yc)
+    assert abs(mg - mc) <= 1e-12 * abs(mc) and abs(sg - sc) <= 1e-9 * sc
+
+
+@pytest.mark.cuda
+def test_demo_eig_lobpcg_on_cuda_matches_cpu(cuda, capsys):
+    """demo_eig's LOBPCG path (fp64 DIA, dia_spmm at nrhs 4, behind the
+    Chebyshev filter) on the card and on the CPU: both converged to the
+    32^2 Laplacian's four smallest eigenvalues (closed form, within the
+    demo's tol 1e-6 of max|theta|), within 1e-8 of each other, and the
+    iterations within 15% (the slowest pair's residual crosses tol a few
+    iterations apart as the Grams round on each device: 36 and 40 on the
+    H100 machine)."""
+    from spmv_torch.demos import demo_eig
+
+    def run(device):
+        assert demo_eig.main(["--lap2d", "32", "-k", "4", "--cheb", "16", "--device",
+                              device]) == 0
+        lines = capsys.readouterr().out.splitlines()
+        at = next(i for i, ln in enumerate(lines) if ln.startswith("LOBPCG ("))
+        return lines[at], [float(ln.split()[2]) for ln in lines[at + 1:]]
+
+    spmm_dia_cuda.reset_launches()
+    head_g, th_g = run("cuda")
+    assert spmm_dia_cuda.launches["dia_spmm"] > 0
+    head_c, th_c = run("cpu")
+    assert "converged=True" in head_g and "converged=True" in head_c
+    its_g, its_c = (int(h.split(" in ")[1].split()[0]) for h in (head_g, head_c))
+    assert abs(its_g - its_c) <= 0.15 * its_c
+    c = 2.0 - 2.0 * np.cos(np.arange(1, 33) * np.pi / 33)
+    lam = np.sort((c[:, None] + c[None, :]).ravel())[:4]
+    for th in (th_g, th_c):
+        assert np.all(np.abs(np.array(th) - lam) <= 1e-6 * max(th))
+    np.testing.assert_allclose(th_g, th_c, rtol=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_spmv_ell_on_cuda_matches_cpu(cuda, symmetric):
+    """The standalone ELL applies (gathers, no kernel) on the card equal
+    the CPU's within 1e-14, the transpose too; two applies the same bits."""
+    from spmv_torch.formats.ell import csr_to_ell
+    from spmv_torch.gen import random_csr
+    from spmv_torch.ops.spmv_ell import spmv_ell, spmv_ell_transpose
+
+    a = random_csr(3000, 3000, 6, seed=4, symmetric=True, spd_shift=1.0)
+    x = np.random.default_rng(6).standard_normal(a.nrows)
+    ys = []
+    for dev in (cuda, torch.device("cpu")):
+        e = csr_to_ell(a, symmetric=symmetric, device=dev)
+        xd = torch.as_tensor(x, device=dev)
+        y = spmv_ell(e, xd, alpha=2.0, beta=-1.0, y=xd)
+        assert torch.equal(y, spmv_ell(e, xd, alpha=2.0, beta=-1.0, y=xd))
+        yt = None if symmetric else spmv_ell_transpose(e, xd)
+        ys.append((y.cpu(), None if yt is None else yt.cpu()))
+    (yg, tg), (yc, tc) = ys
+    assert float((yg - yc).norm() / yc.norm()) <= 1e-14
+    if not symmetric:
+        assert float((tg - tc).norm() / tc.norm()) <= 1e-14

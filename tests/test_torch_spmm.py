@@ -527,7 +527,8 @@ def _long_range_sym(n=80_000, pairs=300, seed=3):
 
 @pytest.mark.parametrize("case", ["well-far", "ell-ghosts", "well_sym-far",
                                   "transpose-well-far", "transpose-dia-ghosts",
-                                  "transpose-ell-hubs"])
+                                  "transpose-ell-hubs", "standalone-ell-sym",
+                                  "standalone-ell-transpose"])
 def test_applies_call_no_scatter_add(case, monkeypatch):
     """matvec and matmat of a symmetric fp32 "well" operator with far
     remainders in both triangles, and of a symmetric "ell" operator with
@@ -536,7 +537,10 @@ def test_applies_call_no_scatter_add(case, monkeypatch):
     the card; they still agree with the host oracle. So does
     matvec_transpose of non-symmetric fp32 operators: "well" with far
     remainders, "dia" with ghosts at np 4, "ell" with hub rows and ghosts
-    at np 2 (its tables built before the patch, at the first apply)."""
+    at np 2 (its tables built before the patch, at the first apply). So do
+    the standalone ELL format's symmetric ``spmv_ell`` and
+    ``spmv_ell_transpose``, whose transpose terms the reference sums by
+    scatter-add."""
     from spmv_torch.formats.well import csr_to_well_sym
     from spmv_torch.ops.spmv_well import spmv_well_sym
 
@@ -545,6 +549,9 @@ def test_applies_call_no_scatter_add(case, monkeypatch):
 
     if case.startswith("transpose"):
         _transpose_no_scatter_add(case, refuse, monkeypatch)
+        return
+    if case.startswith("standalone"):
+        _standalone_ell_no_scatter_add(case, refuse, monkeypatch)
         return
     pt = _random_sym()[1] if case == "ell-ghosts" else _long_range_sym()
     rng = np.random.default_rng(12)
@@ -572,6 +579,32 @@ def test_applies_call_no_scatter_add(case, monkeypatch):
     y = P.from_dist(P.matvec(P.to_dist(X[:, 0].copy())))
     Y = P.from_dist_block(P.matmat(P.to_dist_block(X)))
     assert _rel(y, want[:, 0]) <= 2e-6 and _rel(Y, want) <= 2e-6
+
+
+def _standalone_ell_no_scatter_add(case, refuse, monkeypatch):
+    from spmv_torch.formats.ell import csr_to_ell
+    from spmv_torch.ops.spmv_ell import spmv_ell, spmv_ell_transpose
+
+    pt = _long_range_sym(n=20_000, pairs=100)
+    if case == "standalone-ell-transpose":
+        # row scaling makes the operator non-symmetric
+        s = np.random.default_rng(16).uniform(0.5, 1.5, pt.nrows)
+        pt = pt_csr.CSRHost(pt.rowptr, pt.colind, pt.values * np.repeat(s, pt.row_nnz()),
+                            pt.ncols)
+    e = csr_to_ell(pt, symmetric=case == "standalone-ell-sym", dtype=np.float32,
+                   device="cpu")
+    x = np.random.default_rng(15).standard_normal(pt.nrows).astype(np.float32)
+    for owner, name in ((torch.Tensor, "index_add_"), (torch.Tensor, "index_add"),
+                        (torch.Tensor, "scatter_add_"), (torch.Tensor, "scatter_add"),
+                        (torch, "index_add"), (torch, "scatter_add")):
+        monkeypatch.setattr(owner, name, refuse)
+    if case == "standalone-ell-sym":
+        y = spmv_ell(e, torch.from_numpy(x)).numpy()[: pt.nrows]
+        want = pt.matvec(x.astype(np.float64))
+    else:
+        y = spmv_ell_transpose(e, torch.from_numpy(x)).numpy()[: pt.ncols]
+        want = pt.transpose().matvec(x.astype(np.float64))
+    assert _rel(y, want) <= 2e-6
 
 
 def _transpose_no_scatter_add(case, refuse, monkeypatch):
