@@ -66,8 +66,9 @@ solvers.svds           solvers.svds  (Golub-Kahan; B's SVD on the host)
 solvers.amg            solvers.amg   (numpy setup, cycle in plain torch
                        around the level operators' kernels)
 solvers.precond        solvers.precond (block Jacobi)
-utils.timing           utils.timing  (CUDA events, spmv_traffic_bytes)
-utils.profiling        utils.profiling (torch.profiler regions, NVTX,
+utils.timing           utils.timing  (CUDA events)
+utils.profiling        utils.profiling (spans: torch.profiler regions and
+                       an in-memory record while a profiler records;
                        Chrome traces)
 interop                interop       (scipy.sparse; torch sparse COO/CSR
                        in place of BCOO)

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -64,6 +65,9 @@ KERNEL_ENTRIES = {
 }
 
 _lib: ctypes.CDLL | None = None
+# seconds of ``load_library``'s first use: the build where the library is
+# not built yet, then the binding
+library = {"load_s": 0.0}
 
 
 def nvcc_path() -> str:
@@ -123,6 +127,7 @@ def load_library() -> ctypes.CDLL:
     """The bound kernel library, built on first use."""
     global _lib
     if _lib is None:
+        t0 = time.perf_counter()
         path = build()
         lib = ctypes.CDLL(str(path))
         for name, argtypes in KERNEL_ENTRIES.items():
@@ -130,4 +135,5 @@ def load_library() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _lib = lib
+        library["load_s"] = time.perf_counter() - t0
     return _lib

@@ -35,6 +35,7 @@ whole, one gather (and one reverse set) per round for every column.
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 
 import numpy as np
@@ -61,6 +62,7 @@ from spmv_torch.parallel.comm_plan import (
     halo_scatter_add_ds,
 )
 from spmv_torch.parallel.partition import ShardCSR, owner_ranges, partition_csr
+from spmv_torch.utils.profiling import profile_region
 
 # "dia_ds" and "well_ds" are the double-single (float64-class) formats,
 # which "auto" picks for float64 input
@@ -76,6 +78,19 @@ WELL_MAX_K = 64
 DIA_MAX_DIAGS = 64
 # hub rows are summed in chunks of this many entries (``_attach_hubs``)
 HUB_CHUNK = 64
+
+# host seconds of assembly, by phase, summed over the process's builds:
+# "partition" (partition_csr, compile_plan), "pack" (the stacked host
+# arrays: DIA/WELL/ELL blocks, transposes, diagonals), "upload" (the
+# copies to the device)
+build_seconds = {"partition": 0.0, "pack": 0.0, "upload": 0.0}
+
+
+def _lap(phase: str, t0: float) -> float:
+    """Add the seconds since ``t0`` to ``phase``; returns now."""
+    t = time.perf_counter()
+    build_seconds[phase] += t - t0
+    return t
 
 
 def _round_up(x: int, m: int) -> int:
@@ -288,20 +303,22 @@ class DistMatrix:
         error-free hi/lo float32 pair, applied through ``matvec_ds`` and
         recombined, so operators that "auto" picks for float64 input stay
         drop-in. Loops that keep pairs call ``matvec_ds`` directly."""
-        if self.local_format.endswith("_ds"):
-            if x.dtype != torch.float64:
-                raise ValueError(
-                    "double-single operators apply via matvec_ds (hi/lo pair "
-                    f"vectors) or a float64 x, got {x.dtype}; build a "
-                    "separate float32 operator for a plain float32 matvec")
-            xh = x.to(torch.float32)
-            xl = (x - xh.to(torch.float64)).to(torch.float32)
-            yh, yl = self.matvec_ds(xh, xl)
-            return yh.to(torch.float64) + yl.to(torch.float64)
-        y = _stacked_mult(self, x)
-        if self.hub_nnz > 0:
-            y = y + _hub_apply(self, x)
-        return y
+        with profile_region("spmv_torch.apply"):
+            if self.local_format.endswith("_ds"):
+                if x.dtype != torch.float64:
+                    raise ValueError(
+                        "double-single operators apply via matvec_ds (hi/lo "
+                        f"pair vectors) or a float64 x, got {x.dtype}; build "
+                        "a separate float32 operator for a plain float32 "
+                        "matvec")
+                xh = x.to(torch.float32)
+                xl = (x - xh.to(torch.float64)).to(torch.float32)
+                yh, yl = self.matvec_ds(xh, xl)
+                return yh.to(torch.float64) + yl.to(torch.float64)
+            y = _stacked_mult(self, x)
+            if self.hub_nnz > 0:
+                y = y + _hub_apply(self, x)
+            return y
 
     def matvec_ds(self, xh: torch.Tensor, xl: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -886,13 +903,16 @@ def _assemble(
         else:
             host[name] = arr
 
+    t = time.perf_counter()
     well = None
     if local_format in ("well", "well_ds"):
         well = _stack_well(shards, symmetric, pack_dtype, well_max_k)
         # the shared per-shard pad is exactly the WELL geometry's G*128
         row_align = well["gt"] * LANES
+    t = _lap("pack", t)
     plan = compile_plan(col_ranges, [s.ghosts for s in shards],
                         row_align=row_align, device=device)
+    t = _lap("partition", t)
     row_pad = max(
         _round_up(max(s.row_range[1] - s.row_range[0] for s in shards), row_align),
         row_align,
@@ -998,8 +1018,10 @@ def _assemble(
         return torch.as_tensor(np.ascontiguousarray(arr), dtype=dt,
                                device="cpu" if name in HOST_FIELDS else device)
 
+    t = _lap("pack", t)
     fields = dict(local_colind=None, local_values=None, diagonal=None)
     fields.update({name: put(name, arr) for name, arr in host.items()})
+    _lap("upload", t)
     return DistMatrix(plan=plan, nrows_global=nrows_global,
                       ncols_global=ncols_global, row_pad=row_pad,
                       symmetric=symmetric, nnz_global=nnz_global,
@@ -1392,7 +1414,9 @@ def build_dist_matrix(
     if a.nrows != a.ncols and symmetric:
         raise ValueError("symmetric storage requires a square matrix")
     row_align = _dia_row_align(local_format, -(-a.nrows // n_devices))
+    t = time.perf_counter()
     shards = partition_csr(a, n_devices, symmetric=symmetric)
+    _lap("partition", t)
     A = _assemble(
         shards, owner_ranges(a.ncols, n_devices), a.nrows, a.ncols, a.nnz,
         symmetric, dtype, row_align, local_format, device, dia_max_diags,

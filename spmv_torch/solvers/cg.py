@@ -9,7 +9,10 @@ Counterpart of ``spmv_tpu.solvers.cg`` with the reference's update order
 The reference keeps the loop on the device (``lax.while_loop``); here it is
 a Python loop with one host sync per iteration, for the convergence test.
 The test is evaluated in the vectors' dtype, as the reference does, so
-iteration counts match it.
+iteration counts match it. Under a torch profiler, ``cg`` records its
+spans (``utils.profiling``): ``spmv_torch.cg`` around the solve,
+``spmv_torch.cg.iteration`` around each loop body and the check that ends
+it, ``spmv_torch.cg.sync`` around each blocking host read.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+from spmv_torch.utils.profiling import profile_region
 
 
 @dataclasses.dataclass
@@ -39,6 +44,13 @@ def _rel(rnorm2, rnorm0, eps):
     return torch.sqrt(rnorm2) / torch.clamp(rnorm0, min=eps)
 
 
+def _read(flag: torch.Tensor) -> bool:
+    """A blocking host read of a 0-d boolean, in a span of its own (the
+    tensor is computed before the span starts)."""
+    with profile_region("spmv_torch.cg.sync"):
+        return bool(flag)
+
+
 def cg(
     matvec: Callable[[torch.Tensor], torch.Tensor],
     b: torch.Tensor,
@@ -57,46 +69,52 @@ def cg(
     a previous CGResult; with it (and ``x0`` = the saved solution) the solve
     continues the original Krylov sequence.
     """
-    if x0 is None:
-        x0 = torch.zeros_like(b)
-    precond = preconditioner if preconditioner is not None else (lambda r: r)
-    eps = torch.finfo(b.dtype).tiny
+    with profile_region("spmv_torch.cg"):
+        if x0 is None:
+            x0 = torch.zeros_like(b)
+        precond = preconditioner if preconditioner is not None else (lambda r: r)
+        eps = torch.finfo(b.dtype).tiny
 
-    if resume is not None:
-        r_in, p_in, rnorm0_in = resume
-        r = r_in
-        p = p_in  # continue with the saved search direction
-        rho = _dot(r, precond(r))
-        rnorm2 = _dot(r, r)
-        rnorm0 = torch.as_tensor(rnorm0_in, dtype=b.dtype, device=b.device)
-    else:
-        # r0 = b - A x0
-        r = b - matvec(x0)
-        p = precond(r)
-        rho = _dot(r, p)
-        rnorm2 = _dot(r, r)
-        rnorm0 = torch.sqrt(rnorm2)
+        if resume is not None:
+            r_in, p_in, rnorm0_in = resume
+            r = r_in
+            p = p_in  # continue with the saved search direction
+            rho = _dot(r, precond(r))
+            rnorm2 = _dot(r, r)
+            rnorm0 = torch.as_tensor(rnorm0_in, dtype=b.dtype, device=b.device)
+        else:
+            # r0 = b - A x0
+            r = b - matvec(x0)
+            p = precond(r)
+            rho = _dot(r, p)
+            rnorm2 = _dot(r, r)
+            rnorm0 = torch.sqrt(rnorm2)
 
-    x = x0
-    k = 0
-    while k < kmax and bool(_rel(rnorm2, rnorm0, eps) >= rtol):
-        ap = matvec(p)
-        alpha = rho / _dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = precond(r)
-        rho_new = _dot(r, z)
-        beta = rho_new / rho
-        p = z + beta * p
-        # unpreconditioned: rho IS |r|^2; PCG pays one extra reduction for
-        # the true residual the convergence test is defined on
-        rnorm2 = _dot(r, r) if preconditioner is not None else rho_new
-        rho = rho_new
-        k += 1
-    rnorm = torch.sqrt(rnorm2)
+        x = x0
+        k = 0
+        more = k < kmax and _read(_rel(rnorm2, rnorm0, eps) >= rtol)
+        while more:
+            # an iteration span ends with the convergence check that ends it
+            with profile_region("spmv_torch.cg.iteration"):
+                ap = matvec(p)
+                alpha = rho / _dot(p, ap)
+                x = x + alpha * p
+                r = r - alpha * ap
+                z = precond(r)
+                rho_new = _dot(r, z)
+                beta = rho_new / rho
+                p = z + beta * p
+                # unpreconditioned: rho IS |r|^2; PCG pays one extra
+                # reduction for the true residual the convergence test is
+                # defined on
+                rnorm2 = _dot(r, r) if preconditioner is not None else rho_new
+                rho = rho_new
+                k += 1
+                more = k < kmax and _read(_rel(rnorm2, rnorm0, eps) >= rtol)
+        rnorm = torch.sqrt(rnorm2)
+        converged = _read(_rel(rnorm2, rnorm0, eps) < rtol)
     return CGResult(
-        x=x, iterations=k, rnorm=rnorm, rnorm0=rnorm0,
-        converged=bool(_rel(rnorm2, rnorm0, eps) < rtol),
+        x=x, iterations=k, rnorm=rnorm, rnorm0=rnorm0, converged=converged,
         r=r, p=p,
     )
 

@@ -1,2 +1,2 @@
-"""Utilities: phase timers, CUDA-event benchmark helpers and profiler
-regions."""
+"""Utilities: phase timers, CUDA-event benchmark helpers and the port's
+spans."""

@@ -72,8 +72,3 @@ def measure_copy_bandwidth_gbs(device, nbytes: int = 256 * 1024 * 1024) -> float
     sec = bench_chained(lambda v: v * 1.0000001, x0, iters=20)
     return 2 * nbytes / sec / 1e9
 
-
-def spmv_traffic_bytes(format_bytes: int, n_in: int, n_out: int, itemsize: int) -> int:
-    """Least device-memory traffic of one SpMV: the matrix's bytes, x read
-    once and y written once."""
-    return format_bytes + (n_in + n_out) * itemsize

@@ -1192,3 +1192,65 @@ def test_spmv_ell_on_cuda_matches_cpu(cuda, symmetric):
     assert float((yg - yc).norm() / yc.norm()) <= 1e-14
     if not symmetric:
         assert float((tg - tc).norm() / tc.norm()) <= 1e-14
+
+
+@pytest.mark.cuda
+def test_apply_spans_hold_their_kernel_launches_on_the_card(cuda):
+    """Under a CUDA profiler, the DIA kernels of a 256² CG solve were
+    launched (their ``cuda_runtime`` events, tied by correlation id) inside
+    ``spmv_torch.apply`` spans: inside a span's trace event, and inside its
+    recorded ``time_ns`` interval at ``ts + baseTimeNanoseconds`` (one
+    clock). The profiler may drop device records late in a long process,
+    so every kernel the trace kept is checked, and at least one must be
+    there. Prints the solve's host time with no profiler."""
+    import tempfile
+    import time
+
+    from spmv_torch.parallel.dist_matrix import build_dist_matrix
+    from spmv_torch.solvers.cg import cg
+    from spmv_torch.utils import profiling
+
+    n = 256
+    A = build_dist_matrix(create_laplace_2d(n, n), symmetric=True,
+                          local_format="dia", device=cuda)
+    b = A.to_dist(np.random.default_rng(0).uniform(-1.0, 1.0, n * n))
+    cg(A.matvec, b, kmax=10, rtol=0.0)  # the library and the window plan
+    torch.cuda.synchronize()
+    profiling.record.clear()  # what earlier profiled tests left
+    t0 = time.perf_counter()
+    res = cg(A.matvec, b, kmax=100, rtol=0.0)
+    print(f"256² CG, no profiler: {1e6 * (time.perf_counter() - t0) / 100:.1f} "
+          f"µs an iteration, {len(profiling.record)} spans recorded")
+    assert res.iterations == 100 and profiling.record == []
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        cg(A.matvec, b, kmax=20, rtol=0.0)
+        torch.cuda.synchronize()
+    applies = [s for s in profiling.record if s.name == "spmv_torch.apply"]
+    profiling.record.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    base = int(trace["baseTimeNanoseconds"])
+    events = trace["traceEvents"]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("name") == "spmv_torch.apply")
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "dia_sym_spmv" in e.get("name", "")]
+    assert len(applies) == len(spans) == 21
+    launched = [launch[k["args"]["correlation"]] for k in kernels
+                if k["args"].get("correlation") in launch]
+    assert 1 <= len(launched) <= 21
+    for e in launched:
+        ts = float(e["ts"])
+        assert any(a <= ts <= z for a, z in spans)
+        ns = base + round(ts * 1e3)
+        assert any(s.start_ns <= ns <= s.end_ns for s in applies)
