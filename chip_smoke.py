@@ -32,6 +32,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      and fp64 (CUDA events, chained applies; the kernel's device time from
      torch.profiler beside it), each as a fraction of a device copy
      measured in the same run, and CG iterations/s;
+ 22. (after 6) the fused CG loop's three kernels (csrc/cg_update.cu) at
+     3200^2, float64 and float32: a 100-iteration fused solve, 3 launches
+     an iteration, a second solve the same bits, the torch loop's solve
+     the same iterations and within 1e-12 / 1e-5 (relative) in x and |r|;
+     one iteration's kernels vs their plain versions; device us an
+     iteration of the kernels and of the torch loop's vector work (the
+     apply left out) beside the 10-pass bound (phase_cg_update);
   7. the WELL kernel, which reads each stack's warp-sliced row lists, vs
      their plain torch version, fp32 and fp64 (and that plain version vs
      the WELL formula's, bit for bit, here and wherever a single-RHS WELL
@@ -283,6 +290,7 @@ from spmv_torch.io.petsc import (
     write_petsc_binary_vector,
 )
 from spmv_torch.ops import (
+    cg_update_cuda,
     spmm_dia_cuda,
     spmm_well_cuda,
     spmv_dia_cuda,
@@ -327,6 +335,7 @@ from spmv_torch.solvers.amg import amg_setup
 from spmv_torch.solvers.bicgstab import bicgstab
 from spmv_torch.solvers.block_cg import block_cg, block_cg_dia, block_cg_refined_dist
 from spmv_torch.solvers.arnoldi import arnoldi_ritz
+from spmv_torch.solvers import cg as cg_module
 from spmv_torch.solvers.cg import cg, cg_pipelined
 from spmv_torch.solvers.cg_sstep import cg_sstep, chebyshev_basis
 from spmv_torch.solvers.deflation import cg_deflated
@@ -742,6 +751,119 @@ def phase_timing(a, dev):
                  copy_fraction=frac_k, plain_copy_fraction=frac_p,
                  **plan_fields(d.data, d.offsets, sym, 1))
             del d, data3, x2
+    return out
+
+
+CG_UPDATE_TOL = {"float32": 1e-5, "float64": 1e-12}  # fused vs torch loop, relative
+CG_UPDATE_ITERS = 100  # the benchmark's solves (kmax 100)
+
+
+def phase_cg_update(a, dev) -> dict:
+    """Phase 22: the fused CG loop's three kernels (csrc/cg_update.cu) on
+    the NX^2 symmetric DIA operator, float64 and float32. (a) A
+    100-iteration solve through ``cg`` (the fused loop): 3 kernel launches
+    an iteration, a second solve the same bits, the torch loop's solve
+    (``_cg_plain``) the same iterations and within CG_UPDATE_TOL (relative)
+    in x and |r|. (b) From that solve's state, one iteration's kernels
+    against their plain versions: alpha, beta and rho within CG_UPDATE_TOL,
+    the vectors within 4 eps of the plain arithmetic on the kernels'
+    scalars, the flag equal. (c) Device us an iteration, the apply left
+    out (``device_ms``, the marker count of profiled CG iterations): the
+    three kernels, and the torch loop's vector work (its adds, multiplies,
+    cuBLAS dots and 0-d scalar kernels), beside the 10-pass bound. Returns
+    {dtype: row}."""
+    def rel_t(got, want):
+        return float((got.double() - want.double()).norm() / want.double().norm())
+
+    out = {}
+    for dt in (np.float64, np.float32):
+        dname = np.dtype(dt).name
+        tol = CG_UPDATE_TOL[dname]
+        A = build_dist_matrix(a, n_devices=1, symmetric=True, dtype=dt,
+                              local_format="dia", device=dev)
+        b = A.to_dist(np.random.default_rng(22).uniform(-1.0, 1.0, a.nrows).astype(dt))
+        cg_update_cuda.reset_launches()
+        res = cg(A.matvec, b, kmax=CG_UPDATE_ITERS, rtol=0.0)
+        launches = dict(cg_update_cuda.launches)
+        again = cg(A.matvec, b, kmax=CG_UPDATE_ITERS, rtol=0.0)
+        plain = cg_module._cg_plain(A.matvec, b, None, CG_UPDATE_ITERS, 0.0, None, None)
+        torch.cuda.synchronize()
+        k = res.iterations
+        if launches != {"cg_pap": k, "cg_update_r": k, "cg_update_xp": k}:
+            fail(f"22 {dname}: launches {launches} for {k} iterations")
+        if not (torch.equal(res.x, again.x) and torch.equal(res.rnorm, again.rnorm)):
+            fail(f"22 {dname}: a second fused solve gave other bits")
+        dx = rel_t(res.x, plain.x)
+        dr = abs(float(res.rnorm) - float(plain.rnorm)) / float(plain.rnorm)
+        if plain.iterations != k or dx > tol or dr > tol:
+            fail(f"22 {dname}: fused {k} iterations vs torch loop {plain.iterations}, "
+                 f"x {dx:.3e}, |r| {dr:.3e} (tolerance {tol:g})")
+
+        # (b) one iteration's kernels vs their plain versions
+        ap = A.matvec(res.p)
+        rho = cg_module._dot(res.r, res.r)
+        kern = [t.clone() for t in (res.x, res.p, res.r)]
+        flat = [t.clone() for t in (res.x, res.p, res.r)]
+        ws_k, ws_p = (cg_update_cuda.workspace(rho, res.rnorm0) for _ in range(2))
+        cg_update_cuda.cg_pap(kern[1], ap, ws_k)
+        cg_update_cuda.cg_update_r(kern[2], ap, ws_k, 1e-3)
+        cg_update_cuda.cg_update_xp(*kern, ws_k)
+        cg_update_cuda.cg_pap_plain(flat[1], ap, ws_p)
+        cg_update_cuda.cg_update_r_plain(flat[2], ap, ws_p, 1e-3)
+        sk, sp = ws_k.scalars.double(), ws_p.scalars.double()
+        scalar_err = max(abs(float(sk[i] - sp[i])) / abs(float(sp[i]))
+                         for i in (cg_update_cuda.ALPHA, cg_update_cuda.BETA,
+                                   cg_update_cuda.RHO))
+        alpha = ws_k.scalars[cg_update_cuda.ALPHA]
+        beta = ws_k.scalars[cg_update_cuda.BETA]
+        vec_err = max(rel_t(kern[2], res.r - alpha * ap),
+                      rel_t(kern[0], res.x + alpha * res.p),
+                      rel_t(kern[1], kern[2] + beta * res.p))
+        if (scalar_err > tol or vec_err > 4 * np.finfo(dt).eps
+                or float(sk[cg_update_cuda.FLAG]) != float(sp[cg_update_cuda.FLAG])):
+            fail(f"22 {dname}: kernels vs plain: scalars {scalar_err:.3e}, "
+                 f"vectors {vec_err:.3e}")
+
+        # (c) device us an iteration, CG continued from the solve's state
+        x, p, r = kern
+        ws = cg_update_cuda.workspace(cg_module._dot(r, r), res.rnorm0)
+
+        def fused_step(v):
+            q = A.matvec(p)
+            cg_update_cuda.cg_pap(p, q, ws)
+            cg_update_cuda.cg_update_r(r, q, ws, 0.0)
+            cg_update_cuda.cg_update_xp(x, p, r, ws)
+            return v
+
+        st = {"x": flat[0].clone(), "r": flat[2].clone(), "p": flat[1].clone()}
+        st["rho"] = cg_module._dot(st["r"], st["r"])
+
+        def plain_step(v):  # solvers/cg.py's torch loop, unpreconditioned
+            q = A.matvec(st["p"])
+            alpha = st["rho"] / cg_module._dot(st["p"], q)
+            st["x"] = st["x"] + alpha * st["p"]
+            st["r"] = st["r"] - alpha * q
+            rho_new = cg_module._dot(st["r"], st["r"])
+            beta = rho_new / st["rho"]
+            st["p"] = st["r"] + beta * st["p"]
+            st["rho"] = rho_new
+            st["more"] = cg_module._rel(rho_new, res.rnorm0, np.finfo(dt).tiny) >= 0.0
+            return v
+
+        apply_name = "dia_sym_spmv"
+        fused_us = 1e3 * device_ms(fused_step, b, skip=apply_name)
+        plain_us = 1e3 * device_ms(plain_step, b, sessions=YARDSTICK_SESSIONS,
+                                   skip=apply_name)
+        nbytes = b.numel() * b.element_size()
+        row = dict(dtype=dname, rows=a.nrows, iterations=k, launches=launches,
+                   rel_x_vs_torch_loop=dx, rel_rnorm_vs_torch_loop=dr,
+                   kernels_vs_plain_scalars=scalar_err, kernels_vs_plain_vectors=vec_err,
+                   fused_us=fused_us, plain_us=plain_us,
+                   bound_us=10 * nbytes / (HBM_TBS * 1e12) * 1e6,
+                   plain_bound_us=19 * nbytes / (HBM_TBS * 1e12) * 1e6)
+        show("22.cg_update", **row)
+        out[dname] = row
+        del A, b, res, again, plain, ap, kern, flat, st, ws, ws_k, ws_p
     return out
 
 
@@ -1261,7 +1383,7 @@ def time_in_turns(kernel, plain, x0, iters_k=100, iters_p=25):
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel: one a step, to count steps
 
 
-def device_ms(step, x0, iters: int = 50, sessions: int = 3) -> float:
+def device_ms(step, x0, iters: int = 50, sessions: int = 3, skip: str = None) -> float:
     """Device ms per call of a chained x -> step(x) loop: the time of every
     CUDA kernel it launches, from torch.profiler's CUPTI records. A chained
     loop timed with events is bound by the host once a call's kernels take
@@ -1273,7 +1395,8 @@ def device_ms(step, x0, iters: int = 50, sessions: int = 3) -> float:
     launch times its recorded launches a recorded marker, rounded; and the
     result is the median of ``sessions`` sessions that recorded markers (of
     at most twice as many tries): three for a kernel, YARDSTICK_SESSIONS
-    for a plain version or a library call."""
+    for a plain version or a library call. Kernels whose name holds
+    ``skip`` are left out."""
     x = step(x0)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1289,7 +1412,8 @@ def device_ms(step, x0, iters: int = 50, sessions: int = 3) -> float:
         steps = sum(e.count for e in events if MARKER in e.key)
         if steps:
             sessions.append(sum(e.self_device_time_total / e.count * round(e.count / steps)
-                                for e in events if MARKER not in e.key) / 1e3)
+                                for e in events if MARKER not in e.key
+                                and (skip is None or skip not in e.key)) / 1e3)
         if len(sessions) == wanted:
             break
     if not sessions:
@@ -4934,6 +5058,9 @@ def main() -> int:
     times = phase_timing(a, dev)
     show("6.cg", it_per_s=its_per_s)
     show("6.seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_cg_update(a, dev)
+    show("22.seconds", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     max_abs["spmv_well"], a4, w4 = phase_well_kernel(dev)

@@ -48,6 +48,11 @@ _DIA_WIN_SPMM_ARGS = _DIA_WIN_ARGS[:8] + [_I] + _DIA_WIN_ARGS[8:]
 _WELL_SPMM_ARGS = _WELL_ARGS[:10] + [_I] + _WELL_ARGS[10:]
 _DIA_DS_SPMM_ARGS = _DIA_DS_ARGS[:9] + [_I] + _DIA_DS_ARGS[9:]
 _WELL_DS_SPMM_ARGS = _WELL_DS_ARGS[:13] + [_I] + _WELL_DS_ARGS[13:]
+# the CG update (csrc/cg_update.cu): vectors, n, scalars, [partials,
+# ticket,] partials' length (the most blocks), [rtol,] stream
+_CG_PAP_ARGS = [_P, _P, _L, _P, _P, _P, _I, _P]
+_CG_R_ARGS = [_P, _P, _L, _P, _P, _P, _I, ctypes.c_double, _P]
+_CG_XP_ARGS = [_P, _P, _P, _L, _P, _I, _P]
 KERNEL_ENTRIES = {
     **{f"dia_spmv_{t}": _DIA_ARGS for t in ("f32", "f64", "bf16")},
     **{f"dia_spmv_rows_{t}": _DIA_ROWS_ARGS for t in ("f32", "f64", "bf16")},
@@ -62,6 +67,9 @@ KERNEL_ENTRIES = {
        for p in ("i16", "i32")},
     "dia_ds_spmm": _DIA_DS_SPMM_ARGS,
     **{f"well_ds_spmm_{p}": _WELL_DS_SPMM_ARGS for p in ("i16", "i32")},
+    **{f"cg_pap_{t}": _CG_PAP_ARGS for t in ("f32", "f64")},
+    **{f"cg_update_r_{t}": _CG_R_ARGS for t in ("f32", "f64")},
+    **{f"cg_update_xp_{t}": _CG_XP_ARGS for t in ("f32", "f64")},
 }
 
 _lib: ctypes.CDLL | None = None

@@ -13,6 +13,16 @@ iteration counts match it. Under a torch profiler, ``cg`` records its
 spans (``utils.profiling``): ``spmv_torch.cg`` around the solve,
 ``spmv_torch.cg.iteration`` around each loop body and the check that ends
 it, ``spmv_torch.cg.sync`` around each blocking host read.
+
+Two loops, chosen by what ``cg`` is given: an unpreconditioned solve of
+float32 or float64 vectors on the card runs the fused loop, whose vector
+work is three kernels (``ops/cg_update_cuda.py``: 10 passes over the
+vectors an iteration where the torch loop makes 19) that update x, r and p
+in place and keep alpha, rho, beta and the convergence flag on the card;
+every other solve (a preconditioner, complex or bfloat16 vectors, the CPU)
+runs the torch loop. A preconditioner puts an apply and a second reduction
+between the two updates, so the loops share no per-iteration logic.
+``iterations`` counts the iterations each loop ran, over the process.
 """
 from __future__ import annotations
 
@@ -21,7 +31,10 @@ from typing import Callable
 
 import torch
 
+from spmv_torch.ops import cg_update_cuda
 from spmv_torch.utils.profiling import profile_region
+
+iterations = {"fused": 0, "plain": 0}
 
 
 @dataclasses.dataclass
@@ -70,52 +83,98 @@ def cg(
     continues the original Krylov sequence.
     """
     with profile_region("spmv_torch.cg"):
-        if x0 is None:
-            x0 = torch.zeros_like(b)
-        precond = preconditioner if preconditioner is not None else (lambda r: r)
-        eps = torch.finfo(b.dtype).tiny
+        if _takes_fused(b, preconditioner):
+            return _cg_fused(matvec, b, x0, kmax, rtol, resume)
+        return _cg_plain(matvec, b, x0, kmax, rtol, preconditioner, resume)
 
-        if resume is not None:
-            r_in, p_in, rnorm0_in = resume
-            r = r_in
-            p = p_in  # continue with the saved search direction
-            rho = _dot(r, precond(r))
-            rnorm2 = _dot(r, r)
-            rnorm0 = torch.as_tensor(rnorm0_in, dtype=b.dtype, device=b.device)
-        else:
-            # r0 = b - A x0
-            r = b - matvec(x0)
-            p = precond(r)
-            rho = _dot(r, p)
-            rnorm2 = _dot(r, r)
-            rnorm0 = torch.sqrt(rnorm2)
 
-        x = x0
-        k = 0
-        more = k < kmax and _read(_rel(rnorm2, rnorm0, eps) >= rtol)
-        while more:
-            # an iteration span ends with the convergence check that ends it
-            with profile_region("spmv_torch.cg.iteration"):
-                ap = matvec(p)
-                alpha = rho / _dot(p, ap)
-                x = x + alpha * p
-                r = r - alpha * ap
-                z = precond(r)
-                rho_new = _dot(r, z)
-                beta = rho_new / rho
-                p = z + beta * p
-                # unpreconditioned: rho IS |r|^2; PCG pays one extra
-                # reduction for the true residual the convergence test is
-                # defined on
-                rnorm2 = _dot(r, r) if preconditioner is not None else rho_new
-                rho = rho_new
-                k += 1
-                more = k < kmax and _read(_rel(rnorm2, rnorm0, eps) >= rtol)
-        rnorm = torch.sqrt(rnorm2)
-        converged = _read(_rel(rnorm2, rnorm0, eps) < rtol)
+def _takes_fused(b, preconditioner) -> bool:
+    """The fused loop's solves: unpreconditioned, real float32 or float64
+    vectors on the card."""
+    return (preconditioner is None and b.device.type == "cuda"
+            and b.dtype in cg_update_cuda.DTYPES)
+
+
+def _cg_fused(matvec, b, x0, kmax, rtol, resume) -> CGResult:
+    """The fused loop. It updates x, r and p in place, so it clones what
+    the caller gave (x0, resume's r and p); p starts as a copy of r."""
+    eps = torch.finfo(b.dtype).tiny
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    if resume is not None:
+        r_in, p_in, rnorm0_in = resume
+        r, p = r_in.clone(), p_in.clone()
+        rho = _dot(r, r)
+        rnorm0 = torch.as_tensor(rnorm0_in, dtype=b.dtype, device=b.device)
+    else:
+        r = b - matvec(x)
+        p = r.clone()
+        rho = _dot(r, r)
+        rnorm0 = torch.sqrt(rho)
+    ws = cg_update_cuda.workspace(rho, rnorm0)
+    k = 0
+    more = k < kmax and _read(_rel(rho, rnorm0, eps) >= rtol)
+    while more:
+        with profile_region("spmv_torch.cg.iteration"):
+            ap = matvec(p)
+            cg_update_cuda.cg_pap(p, ap, ws)
+            cg_update_cuda.cg_update_r(r, ap, ws, rtol)
+            cg_update_cuda.cg_update_xp(x, p, r, ws)
+            k += 1
+            more = k < kmax and _read(ws.flag)
+    iterations["fused"] += k
     return CGResult(
-        x=x, iterations=k, rnorm=rnorm, rnorm0=rnorm0, converged=converged,
-        r=r, p=p,
+        x=x, iterations=k, rnorm=torch.sqrt(ws.rho), rnorm0=rnorm0,
+        converged=_read(_rel(ws.rho, rnorm0, eps) < rtol), r=r, p=p,
+    )
+
+
+def _cg_plain(matvec, b, x0, kmax, rtol, preconditioner, resume) -> CGResult:
+    """The torch loop."""
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    precond = preconditioner if preconditioner is not None else (lambda r: r)
+    eps = torch.finfo(b.dtype).tiny
+
+    if resume is not None:
+        r_in, p_in, rnorm0_in = resume
+        r = r_in
+        p = p_in  # continue with the saved search direction
+        rho = _dot(r, precond(r))
+        rnorm2 = _dot(r, r)
+        rnorm0 = torch.as_tensor(rnorm0_in, dtype=b.dtype, device=b.device)
+    else:
+        # r0 = b - A x0
+        r = b - matvec(x0)
+        p = precond(r)
+        rho = _dot(r, p)
+        rnorm2 = _dot(r, r)
+        rnorm0 = torch.sqrt(rnorm2)
+
+    x = x0
+    k = 0
+    more = k < kmax and _read(_rel(rnorm2, rnorm0, eps) >= rtol)
+    while more:
+        # an iteration span ends with the convergence check that ends it
+        with profile_region("spmv_torch.cg.iteration"):
+            ap = matvec(p)
+            alpha = rho / _dot(p, ap)
+            x = x + alpha * p
+            r = r - alpha * ap
+            z = precond(r)
+            rho_new = _dot(r, z)
+            beta = rho_new / rho
+            p = z + beta * p
+            # unpreconditioned: rho IS |r|^2; PCG pays one extra
+            # reduction for the true residual the convergence test is
+            # defined on
+            rnorm2 = _dot(r, r) if preconditioner is not None else rho_new
+            rho = rho_new
+            k += 1
+            more = k < kmax and _read(_rel(rnorm2, rnorm0, eps) >= rtol)
+    iterations["plain"] += k
+    return CGResult(
+        x=x, iterations=k, rnorm=torch.sqrt(rnorm2), rnorm0=rnorm0,
+        converged=_read(_rel(rnorm2, rnorm0, eps) < rtol), r=r, p=p,
     )
 
 
