@@ -39,6 +39,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      one iteration's kernels vs their plain versions; device us an
      iteration of the kernels and of the torch loop's vector work (the
      apply left out) beside the 10-pass bound (phase_cg_update);
+ 23. (after 22) the multigrid's kernels (csrc/symgs_dia.cu) on HPCG's
+     27-point operator at each level of hpcg_256.mgpcg (256^3 to 32^3)
+     and at 640 x 64 x 32 (lines of 3 segments), float64 and float32:
+     every sweep kind of a V-cycle level and the restricted residual bit
+     for bit against their plain versions, the launches from a reset;
+     device ms of each beside its plain version's and its least-bytes
+     bound (phase_symgs);
   7. the WELL kernel, which reads each stack's warp-sliced row lists, vs
      their plain torch version, fp32 and fp64 (and that plain version vs
      the WELL formula's, bit for bit, here and wherever a single-RHS WELL
@@ -865,6 +872,132 @@ def phase_cg_update(a, dev) -> dict:
         out[dname] = row
         del A, b, res, again, plain, ap, kern, flat, st, ws, ws_k, ws_p
     return out
+
+
+SYMGS_GRIDS = [(256, 256, 256), (128, 128, 128), (64, 64, 64), (32, 32, 32)]
+SYMGS_LONG = (640, 64, 32)  # lines of 3 segments (256 points each)
+SYMGS_ITERS = 20  # chained calls a profiler session
+
+
+def phase_symgs(dev, grids=SYMGS_GRIDS, long_grid=SYMGS_LONG) -> list:
+    """Phase 23: the multigrid's two kernels (csrc/symgs_dia.cu) on HPCG's
+    27-point operator at each level of hpcg_256.mgpcg (256^3 down to 32^3)
+    and on a grid whose lines take 3 segments, float64 and float32 (the
+    same DIA block, cast). (a) Each sweep kind of a V-cycle level in turn,
+    forward from zero, backward keeping w, a prolongation's change at the
+    coarse points, forward from w, backward from w, then the restricted
+    residual: every x, w and rc bit for bit against the plain versions
+    (``ops/symgs_dia.py``) given the same inputs, and the launches,
+    counted from a reset just before: 4 a sweep direction's non-empty
+    line classes (``sweep_launches``), 1 a restriction, all on the level's
+    grid. (b) Device ms of each kind and of its plain version
+    (``device_ms``) beside its least-bytes bound: 8 (L + 2 n) from zero,
+    8 (L + 3 n) otherwise, 8 (coarse rows' nonzeros + n + 2 nc) for the
+    restriction (L stored values, n rows, nc coarse points; 4 bytes each
+    in float32). Returns the rows."""
+    from spmv_torch.gen import hpcg_27pt
+    from spmv_torch.ops import symgs_dia, symgs_dia_cuda
+
+    rows = []
+    for grid in (*grids, long_grid):
+        a = hpcg_27pt(*grid)
+        n = a.nrows
+        stored = (a.nnz + n) // 2  # the lower triangle and the diagonal
+        f = symgs_dia.coarse_rows(grid, "cpu").numpy()
+        nc = f.size
+        coarse_nnz = int(np.diff(a.rowptr)[f].sum())
+        A = build_dist_matrix(a, n_devices=1, symmetric=True, dtype=np.float64,
+                              local_format="dia", device=dev)
+        del a
+        offs = A.dia_offsets
+        for dt in (torch.float64, torch.float32):
+            dname = str(dt).split(".")[1]
+            data = A.local_dia_data[0].to(dt).contiguous()
+            item = data.element_size()
+            gen = torch.Generator(device=dev).manual_seed(23)
+            b = torch.rand(n, generator=gen, device=dev, dtype=dt) * 2 - 1
+            state = {"kernel": [torch.zeros_like(b), torch.zeros_like(b)],
+                     "plain": [torch.zeros_like(b), torch.zeros_like(b)]}
+            kinds = (("forward from zero", True, False, True),
+                     ("backward keeping w", False, False, True),
+                     ("forward from w", True, True, False),
+                     ("backward from w", False, True, False))
+
+            def sweep(fn, x, w, forward, from_w, keep):
+                fn(data, offs, grid, b, x, forward, w if from_w else None,
+                   w if keep and not forward else None)
+
+            symgs_dia_cuda.reset_launches()
+            for kind, forward, from_w, keep in kinds:
+                if kind == "forward from w":  # the prolongation's change
+                    for x, _ in state.values():
+                        x.view(grid[2], grid[1], grid[0])[::2, ::2, ::2] += 0.5
+                sweep(symgs_dia_cuda.symgs_sweep, *state["kernel"], forward, from_w, keep)
+                sweep(symgs_dia.symgs_sweep_plain, *state["plain"], forward, from_w, keep)
+                torch.cuda.synchronize()
+                for got, want, what in zip(state["kernel"], state["plain"], "xw"):
+                    if not torch.equal(got, want):
+                        bad = int((got != want).sum())
+                        fail(f"23 {grid} {dname} {kind}: {what} differs from the "
+                             f"plain version at {bad} of {n} rows")
+            rc = [torch.zeros(nc, dtype=dt, device=dev) for _ in range(2)]
+            x = state["kernel"][0]
+            symgs_dia_cuda.restrict_residual(data, offs, grid, b, x, rc[0])
+            symgs_dia.restrict_residual_plain(data, offs, grid, b, x, rc[1])
+            torch.cuda.synchronize()
+            if not torch.equal(rc[0], rc[1]):
+                fail(f"23 {grid} {dname}: the restricted residual differs from "
+                     "the plain version")
+            launches = dict(symgs_dia_cuda.launches)
+            want = {("symgs", grid): 4 * symgs_dia_cuda.sweep_launches(grid),
+                    ("restrict", grid): 1}
+            if launches != want:
+                fail(f"23 {grid} {dname}: launches {launches}, want {want}")
+
+            # (b) device ms of each kind, the kernel's and the plain version's
+            x, w = state["kernel"]
+            for kind, forward, from_w, keep in kinds:
+                def kernel_step(v, forward=forward, from_w=from_w, keep=keep):
+                    sweep(symgs_dia_cuda.symgs_sweep, x, w, forward, from_w, keep)
+                    return v
+
+                def plain_step(v, forward=forward, from_w=from_w, keep=keep):
+                    sweep(symgs_dia.symgs_sweep_plain, x, w, forward, from_w, keep)
+                    return v
+
+                nbytes = item * (stored + (2 if kind == "forward from zero" else 3) * n)
+                rows.append(dict(
+                    grid=list(grid), dtype=dname, kernel="symgs_dia_lines", kind=kind,
+                    launches=symgs_dia_cuda.sweep_launches(grid),
+                    ms=device_ms(kernel_step, b, iters=SYMGS_ITERS),
+                    plain_ms=device_ms(plain_step, b, iters=3,
+                                       sessions=YARDSTICK_SESSIONS),
+                    bound_ms=bound_ms(nbytes), bytes=nbytes))
+
+            def restrict_step(v):
+                symgs_dia_cuda.restrict_residual(data, offs, grid, b, x, rc[0])
+                return v
+
+            def restrict_plain_step(v):
+                symgs_dia.restrict_residual_plain(data, offs, grid, b, x, rc[1])
+                return v
+
+            nbytes = item * (coarse_nnz + n + 2 * nc)
+            rows.append(dict(
+                grid=list(grid), dtype=dname, kernel="mg_restrict", kind="restrict",
+                launches=1, ms=device_ms(restrict_step, b, iters=SYMGS_ITERS),
+                plain_ms=device_ms(restrict_plain_step, b, iters=3,
+                                   sessions=YARDSTICK_SESSIONS),
+                bound_ms=bound_ms(nbytes), bytes=nbytes))
+            for row in rows[-5:]:
+                row["x_bound"] = row["ms"] / row["bound_ms"]
+                show("23.symgs", **row)
+            del data, b, state, rc, x, w
+        del A
+        symgs_dia._sweep_plan.cache_clear()
+        symgs_dia_cuda.device_steps.cache_clear()
+        torch.cuda.empty_cache()
+    return rows
 
 
 def build_well_matrix(n: int, rng) -> CSRHost:
@@ -5061,6 +5194,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_cg_update(a, dev)
     show("22.seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_symgs(dev)
+    show("23.seconds", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     max_abs["spmv_well"], a4, w4 = phase_well_kernel(dev)

@@ -53,6 +53,11 @@ _WELL_DS_SPMM_ARGS = _WELL_DS_ARGS[:13] + [_I] + _WELL_DS_ARGS[13:]
 _CG_PAP_ARGS = [_P, _P, _L, _P, _P, _P, _I, _P]
 _CG_R_ARGS = [_P, _P, _L, _P, _P, _P, _I, ctypes.c_double, _P]
 _CG_XP_ARGS = [_P, _P, _P, _L, _P, _I, _P]
+# the multigrid smoother and restriction (csrc/symgs_dia.cu): data, r, x,
+# w in and w out or rc, grid steps (on the card), ndiags, nx, ny, nz,
+# [forward,] stream
+_SYMGS_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_RESTRICT_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 KERNEL_ENTRIES = {
     **{f"dia_spmv_{t}": _DIA_ARGS for t in ("f32", "f64", "bf16")},
     **{f"dia_spmv_rows_{t}": _DIA_ROWS_ARGS for t in ("f32", "f64", "bf16")},
@@ -70,6 +75,8 @@ KERNEL_ENTRIES = {
     **{f"cg_pap_{t}": _CG_PAP_ARGS for t in ("f32", "f64")},
     **{f"cg_update_r_{t}": _CG_R_ARGS for t in ("f32", "f64")},
     **{f"cg_update_xp_{t}": _CG_XP_ARGS for t in ("f32", "f64")},
+    **{f"symgs_dia_{t}": _SYMGS_ARGS for t in ("f32", "f64")},
+    **{f"mg_restrict_{t}": _RESTRICT_ARGS for t in ("f32", "f64")},
 }
 
 _lib: ctypes.CDLL | None = None

@@ -2,7 +2,8 @@
 
 Carried across from ``spmv_tpu.gen``: the 1-D gamma-coupled operator, the
 2-D 5-point and 3-D 7-point Dirichlet Laplacians, the random test matrix
-and the Gaussian-bump input vector. Only the numpy path comes along; the
+and the Gaussian-bump input vector. ``hpcg_27pt`` is HPCG's operator, which
+the reference does not have. Only the numpy path comes along; the
 native single-pass C++ fill is still to port (ROADMAP.md). At 3200² the
 numpy 2-D path allocates a few hundred MB and runs in seconds.
 """
@@ -85,6 +86,36 @@ def create_laplace_3d(nx: int, ny: int | None = None, nz: int | None = None,
     values = valmat[valid]
     out = CSRHost(rowptr=rowptr, colind=colind.astype(np.int32),
                   values=values, ncols=n)
+    out._sorted_unique = True  # ascending-offset construction
+    return out
+
+
+def hpcg_27pt(nx: int, ny: int, nz: int, dtype=np.float64) -> CSRHost:
+    """HPCG 3.1's operator (``GenerateProblem_ref.cpp``): the 27-point
+    stencil on an nx x ny x nz grid, numbered ``ix + nx*(iy + ny*iz)``, 26
+    on the diagonal and -1 for each of the up to 26 neighbours inside the
+    grid (every face is a domain boundary, as on one rank). Columns ascend
+    within a row, as HPCG's loops over (sz, sy, sx) give them."""
+    n = nx * ny * nz
+    idx = np.arange(n, dtype=np.int32)
+    ix = idx % np.int32(nx)
+    iy = (idx // np.int32(nx)) % np.int32(ny)
+    iz = idx // np.int32(nx * ny)
+    steps = (-1, 0, 1)
+    # (n, 3) in-grid masks along each axis for steps -1, 0, +1
+    ok = [np.stack([c > 0, np.ones(n, dtype=bool), c < m - 1], axis=1)
+          for c, m in ((ix, nx), (iy, ny), (iz, nz))]
+    valid = (ok[2][:, :, None, None] & ok[1][:, None, :, None]
+             & ok[0][:, None, None, :]).reshape(n, 27)
+    del ok
+    offsets = np.array([sx + nx * (sy + ny * sz) for sz in steps
+                        for sy in steps for sx in steps], dtype=np.int32)
+    lens = valid.sum(axis=1).astype(np.int64)
+    rowptr = np.concatenate([[0], np.cumsum(lens)])
+    colind = (idx[:, None] + offsets[None, :])[valid]
+    values = np.where(offsets == 0, 26.0, -1.0).astype(dtype)
+    values = np.broadcast_to(values, (n, 27))[valid]
+    out = CSRHost(rowptr=rowptr, colind=colind, values=values, ncols=n)
     out._sorted_unique = True  # ascending-offset construction
     return out
 

@@ -116,6 +116,18 @@ def classify_shard(
     )
 
 
+def _canonical(a: CSRHost) -> bool:
+    """Columns strictly ascending within every row, as ``from_coo`` would
+    leave them: one pass over the column indices."""
+    if a.nnz < 2:
+        return True
+    ascending = np.diff(a.colind) > 0  # colind < 2^31: the steps fit its type
+    # a step into an entry that begins a row may descend
+    begins = a.rowptr[1:-1]
+    ascending[begins[(begins > 0) & (begins < a.nnz)] - 1] = True
+    return bool(ascending.all())
+
+
 def partition_csr(
     a: CSRHost,
     num_shards: int,
@@ -125,8 +137,9 @@ def partition_csr(
     separation. Rectangular matrices partition rows and columns
     independently; ``symmetric=True`` requires square. A CSR that is not
     canonical (unsorted columns or duplicate entries) is first rebuilt
-    through ``CSRHost.from_coo``, which sorts and sums duplicates."""
-    if not getattr(a, "_sorted_unique", False):
+    through ``CSRHost.from_coo``, which sorts and sums duplicates; one that
+    is, flagged or not, is taken as it is."""
+    if not (getattr(a, "_sorted_unique", False) or _canonical(a)):
         rows = np.repeat(np.arange(a.nrows, dtype=np.int64), a.row_nnz())
         a = CSRHost.from_coo(rows, a.colind, a.values, a.nrows, a.ncols)
     row_ranges = owner_ranges(a.nrows, num_shards)
