@@ -41,10 +41,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      apply left out) beside the 10-pass bound (phase_cg_update);
  23. (after 22) the multigrid's kernels (csrc/symgs_dia.cu) on HPCG's
      27-point operator at each level of hpcg_256.mgpcg (256^3 to 32^3)
-     and at 640 x 64 x 32 (lines of 3 segments), float64 and float32:
+     and at 640 x 64 x 32 (lines of 640 points), float64 and float32:
      every sweep kind of a V-cycle level and the restricted residual bit
-     for bit against their plain versions, the launches from a reset;
-     device ms of each beside its plain version's and its least-bytes
+     for bit against their plain versions, the launches (2 a sweep
+     direction) and bands a plane from a reset; device ms of each beside its plain version's and its least-bytes
      bound (phase_symgs);
   7. the WELL kernel, which reads each stack's warp-sliced row lists, vs
      their plain torch version, fp32 and fp64 (and that plain version vs
@@ -266,6 +266,7 @@ in turns on the main path's shapes (``phase_parent``).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -875,7 +876,7 @@ def phase_cg_update(a, dev) -> dict:
 
 
 SYMGS_GRIDS = [(256, 256, 256), (128, 128, 128), (64, 64, 64), (32, 32, 32)]
-SYMGS_LONG = (640, 64, 32)  # lines of 3 segments (256 points each)
+SYMGS_LONG = (640, 64, 32)  # lines longer than a block's point pairs
 SYMGS_ITERS = 20  # chained calls a profiler session
 
 
@@ -888,9 +889,9 @@ def phase_symgs(dev, grids=SYMGS_GRIDS, long_grid=SYMGS_LONG) -> list:
     coarse points, forward from w, backward from w, then the restricted
     residual: every x, w and rc bit for bit against the plain versions
     (``ops/symgs_dia.py``) given the same inputs, and the launches,
-    counted from a reset just before: 4 a sweep direction's non-empty
-    line classes (``sweep_launches``), 1 a restriction, all on the level's
-    grid. (b) Device ms of each kind and of its plain version
+    counted from a reset just before: 2 a sweep direction, one a z parity
+    (``sweep_launches``), 1 a restriction, all on the level's grid, and
+    the bands a plane of each sweep launch (``sweep_bands``). (b) Device ms of each kind and of its plain version
     (``device_ms``) beside its least-bytes bound: 8 (L + 2 n) from zero,
     8 (L + 3 n) otherwise, 8 (coarse rows' nonzeros + n + 2 nc) for the
     restriction (L stored values, n rows, nc coarse points; 4 bytes each
@@ -949,10 +950,17 @@ def phase_symgs(dev, grids=SYMGS_GRIDS, long_grid=SYMGS_LONG) -> list:
                 fail(f"23 {grid} {dname}: the restricted residual differs from "
                      "the plain version")
             launches = dict(symgs_dia_cuda.launches)
-            want = {("symgs", grid): 4 * symgs_dia_cuda.sweep_launches(grid),
+            want = {("symgs_planes", grid): 4 * symgs_dia_cuda.sweep_launches(grid),
                     ("restrict", grid): 1}
             if launches != want:
                 fail(f"23 {grid} {dname}: launches {launches}, want {want}")
+            cut = {forward: symgs_dia_cuda.sweep_bands(grid, forward)
+                   for forward in (True, False)}
+            want = collections.Counter((grid, b) for v in cut.values() for b in v
+                                       for _ in range(2))
+            if symgs_dia_cuda.bands != want:
+                fail(f"23 {grid} {dname}: bands {dict(symgs_dia_cuda.bands)}, "
+                     f"want {dict(want)}")
 
             # (b) device ms of each kind, the kernel's and the plain version's
             x, w = state["kernel"]
@@ -967,8 +975,9 @@ def phase_symgs(dev, grids=SYMGS_GRIDS, long_grid=SYMGS_LONG) -> list:
 
                 nbytes = item * (stored + (2 if kind == "forward from zero" else 3) * n)
                 rows.append(dict(
-                    grid=list(grid), dtype=dname, kernel="symgs_dia_lines", kind=kind,
-                    launches=symgs_dia_cuda.sweep_launches(grid),
+                    grid=list(grid), dtype=dname, kernel="symgs_dia_lines_planes",
+                    kind=kind, launches=symgs_dia_cuda.sweep_launches(grid),
+                    bands=cut[forward],
                     ms=device_ms(kernel_step, b, iters=SYMGS_ITERS),
                     plain_ms=device_ms(plain_step, b, iters=3,
                                        sessions=YARDSTICK_SESSIONS),

@@ -7,8 +7,8 @@ Replaces no Pallas kernel: the reference has no multigrid.
 - ``symgs_sweep(data, offsets, grid, r, x, forward, w_in, w_out)``: one
   sweep direction of the 8-colour symmetric Gauss–Seidel, x updated in
   place from the rows before each row and ``w_in`` (a backward sweep keeps
-  its sum in ``w_out``); on the card 4 launches (one a class of grid
-  lines, two colours each);
+  its sum in ``w_out``); on the card 2 launches, the planes of one z
+  parity each (1 where nz = 1), a block a plane or a band of one;
 - ``restrict_residual(data, offsets, grid, r, x, rc)``: rc = r - A x at the
   coarse points (fine (2i, 2j, 2k)), in the coarse grid's numbering; one
   launch.
@@ -22,7 +22,10 @@ padding is neither read nor written).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``launches`` counts kernel launches by (kernel, grid), so by
-multigrid level (none on the plain path).
+multigrid level (none on the plain path): ``("symgs_planes", grid)`` the
+sweep's, ``("restrict", grid)`` the restriction's. ``bands`` counts the
+sweep's launches by (grid, bands a plane), so a run shows how each level's
+shape cut its planes.
 """
 from __future__ import annotations
 
@@ -36,12 +39,19 @@ from spmv_torch.ops.symgs_dia import restrict_residual_plain, symgs_sweep_plain
 
 DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 MAX_DIAGS = 14   # csrc/symgs_dia.cu: kMaxDiags, the 27-point stencil's lower half
+# csrc/symgs_dia.cu's kSweepThreads (the block of the sweep's full shape:
+# lines of more than twice as many points are long, and never cut) and
+# kSMs (the H100's SMs), which its band rule reads
+SWEEP_THREADS = 256
+SMS = 132
 
 launches: collections.Counter = collections.Counter()
+bands: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
     launches.clear()
+    bands.clear()
 
 
 def steps(offsets: tuple[int, ...], grid: tuple[int, int, int]
@@ -64,12 +74,41 @@ def device_steps(offsets: tuple[int, ...], grid: tuple[int, int, int],
     return torch.tensor(steps(offsets, grid), dtype=torch.int32, device=device)
 
 
-def sweep_launches(grid: tuple[int, int, int]) -> int:
-    """Launches of one sweep direction on the card: the non-empty classes
-    of grid lines."""
+def band_lines(grid: tuple[int, int, int], planes: int, forward: bool) -> int:
+    """Lines of a band of a plane, where a launch takes ``planes`` planes:
+    the whole plane, but where a forward sweep of short lines (at most 2
+    SWEEP_THREADS points) has fewer planes than half the SMs, each plane
+    cut into the most bands (a power of two) that keep the blocks within
+    the SMs, each of an even number of lines and at least 4. A backward
+    sweep is never cut (its update reads the row's x before the sweep,
+    which a band beside may have overwritten). csrc/symgs_dia.cu's
+    ``band_lines``, the same rule."""
+    nx, ny, _ = grid
+    if not forward or nx > 2 * SWEEP_THREADS:
+        return ny
+    b = 1
+    while 2 * b * planes <= SMS and ny >= 8 * b:
+        b *= 2
+    return ny if b == 1 else 2 * -(-ny // (2 * b))
+
+
+def sweep_bands(grid: tuple[int, int, int], forward: bool) -> list[int]:
+    """Bands a plane of each launch of one sweep direction on the card, in
+    launch order: the even planes then the odd forward, the odd then the
+    even backward (a parity without planes takes no launch)."""
     _, ny, nz = grid
-    return sum(((ny - py + 1) // 2) * ((nz - pz + 1) // 2) > 0
-               for py in (0, 1) for pz in (0, 1))
+    out = []
+    for pz in ((0, 1) if forward else (1, 0)):
+        planes = (nz - pz + 1) // 2
+        if planes:
+            out.append(-(-ny // band_lines(grid, planes, forward)))
+    return out
+
+
+def sweep_launches(grid: tuple[int, int, int]) -> int:
+    """Launches of one sweep direction on the card: one a z parity that
+    has planes, so 2, or 1 where nz = 1."""
+    return len(sweep_bands(grid, True))
 
 
 def _check(data: torch.Tensor, offsets, grid, *vecs: torch.Tensor) -> None:
@@ -130,12 +169,15 @@ def symgs_sweep(data: torch.Tensor, offsets: tuple[int, ...],
     if x.device.type == "cpu":
         return symgs_sweep_plain(data, offsets, grid, r, x, forward, w_in, w_out)
     table = device_steps(tuple(offsets), tuple(grid), x.device)
-    _launch("symgs", "symgs_dia", data, grid,
+    cut = sweep_bands(tuple(grid), forward)
+    _launch("symgs_planes", "symgs_dia", data, grid,
             (data.data_ptr(), r.data_ptr(), x.data_ptr(),
              None if w_in is None else w_in.data_ptr(),
              None if w_out is None else w_out.data_ptr(), table.data_ptr(),
              len(offsets), nx, ny, nz, int(forward)),
-            sweep_launches(grid))
+            len(cut))
+    for b in cut:
+        bands[tuple(grid), b] += 1
 
 
 def restrict_residual(data: torch.Tensor, offsets: tuple[int, ...],

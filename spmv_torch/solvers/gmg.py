@@ -17,19 +17,22 @@ forward and one backward sweep of Gauss–Seidel, here in 8 colours
 (``ops/symgs_dia.py``). Each level is a ``DistMatrix`` in symmetric DIA
 storage on one shard (D = 1: the sweep needs every row of the grid on its
 device), float32 or float64; the smoother and the restricted residual run
-the kernels of ``csrc/symgs_dia.cu`` on the card and their plain torch
-versions on the CPU, the prolongation a strided torch add. The first SymGS
-of a level starts from x = 0, and its backward sweep keeps the level's
-``w``, the sum over the rows after each row in the forward order; the
-prolongation changes only colour-0 points, which come after no row, so
-the second SymGS starts from that ``w`` (``ops/symgs_dia.py``). Each
-sweep reads each coupling once.
+the kernels of ``csrc/symgs_dia.cu`` on the card (a sweep direction 2
+launches, one a z parity of planes, so 28 sweep launches a 4-level cycle)
+and their plain torch versions on the CPU, the prolongation a strided
+torch add. The first SymGS of a level starts from x = 0, and its backward
+sweep keeps the level's ``w``, the sum over the rows after each row in the
+forward order; the prolongation changes only colour-0 points, which come
+after no row, so the second SymGS starts from that ``w``
+(``ops/symgs_dia.py``). Each sweep reads each coupling once.
 
 Under a torch profiler an apply records ``spmv_torch.mg``, each SymGS
 ``spmv_torch.mg.smooth`` and each restriction or prolongation
 ``spmv_torch.mg.transfer``. ``sweeps`` counts, over the process and by
 level (0 the finest), the sweep directions run; the kernels' launches are
-``symgs_dia_cuda.launches``, by kernel and grid (none on the plain path).
+``symgs_dia_cuda.launches``, by kernel and grid, and the bands each sweep
+launch cut its planes into ``symgs_dia_cuda.bands`` (none on the plain
+path).
 """
 from __future__ import annotations
 

@@ -222,7 +222,8 @@ def test_counters_and_spans_of_one_apply():
     assert names.count("spmv_torch.mg.transfer") == 2 * (LEVELS - 1)
     assert {k: gmg.sweeps[k] - before.get(k, 0) for k in range(LEVELS)} == {
         0: 4, 1: 4, 2: 4, 3: 2}
-    assert not symgs_dia_cuda.launches  # the plain path launches nothing
+    # the plain path launches nothing
+    assert not symgs_dia_cuda.launches and not symgs_dia_cuda.bands
 
 
 @pytest.fixture
@@ -234,9 +235,88 @@ def cuda():
 
 
 # odd and even colour-row counts, lines of 1-2 points, a grid longer in z,
-# lines of 2 and 3 segments (more than 256 points)
+# lines of 300 points, lines of 2 to 5 segments (more than 512 points),
+# planes the band rule cuts (16 bands of 4 lines), one plane (one launch a
+# sweep direction)
 CARD_GRIDS = [(16, 16, 16), (6, 6, 6), (5, 4, 3), (2, 2, 2), (7, 3, 9),
-              (32, 8, 4), (300, 5, 4), (521, 3, 2)]
+              (32, 8, 4), (300, 5, 4), (521, 3, 2), (64, 64, 8), (12, 10, 1),
+              (1100, 3, 2), (2100, 2, 3)]
+
+
+@pytest.mark.parametrize("grid", CARD_GRIDS)
+def test_plane_parity_orders_the_sweep(grid):
+    # what the kernel's schedule rests on, from the terms a sweep reads
+    # through nonzero stored values: a plane of the parity that goes first
+    # (even forward, odd backward) reads only itself, the other parity its
+    # own plane and the planes beside it; inside a plane a line of the
+    # first parity reads no other line, each other line only the first
+    # lines beside it; inside a line the first points (ix of the first
+    # parity) read none of it, the others only their two neighbours
+    nx, ny, nz = grid
+    n = nx * ny * nz
+    A = build_dist_matrix(hpcg_27pt(*grid), n_devices=1, symmetric=True,
+                          local_format="dia", device="cpu")
+    flat = A.local_dia_data[0].reshape(-1)
+    rows = torch.arange(n)
+    vals, xs, oks, _ = symgs_dia._terms(rows, A.dia_offsets, n)
+    col = symgs_dia.colours(grid, "cpu")
+    nonzero = oks & (flat[vals] != 0)
+    for forward, first in ((True, 0), (False, 1)):
+        before = col[xs] < col[rows] if forward else col[xs] > col[rows]
+        read = nonzero & before
+        p, q = rows.expand_as(xs)[read], xs[read]
+        assert p.numel() > 0 or n == 1
+        (px, py, pz), (qx, qy, qz) = [(v % nx, v // nx % ny, v // (nx * ny))
+                                      for v in (p, q)]
+        plane, line = qz == pz, (qz == pz) & (qy == py)
+        assert torch.all(torch.where(pz % 2 == first, plane, (qz - pz).abs() <= 1))
+        assert torch.all(~plane | torch.where(
+            py % 2 == first, qy == py,
+            (qy == py) | (((qy - py).abs() == 1) & (qy % 2 == first))))
+        assert torch.all(~line | ((px % 2 != first) & ((qx - px).abs() == 1)))
+        if nx >= 3 and ny >= 3:
+            # the first launch's couplings, inside its planes, lie on the
+            # last 5 stored diagonals, the kernel's window for that launch
+            k = len(A.dia_offsets)
+            d = vals[read] // symgs_dia.LANES % k
+            assert torch.all((pz % 2 != first) | (d >= k - 5))
+
+
+@pytest.mark.parametrize("grid,forward_bands,lines", [
+    ((256, 256, 256), [1, 1], [256, 256]), ((128, 128, 128), [2, 2], [64, 64]),
+    ((64, 64, 64), [4, 4], [16, 16]), ((32, 32, 32), [8, 8], [4, 4]),
+    ((640, 64, 32), [1, 1], [64, 64]), ((1100, 8, 4), [1, 1], [8, 8]),
+    ((64, 64, 8), [16, 16], [4, 4]),
+    ((16, 13, 4), [2, 2], [8, 8]), ((12, 10, 1), [2], [6]),
+    ((7, 3, 9), [1, 1], [3, 3])])
+def test_launches_and_bands_follow_the_grid(grid, forward_bands, lines):
+    # 2 launches a sweep direction (1 where nz = 1); a forward sweep of
+    # short lines cuts its planes where they leave the SMs idle, in bands
+    # of an even number of lines that cover the plane; a backward sweep
+    # never; each a function of the grid alone
+    nx, ny, nz = grid
+    launches = symgs_dia_cuda.sweep_launches(grid)
+    assert launches == (1 if nz == 1 else 2) == len(forward_bands)
+    assert symgs_dia_cuda.sweep_bands(grid, True) == forward_bands
+    assert symgs_dia_cuda.sweep_bands(grid, False) == [1] * launches
+    for pz, (b, h) in enumerate(zip(forward_bands, lines)):
+        planes = (nz - pz + 1) // 2
+        assert symgs_dia_cuda.band_lines(grid, planes, True) == h
+        assert symgs_dia_cuda.band_lines(grid, planes, False) == ny
+        assert (b - 1) * h < ny <= b * h
+        if b > 1:
+            assert h % 2 == 0 and h >= 4
+            assert planes * b <= symgs_dia_cuda.SMS
+    assert symgs_dia_cuda.sweep_bands(grid, True) == forward_bands  # again
+
+
+def test_a_v_cycle_of_hpcg_256_launches_28_sweeps():
+    # 7 SymGS (2 on each of the three finer levels, 1 on the coarsest), 2
+    # directions each, 2 launches a direction; 1428 in a set of 51 applies
+    grids = [(256 >> k,) * 3 for k in range(LEVELS)]
+    per_cycle = sum((2 if k + 1 < LEVELS else 1) * 2 *
+                    symgs_dia_cuda.sweep_launches(g) for k, g in enumerate(grids))
+    assert per_cycle == 28 and 51 * per_cycle == 1428
 
 
 @pytest.mark.cuda
@@ -262,8 +342,13 @@ def test_kernels_match_plain_on_the_card(cuda, dt, grid):
         # the kernel adds in the plain version's order with its roundings
         torch.testing.assert_close(x, y, rtol=0, atol=0)
         torch.testing.assert_close(wx, wy, rtol=0, atol=0)
-    assert symgs_dia_cuda.launches["symgs", grid] == \
+    # 2 SymGS, 2 sweep directions each, sweep_launches a direction
+    assert symgs_dia_cuda.launches["symgs_planes", grid] == \
         4 * symgs_dia_cuda.sweep_launches(grid)
+    cut = [b for forward in (True, False)
+           for b in symgs_dia_cuda.sweep_bands(grid, forward)]
+    assert dict(symgs_dia_cuda.bands) == {
+        (grid, b): 2 * cut.count(b) for b in set(cut)}
     if all(v % 2 == 0 for v in grid):
         rc = torch.zeros_like(b)
         rc2 = torch.zeros_like(b)
@@ -290,5 +375,5 @@ def test_preconditioned_set_on_the_card_is_the_cpus(cuda):
     for k, lv in enumerate(mg.levels):
         swept = gmg.sweeps[k] - before.get(k, 0)
         assert swept > 0
-        assert symgs_dia_cuda.launches["symgs", lv.grid] == \
+        assert symgs_dia_cuda.launches["symgs_planes", lv.grid] == \
             swept * symgs_dia_cuda.sweep_launches(lv.grid)
