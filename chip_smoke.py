@@ -459,9 +459,12 @@ def show(tag: str, **fields) -> None:
 
 
 def reset_counters() -> None:
-    for mod in (spmv_dia_cuda, spmv_well_cuda, spmv_dia_ds_cuda, spmv_well_ds_cuda,
-                spmm_dia_cuda, spmm_well_cuda):
-        mod.reset_launches()
+    _build.launches.clear()
+
+
+def launched(*keys) -> dict:
+    """The kernel launches under ``keys`` since the last ``reset_counters``."""
+    return {k: _build.launches[k] for k in keys}
 
 
 def check_close(name, y_k, y_p, tol):
@@ -583,15 +586,15 @@ def phase_main_path(a, dev):
     results = []
     for dt, sym, A, b, b_host, t_asm in runs:
         key = "dia_sym" if sym else "dia"
-        before = spmv_dia_cuda.launches[key]
+        before = _build.launches[key]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = cg(A.as_linear_operator(), b, kmax=20000, rtol=1e-6)
         torch.cuda.synchronize()
         t_solve = time.perf_counter() - t0
-        grown = spmv_dia_cuda.launches[key] - before
+        grown = _build.launches[key] - before
         results.append((dt, sym, A, res, b_host, t_asm, t_solve, grown))
-    counts = dict(spmv_dia_cuda.launches)
+    counts = launched("dia", "dia_sym")
 
     its_per_s, solves = {}, {}
     x64 = b64 = None  # the fp64 solve runs first: the fp32 runs' yardstick
@@ -790,9 +793,9 @@ def phase_cg_update(a, dev) -> dict:
         A = build_dist_matrix(a, n_devices=1, symmetric=True, dtype=dt,
                               local_format="dia", device=dev)
         b = A.to_dist(np.random.default_rng(22).uniform(-1.0, 1.0, a.nrows).astype(dt))
-        cg_update_cuda.reset_launches()
+        reset_counters()
         res = cg(A.matvec, b, kmax=CG_UPDATE_ITERS, rtol=0.0)
-        launches = dict(cg_update_cuda.launches)
+        launches = launched("cg_pap", "cg_update_r", "cg_update_xp")
         again = cg(A.matvec, b, kmax=CG_UPDATE_ITERS, rtol=0.0)
         plain = cg_module._cg_plain(A.matvec, b, None, CG_UPDATE_ITERS, 0.0, None, None)
         torch.cuda.synchronize()
@@ -928,7 +931,8 @@ def phase_symgs(dev, grids=SYMGS_GRIDS, long_grid=SYMGS_LONG) -> list:
                 fn(data, offs, grid, b, x, forward, w if from_w else None,
                    w if keep and not forward else None)
 
-            symgs_dia_cuda.reset_launches()
+            reset_counters()
+            symgs_dia_cuda.bands.clear()
             for kind, forward, from_w, keep in kinds:
                 if kind == "forward from w":  # the prolongation's change
                     for x, _ in state.values():
@@ -949,7 +953,7 @@ def phase_symgs(dev, grids=SYMGS_GRIDS, long_grid=SYMGS_LONG) -> list:
             if not torch.equal(rc[0], rc[1]):
                 fail(f"23 {grid} {dname}: the restricted residual differs from "
                      "the plain version")
-            launches = dict(symgs_dia_cuda.launches)
+            launches = dict(_build.launches)
             want = {("symgs_planes", grid): 4 * symgs_dia_cuda.sweep_launches(grid),
                     ("restrict", grid): 1}
             if launches != want:
@@ -1335,7 +1339,7 @@ def phase_fem_main_path(dev):
     reset_counters()
     results = []
     for dt, sym, fmt, A, b, b_host, t_asm in runs:
-        before = spmv_well_cuda.launches["well"]
+        before = _build.launches["well"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = cg(A.as_linear_operator(), b, kmax=20000, rtol=1e-6,
@@ -1343,8 +1347,8 @@ def phase_fem_main_path(dev):
         torch.cuda.synchronize()
         results.append((dt, sym, fmt, A, res, b_host, t_asm,
                         time.perf_counter() - t0,
-                        spmv_well_cuda.launches["well"] - before))
-    counts = dict(spmv_well_cuda.launches)
+                        _build.launches["well"] - before))
+    counts = launched("well")
 
     its_per_s = {}
     for dt, sym, fmt, A, res, b_host, t_asm, t_solve, grown in results:
@@ -1876,7 +1880,7 @@ def phase_ds_main_path(a_lap, a_fem, fem_fp64, dev):
     res = cg(A.as_linear_operator(), b, kmax=20000, rtol=1e-6)
     torch.cuda.synchronize()
     t_solve = time.perf_counter() - t0
-    counts = {"dia_ds": spmv_dia_ds_cuda.launches["dia_ds"]}
+    counts = {"dia_ds": _build.launches["dia_ds"]}
     t0 = time.perf_counter()
     res_n = cg(N.as_linear_operator(), N.to_dist(b_host), kmax=20000, rtol=1e-6)
     torch.cuda.synchronize()
@@ -1941,7 +1945,7 @@ def phase_ds_main_path(a_lap, a_fem, fem_fp64, dev):
              preconditioner=A.jacobi_preconditioner())
     torch.cuda.synchronize()
     t_solve = time.perf_counter() - t0
-    counts["well_ds"] = spmv_well_ds_cuda.launches["well_ds"]
+    counts["well_ds"] = _build.launches["well_ds"]
     if not res.converged:
         fail(f"12b: Jacobi-PCG did not converge in {res.iterations}")
     if counts["well_ds"] < 2 * (res.iterations + 1):
@@ -2136,14 +2140,12 @@ BLOCK_KERNELS = ("dia_spmm", "dia_sym_spmm", "well_spmm", "dia_ds_spmm",
 
 def block_launches() -> dict:
     """The block kernels' launch counters, by kernel name."""
-    return {**spmm_dia_cuda.launches, **spmm_well_cuda.launches,
-            "dia_ds_spmm": spmv_dia_ds_cuda.launches["dia_ds_spmm"]}
+    return launched("dia_spmm", "dia_sym_spmm", "well_spmm", "well_ds_spmm", "dia_ds_spmm")
 
 
 def single_launches() -> int:
     """Launches of the single-RHS kernels, all together."""
-    return (sum(spmv_dia_cuda.launches.values()) + spmv_well_cuda.launches["well"]
-            + spmv_dia_ds_cuda.launches["dia_ds"] + spmv_well_ds_cuda.launches["well_ds"])
+    return sum(launched("dia", "dia_sym", "well", "dia_ds", "well_ds").values())
 
 
 def lanes_block(gen: torch.Generator, rows: int, nrhs: int, dtype, dev) -> torch.Tensor:
@@ -2879,7 +2881,7 @@ def phase_amg(a, plain_solves, dev, max_abs):
     for _ in range(3):
         reset_counters()
         res, seconds = amg_pcg(A, b, h)
-        got = dict(spmv_dia_cuda.launches)
+        got = launched("dia", "dia_sym")
         amg_launch_gate("18a", f"laplace2d {NX}^2", h, res, got)
         first = first or got
         runs.append((seconds, res))
@@ -2921,7 +2923,7 @@ def phase_amg(a, plain_solves, dev, max_abs):
         amg_level_checks("18b", h1, tag, gen, dev, max_abs)
         reset_counters()
         r1, s1 = amg_pcg(A1, A1.to_dist(gaussian_bump(a1k.nrows, dtype=np.float32)), h1)
-        got = dict(spmv_dia_cuda.launches)
+        got = launched("dia", "dia_sym")
         amg_launch_gate("18b", tag, h1, r1, got)
         for key in ("dia", "dia_sym"):
             totals[key] += got[key]
@@ -2941,13 +2943,13 @@ def phase_amg(a, plain_solves, dev, max_abs):
     ref = cg_refined_dist(a1k, b64, amg=dict(AMG_KW), rtol=1e-9, inner_kmax=200,
                           device=dev)
     t_ref = time.perf_counter() - t0
-    got = dict(spmv_dia_cuda.launches)
+    got = launched("dia", "dia_sym")
     rel = true_rel(a1k, ref.x, b64)
     show("18c.refine_amg", matrix=f"laplace2d {AMG_SYM_NX}^2", rtol=1e-9,
          inner_kmax=200, outer=ref.outer_iterations, inner=ref.inner_iterations,
          converged=ref.converged, history=ref.history, true_rel_residual=rel,
          gate=REFINE_TOL, seconds=t_ref, launches=got,
-         dia_ds_launches=spmv_dia_ds_cuda.launches["dia_ds"])
+         dia_ds_launches=_build.launches["dia_ds"])
     if not rel < REFINE_TOL:
         fail(f"18c: refined AMG true residual {rel:.3e} >= {REFINE_TOL:.0e}")
     for key in ("dia", "dia_sym"):
@@ -2964,7 +2966,7 @@ def phase_amg(a, plain_solves, dev, max_abs):
         amg_level_checks("18d", h4, f"laplace2d {AMG_D4_NX}^2 D={nd}", gen, dev, max_abs)
         reset_counters()
         r4, s4 = amg_pcg(A4, A4.to_dist(b512), h4)
-        got = dict(spmv_dia_cuda.launches)
+        got = launched("dia", "dia_sym")
         amg_launch_gate("18d", f"laplace2d {AMG_D4_NX}^2 D={nd}", h4, r4, got)
         its[nd] = r4.iterations
         x4 = A4.from_dist(r4.x).astype(np.float64)
@@ -3024,7 +3026,7 @@ def phase_amg(a, plain_solves, dev, max_abs):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     got = block_launches()
-    lanczos = dict(spmv_dia_cuda.launches)
+    lanczos = launched("dia", "dia_sym")
     rel = true_rels(ac, X, B)
     show("18e.block_chebyshev", matrix=f"laplace2d {CHEB_NX}^2", nrhs=NRHS, **kw,
          outer_passes=outer, inner_iterations=inner, true_rel_residuals=rel.tolist(),
@@ -3103,8 +3105,7 @@ def kernel_of(A) -> str | None:
 
 
 def launch_counts() -> dict:
-    return {"dia": spmv_dia_cuda.launches["dia"], "dia_sym": spmv_dia_cuda.launches["dia_sym"],
-            "well": spmv_well_cuda.launches["well"]}
+    return launched("dia", "dia_sym", "well")
 
 
 def add_counts(totals: dict, got: dict) -> None:
@@ -3805,8 +3806,7 @@ def sync_counter():
 def single_counts() -> dict:
     """Every kernel's launch counter: the single-RHS (``launch_counts``),
     the double-single single-RHS and the block ones."""
-    return {**launch_counts(), "dia_ds": spmv_dia_ds_cuda.launches["dia_ds"],
-            "well_ds": spmv_well_ds_cuda.launches["well_ds"], **block_launches()}
+    return {**launched("dia", "dia_sym", "well", "dia_ds", "well_ds"), **block_launches()}
 
 
 def launch_gate(tag: str, got: dict, want: dict) -> None:

@@ -1,5 +1,5 @@
 """Build the CUDA kernels (csrc/*.cu, with their csrc/*.cuh headers) with
-nvcc at first use and bind them with ctypes.
+nvcc at first use, bind them with ctypes, and launch them.
 
 The library has a plain C interface, so nvcc builds it in seconds (no
 PyTorch headers): one nvcc per source, all started together, then one
@@ -7,9 +7,15 @@ link. It goes to ``build/spmv_torch/lib<content-hash>.so`` at the
 repository root, written under a temporary name and moved into place with
 ``os.replace`` so a concurrent process never loads a half-written file.
 A failed build raises with nvcc's output: there is no fallback.
+
+Every wrapper in ``ops/`` launches through ``launch``, which passes the
+device's current stream last, raises on a failed launch and counts it in
+``launches`` by the wrapper's key (none on the plain CPU paths), so a run
+can show which kernels its path went through.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -18,6 +24,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -55,8 +63,8 @@ _CG_R_ARGS = [_P, _P, _L, _P, _P, _P, _I, ctypes.c_double, _P]
 _CG_XP_ARGS = [_P, _P, _P, _L, _P, _I, _P]
 # the multigrid smoother and restriction (csrc/symgs_dia.cu): data, r, x,
 # w in and w out or rc, grid steps (on the card), ndiags, nx, ny, nz,
-# [forward,] stream
-_SYMGS_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+# [forward, the band lines of the direction's two launches,] stream
+_SYMGS_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _RESTRICT_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 KERNEL_ENTRIES = {
     **{f"dia_spmv_{t}": _DIA_ARGS for t in ("f32", "f64", "bf16")},
@@ -83,6 +91,9 @@ _lib: ctypes.CDLL | None = None
 # seconds of ``load_library``'s first use: the build where the library is
 # not built yet, then the binding
 library = {"load_s": 0.0}
+# kernel launches by key: the wrapper's name ("dia_sym", "well_ds_spmm",
+# "cg_pap", ...), or (kernel, grid) for the multigrid's
+launches: collections.Counter = collections.Counter()
 
 
 def nvcc_path() -> str:
@@ -152,3 +163,16 @@ def load_library() -> ctypes.CDLL:
         _lib = lib
         library["load_s"] = time.perf_counter() - t0
     return _lib
+
+
+def launch(entry: str, device: torch.device, *args, key, count: int = 1) -> None:
+    """Call the C entry ``entry`` with ``args`` and ``device``'s current
+    stream last; raise if it returns a CUDA error, else count ``count``
+    launches under ``key``."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    launches[key] += count

@@ -39,13 +39,14 @@
 // point reads its line's first points from a line buffer in shared
 // memory); a block barrier ends the step. Bands: where a forward sweep's
 // planes of one parity leave SMs idle, each plane is cut into bands of an
-// even number of lines (band_lines, from the grid's shape alone). A band's
-// last other line needs the next band's first line: the block computes
-// that line too, into shared memory (the "ghost" line), with the same sums
-// as its owner, so the same bits, and never writes it; no block waits on
-// another. A backward sweep is not cut: its update reads the row's own x
-// before the sweep, which the owner of a ghost line may already have
-// overwritten.
+// even number of lines, at least 4: the caller decides the lines of each
+// launch (spmv_torch/ops/symgs_dia_cuda.py) and the entry refuses a band it
+// cannot run. A band's last other line needs the next band's first line:
+// the block computes that line too, into shared memory (the "ghost" line),
+// with the same sums as its owner, so the same bits, and never writes it;
+// no block waits on another. A backward sweep is not cut: its update reads
+// the row's own x before the sweep, which the owner of a ghost line may
+// already have overwritten.
 //
 // Which terms a point reads: those whose neighbour (by the carry
 // arithmetic below, so a diagonal may join different neighbours on
@@ -107,9 +108,6 @@ constexpr int kThreads = 128;       // a block of mg_restrict
 constexpr int kSweepThreads = 256;  // a block of the sweep's full shape
 constexpr int kLanes = 128;         // rows of a DIA tile row (formats/dia.py)
 constexpr int kMaxDiags = 14;       // the 27-point neighbourhood's lower half
-// the H100's SMs, which the band rule fills (ops/symgs_dia_cuda.py mirrors
-// the rule to count the bands)
-constexpr int kSMs = 132;
 
 // one stored diagonal: u = -offset, split into grid steps
 // u = ux + nx * (uy + ny * uz), 0 <= ux < nx, 0 <= uy < ny
@@ -704,17 +702,13 @@ __global__ void __launch_bounds__(kThreads)
   rc[ci] = r[i] - s;
 }
 
-// the lines of a band: a whole plane, but where a forward sweep of short
-// lines has fewer planes of one parity than half the SMs, each plane cut
-// into the most bands (a power of two) that keep the blocks within the
-// SMs, each of an even number of lines and at least 4
-// (ops/symgs_dia_cuda.band_lines mirrors this rule)
-int band_lines(const Grid& g, int planes, bool forward) {
-  if (!forward || g.nx > 2 * kSweepThreads) return g.ny;
-  int bands = 1;
-  while (2 * bands * planes <= kSMs && g.ny >= 8 * bands) bands *= 2;
-  if (bands == 1) return g.ny;
-  return 2 * ((g.ny + 2 * bands - 1) / (2 * bands));
+// whether a launch runs correctly with ``band`` lines a block: a whole
+// plane, or a cut of a forward sweep of short lines into bands of an even
+// number of lines, at least 4 (a backward sweep's ghost line would read x
+// its owner may have overwritten; a long line has no ghost line)
+bool band_ok(const Grid& g, int band, bool forward) {
+  return band == g.ny || (forward && g.nx <= 2 * kSweepThreads && band >= 4 &&
+                          band % 2 == 0 && band < g.ny);
 }
 
 // one launch: planes of parity pz, ``band`` lines a block
@@ -735,9 +729,11 @@ cudaError_t launch_planes(const T* data, const T* r, T* x, const T* w_in,
   return cudaGetLastError();
 }
 
+// bands: the lines a block of each launch, in launch order
 template <typename T, bool kForward>
 cudaError_t sweep(const T* data, const T* r, T* x, const T* w_in, T* w_out,
-                  const Step* table, int k, Grid g, cudaStream_t stream) {
+                  const Step* table, int k, Grid g, const int* bands,
+                  cudaStream_t stream) {
   // where nx, ny >= 3 the couplings inside a plane are the last
   // kPlaneWindow stored diagonals, and the rest join planes
   const bool split = g.nx >= 3 && g.ny >= 3;
@@ -745,7 +741,7 @@ cudaError_t sweep(const T* data, const T* r, T* x, const T* w_in, T* w_out,
     const int pz = kForward ? step : 1 - step;
     const int planes = (g.nz - pz + 1) / 2;
     if (planes == 0) continue;
-    const int band = band_lines(g, planes, kForward);
+    const int band = bands[step];
     const unsigned blocks = (unsigned)(planes * ((g.ny + band - 1) / band));
     const bool long_lines = g.nx > 2 * kSweepThreads;
     // the first launch reads no other plane; the second adds the far terms
@@ -769,18 +765,21 @@ cudaError_t sweep(const T* data, const T* r, T* x, const T* w_in, T* w_out,
 template <typename T>
 int symgs_entry(const void* data, const void* r, void* x, const void* w_in,
                 void* w_out, const void* table, int k, int nx, int ny, int nz,
-                int forward, void* stream) {
-  if (k < 1 || k > kMaxDiags) return (int)cudaErrorInvalidValue;
+                int forward, int band0, int band1, void* stream) {
+  const Grid g{nx, ny, nz};
+  const int bands[2] = {band0, band1};
+  if (k < 1 || k > kMaxDiags || !band_ok(g, band0, forward) ||
+      !band_ok(g, band1, forward))
+    return (int)cudaErrorInvalidValue;
   const T* d = static_cast<const T*>(data);
   const T* rv = static_cast<const T*>(r);
   T* xv = static_cast<T*>(x);
   const T* wi = static_cast<const T*>(w_in);
   T* wo = static_cast<T*>(w_out);
   const Step* t = static_cast<const Step*>(table);
-  const Grid g{nx, ny, nz};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(forward ? sweep<T, true>(d, rv, xv, wi, wo, t, k, g, s)
-                       : sweep<T, false>(d, rv, xv, wi, wo, t, k, g, s));
+  return (int)(forward ? sweep<T, true>(d, rv, xv, wi, wo, t, k, g, bands, s)
+                       : sweep<T, false>(d, rv, xv, wi, wo, t, k, g, bands, s));
 }
 
 template <typename T>
@@ -803,15 +802,15 @@ int restrict_entry(const void* data, const void* r, const void* x, void* rc,
 extern "C" {
 int symgs_dia_f32(const void* data, const void* r, void* x, const void* w_in,
                   void* w_out, const void* table, int k, int nx, int ny, int nz,
-                  int forward, void* stream) {
+                  int forward, int band0, int band1, void* stream) {
   return symgs_entry<float>(data, r, x, w_in, w_out, table, k, nx, ny, nz,
-                            forward, stream);
+                            forward, band0, band1, stream);
 }
 int symgs_dia_f64(const void* data, const void* r, void* x, const void* w_in,
                   void* w_out, const void* table, int k, int nx, int ny, int nz,
-                  int forward, void* stream) {
+                  int forward, int band0, int band1, void* stream) {
   return symgs_entry<double>(data, r, x, w_in, w_out, table, k, nx, ny, nz,
-                             forward, stream);
+                             forward, band0, band1, stream);
 }
 int mg_restrict_f32(const void* data, const void* r, const void* x, void* rc,
                     const void* table, int k, int nx, int ny, int nz,

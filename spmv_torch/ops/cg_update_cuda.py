@@ -18,8 +18,8 @@ taken flat, contiguous and of one real dtype (float32 or float64), so the
 dots run over every stacked shard at once.
 
 A CPU tensor takes the plain torch version (the torch loop's arithmetic,
-op for op); a CUDA tensor launches the kernel or raises. ``launches``
-counts kernel launches by kernel (none on the plain path).
+op for op); a CUDA tensor launches the kernel or raises, counted in
+``_build.launches`` under the kernel's name.
 """
 from __future__ import annotations
 
@@ -27,19 +27,14 @@ import dataclasses
 
 import torch
 
+from spmv_torch import _build
+
 DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 # the slots of the scalar buffer (csrc/cg_update.cu: kRho .. kFlag)
 RHO, ALPHA, BETA, RNORM0, FLAG = range(5)
 THREADS = 256              # a kernel block
 THREADS_PER_SM = 2048      # the most an SM holds, so partials enough for
 #                            every block resident at once
-
-launches = {"cg_pap": 0, "cg_update_r": 0, "cg_update_xp": 0}
-
-
-def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
 
 
 @dataclasses.dataclass
@@ -86,18 +81,9 @@ def _check(ws: Workspace, *vecs: torch.Tensor) -> None:
                              f"{[(tuple(t.shape), t.is_contiguous()) for t in vecs]}")
 
 
-def _launch(name: str, ws: Workspace, args: tuple) -> None:
-    from spmv_torch._build import load_library
-
-    lib = load_library()
-    entry = f"{name}_{DTYPES[ws.scalars.dtype]}"
-    dev = ws.scalars.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
-    launches[name] += 1
+def _launch(name: str, ws: Workspace, *args) -> None:
+    _build.launch(f"{name}_{DTYPES[ws.scalars.dtype]}", ws.scalars.device, *args,
+                  key=name)
 
 
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -132,9 +118,8 @@ def cg_pap(p: torch.Tensor, ap: torch.Tensor, ws: Workspace) -> None:
     _check(ws, p, ap)
     if p.device.type == "cpu":
         return cg_pap_plain(p, ap, ws)
-    _launch("cg_pap", ws, (p.data_ptr(), ap.data_ptr(), p.numel(),
-                           ws.scalars.data_ptr(), ws.partials.data_ptr(),
-                           ws.ticket.data_ptr(), ws.partials.numel()))
+    _launch("cg_pap", ws, p.data_ptr(), ap.data_ptr(), p.numel(), ws.scalars.data_ptr(),
+            ws.partials.data_ptr(), ws.ticket.data_ptr(), ws.partials.numel())
 
 
 def cg_update_r(r: torch.Tensor, ap: torch.Tensor, ws: Workspace,
@@ -143,10 +128,9 @@ def cg_update_r(r: torch.Tensor, ap: torch.Tensor, ws: Workspace,
     _check(ws, r, ap)
     if r.device.type == "cpu":
         return cg_update_r_plain(r, ap, ws, rtol)
-    _launch("cg_update_r", ws, (r.data_ptr(), ap.data_ptr(), r.numel(),
-                                ws.scalars.data_ptr(), ws.partials.data_ptr(),
-                                ws.ticket.data_ptr(), ws.partials.numel(),
-                                float(rtol)))
+    _launch("cg_update_r", ws, r.data_ptr(), ap.data_ptr(), r.numel(),
+            ws.scalars.data_ptr(), ws.partials.data_ptr(), ws.ticket.data_ptr(),
+            ws.partials.numel(), float(rtol))
 
 
 def cg_update_xp(x: torch.Tensor, p: torch.Tensor, r: torch.Tensor,
@@ -155,6 +139,5 @@ def cg_update_xp(x: torch.Tensor, p: torch.Tensor, r: torch.Tensor,
     _check(ws, x, p, r)
     if x.device.type == "cpu":
         return cg_update_xp_plain(x, p, r, ws)
-    _launch("cg_update_xp", ws, (x.data_ptr(), p.data_ptr(), r.data_ptr(),
-                                 x.numel(), ws.scalars.data_ptr(),
-                                 ws.partials.numel()))
+    _launch("cg_update_xp", ws, x.data_ptr(), p.data_ptr(), r.data_ptr(), x.numel(),
+            ws.scalars.data_ptr(), ws.partials.numel())

@@ -6,8 +6,8 @@ nrhs > 1. D stacked shards take one launch; blocks stay in the SpMM lane
 layout (rows, nrhs*128).
 
 A CPU tensor takes the plain torch version (``ops/spmm_dia.py``); a CUDA
-tensor launches the kernel or raises. ``launches`` counts kernel launches
-(one per call on a CUDA tensor, none on the plain path). ``dia_spmm`` is
+tensor launches the kernel or raises, counted in ``_build.launches`` under
+"dia_spmm" and "dia_sym_spmm". ``dia_spmm`` is
 the tile kernel of ``csrc/dia_window.cuh`` and reads its window plan
 (``spmv_dia_cuda.window_plan``, one per offsets, nrhs and dtype, kept on
 the card); ``dia_sym_spmm`` runs the kernel ``spmv_dia_cuda.route``
@@ -19,13 +19,6 @@ import torch
 
 from spmv_torch.ops.spmm_dia import spmm_dia_stacked_plain
 from spmv_torch.ops.spmv_dia_cuda import _check, launch, route
-
-launches = {"dia_spmm": 0, "dia_sym_spmm": 0}
-
-
-def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
 
 
 def spmm_dia_stacked(data: torch.Tensor, x2: torch.Tensor,
@@ -39,7 +32,5 @@ def spmm_dia_stacked(data: torch.Tensor, x2: torch.Tensor,
     if x2.device.type != "cuda":
         raise RuntimeError(f"no DIA SpMM kernel for device {x2.device}")
     offsets = tuple(offsets)
-    y2 = launch(route(offsets, symmetric, True, data.dtype), data, x2, offsets, symmetric,
-                True)
-    launches["dia_sym_spmm" if symmetric else "dia_spmm"] += 1
-    return y2
+    return launch(route(offsets, symmetric, True, data.dtype), data, x2, offsets,
+                  symmetric, True)

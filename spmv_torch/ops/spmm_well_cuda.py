@@ -8,26 +8,20 @@ stacked shards take one launch; blocks stay in the SpMM lane layout
 (rows, nrhs*128), hi/lo float32 pairs for DS.
 
 A CPU tensor takes the plain torch version (``ops/spmm_well.py``); a CUDA
-tensor launches the kernel or raises. ``launches`` counts kernel launches
-(one per call on a CUDA tensor, none on the plain path).
+tensor launches the kernel or raises, counted in ``_build.launches`` under
+"well_spmm" and "well_ds_spmm".
 """
 from __future__ import annotations
 
 import torch
 
+from spmv_torch import _build
 from spmv_torch.formats.well import LANES, SLICE
 from spmv_torch.ops.spmm_well import (
     spmm_well_ds_stacked_plain,
     spmm_well_stacked_plain,
 )
 from spmv_torch.ops.spmv_well_cuda import check_rows
-
-launches = {"well_spmm": 0, "well_ds_spmm": 0}
-
-
-def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
 
 
 def spmm_well_stacked(values: torch.Tensor, pos: torch.Tensor,
@@ -47,24 +41,15 @@ def spmm_well_stacked(values: torch.Tensor, pos: torch.Tensor,
         return spmm_well_stacked_plain(values, pos, slice_ptr, w0, x2, tile_groups)
     if x2.device.type != "cuda":
         raise RuntimeError(f"no WELL SpMM kernel for device {x2.device}")
-    from spmv_torch._build import load_library
-
-    lib = load_library()
     nd, ns = slice_ptr.shape[0], slice_ptr.shape[1] - 1
     nrhs = x2.shape[1] // LANES
     y2 = torch.empty((nd * ns * SLICE // LANES, nrhs * LANES), dtype=values.dtype,
                      device=x2.device)
     name = ("well_spmm_" + ("f64" if values.dtype == torch.float64 else "f32")
             + ("_i16" if pos.dtype == torch.int16 else "_i32"))
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        rc = getattr(lib, name)(values.data_ptr(), pos.data_ptr(),
-                                slice_ptr.data_ptr(), w0.data_ptr(), x2.data_ptr(),
-                                y2.data_ptr(), ns, values.shape[1], tile_groups,
-                                col_pad, nrhs, nd, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    launches["well_spmm"] += 1
+    _build.launch(name, x2.device, values.data_ptr(), pos.data_ptr(),
+                  slice_ptr.data_ptr(), w0.data_ptr(), x2.data_ptr(), y2.data_ptr(),
+                  ns, values.shape[1], tile_groups, col_pad, nrhs, nd, key="well_spmm")
     return y2
 
 
@@ -87,23 +72,14 @@ def spmm_well_ds_stacked(values_hi: torch.Tensor, values_lo: torch.Tensor,
                                           xh2, xl2, tile_groups)
     if xh2.device.type != "cuda":
         raise RuntimeError(f"no DS WELL SpMM kernel for device {xh2.device}")
-    from spmv_torch._build import load_library
-
-    lib = load_library()
     nd, ns = slice_ptr.shape[0], slice_ptr.shape[1] - 1
     nrhs = xh2.shape[1] // LANES
     yh = torch.empty((nd * ns * SLICE // LANES, nrhs * LANES), dtype=torch.float32,
                      device=xh2.device)
     yl = torch.empty_like(yh)
     name = "well_ds_spmm_" + ("i16" if pos.dtype == torch.int16 else "i32")
-    with torch.cuda.device(xh2.device):
-        stream = torch.cuda.current_stream(xh2.device).cuda_stream
-        rc = getattr(lib, name)(values_hi.data_ptr(), values_lo.data_ptr(),
-                                pos.data_ptr(), slice_ptr.data_ptr(), w0.data_ptr(),
-                                xh2.data_ptr(), xl2.data_ptr(), yh.data_ptr(),
-                                yl.data_ptr(), ns, values_hi.shape[1], tile_groups,
-                                col_pad, nrhs, nd, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    launches["well_ds_spmm"] += 1
+    _build.launch(name, xh2.device, values_hi.data_ptr(), values_lo.data_ptr(),
+                  pos.data_ptr(), slice_ptr.data_ptr(), w0.data_ptr(), xh2.data_ptr(),
+                  xl2.data_ptr(), yh.data_ptr(), yl.data_ptr(), ns, values_hi.shape[1],
+                  tile_groups, col_pad, nrhs, nd, key="well_ds_spmm")
     return yh, yl

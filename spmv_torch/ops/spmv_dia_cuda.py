@@ -6,9 +6,9 @@ stay in the (rows, 128) lane layout, so repeated applies chain with no data
 movement.
 
 A CPU tensor takes the plain torch version (``ops/spmv_dia.py``); a CUDA
-tensor launches the kernel or raises. ``launches`` counts kernel launches
-(one per call on a CUDA tensor, none on the plain path), so a run can show
-that its path went through the kernels.
+tensor launches the kernel or raises. ``_build.launches`` counts the
+launches under "dia" and "dia_sym" (the block wrappers': "dia_spmm" and
+"dia_sym_spmm"), one per call on a CUDA tensor.
 
 The kernels take float32, float64 and bfloat16 storage (bf16 accumulates
 in float32 and stores y in bf16) and any number of diagonals. ``route``
@@ -29,12 +29,14 @@ import functools
 
 import torch
 
+from spmv_torch import _build
 from spmv_torch.formats.dia import LANES, DiaMatrix
 from spmv_torch.ops.spmv_dia import spmv_dia_stacked_plain
 
 DTYPES = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
-
-launches = {"dia": 0, "dia_sym": 0}
+# the launch counter's key of each (symmetric, block) apply
+KEYS = {(False, False): "dia", (True, False): "dia_sym", (False, True): "dia_spmm",
+        (True, True): "dia_sym_spmm"}
 
 
 @functools.lru_cache(maxsize=256)
@@ -389,29 +391,17 @@ def entry(r: Route, offsets: tuple[int, ...], symmetric: bool, block: bool, nrhs
 def launch(r: Route, data: torch.Tensor, x2: torch.Tensor, offsets: tuple[int, ...],
            symmetric: bool, block: bool) -> torch.Tensor:
     """Launch route ``r`` on CUDA tensors that ``_check`` passed: one launch
-    for all shards (and columns); raises if the launch fails. The wrappers
-    call it with ``route``'s choice and count the launch."""
-    from spmv_torch._build import load_library
-
-    lib = load_library()
+    for all shards (and columns), counted under ``KEYS``; raises if the
+    launch fails. The wrappers call it with ``route``'s choice."""
     nd, nr = data.shape[0], data.shape[1]
     nrhs = x2.shape[1] // LANES
     if r.kernel == "tile" or r.rows_per_thread > 1:
         _check_aligned(data, x2)
     name, args, _ = entry(r, offsets, symmetric, block, nrhs, data.dtype, x2.device)
     y2 = torch.empty_like(x2)
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        rc = getattr(lib, name)(data.data_ptr(), x2.data_ptr(), y2.data_ptr(), nr * LANES,
-                                len(offsets), *args, nd, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    _build.launch(name, x2.device, data.data_ptr(), x2.data_ptr(), y2.data_ptr(),
+                  nr * LANES, len(offsets), *args, nd, key=KEYS[symmetric, block])
     return y2
-
-
-def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
 
 
 def _lanes_ok(lanes: int, block: bool) -> bool:
@@ -466,10 +456,8 @@ def spmv_dia_stacked(
     if x2.device.type != "cuda":
         raise RuntimeError(f"no DIA kernel for device {x2.device}")
     offsets = tuple(offsets)
-    y2 = launch(route(offsets, symmetric, False, data.dtype), data, x2, offsets, symmetric,
-                False)
-    launches["dia_sym" if symmetric else "dia"] += 1
-    return y2
+    return launch(route(offsets, symmetric, False, data.dtype), data, x2, offsets,
+                  symmetric, False)
 
 
 def spmv_dia_2d(a: DiaMatrix, x2: torch.Tensor) -> torch.Tensor:

@@ -8,16 +8,15 @@ stay in the (rows, 128) lane layout, blocks in the SpMM lane layout
 (rows, nrhs*128), as hi/lo float32 pairs.
 
 A CPU tensor takes the plain torch version (``ops/spmv_dia_ds.py``); a CUDA
-tensor launches the kernel or raises. ``launches["dia_ds"]`` and
-``launches["dia_ds_spmm"]`` count kernel launches (one per call on a CUDA
-tensor, none on the plain path), so a run can show that its path went
-through the kernel.
+tensor launches the kernel or raises, counted in ``_build.launches`` under
+"dia_ds" and "dia_ds_spmm".
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from spmv_torch import _build
 from spmv_torch.formats.dia import LANES
 from spmv_torch.ops.spmv_dia_cuda import _lanes_ok
 from spmv_torch.ops.spmv_dia_ds import (
@@ -26,13 +25,6 @@ from spmv_torch.ops.spmv_dia_ds import (
 )
 
 MAX_DIAGS = 64  # SPMV_DIA_DS_MAX_DIAGS / SPMM_DIA_DS_MAX_DIAGS in csrc/
-
-launches = {"dia_ds": 0, "dia_ds_spmm": 0}
-
-
-def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
 
 
 def _check(data_hi, data_lo, xh2, xl2, offsets, block: bool = False) -> None:
@@ -71,21 +63,12 @@ def spmv_dia_ds_stacked(data_hi: torch.Tensor, data_lo: torch.Tensor,
         return spmv_dia_ds_stacked_plain(data_hi, data_lo, xh2, xl2, offsets)
     if xh2.device.type != "cuda":
         raise RuntimeError(f"no DS DIA kernel for device {xh2.device}")
-    from spmv_torch._build import load_library
-
-    lib = load_library()
     nd, nr = data_hi.shape[0], data_hi.shape[1]
     yh, yl = torch.empty_like(xh2), torch.empty_like(xl2)
     offs = np.ascontiguousarray(offsets, dtype=np.int64)
-    with torch.cuda.device(xh2.device):
-        stream = torch.cuda.current_stream(xh2.device).cuda_stream
-        rc = lib.dia_ds_spmv(data_hi.data_ptr(), data_lo.data_ptr(),
-                             xh2.data_ptr(), xl2.data_ptr(), yh.data_ptr(),
-                             yl.data_ptr(), nr * LANES, len(offsets),
-                             offs.ctypes.data, nd, stream)
-    if rc != 0:
-        raise RuntimeError(f"dia_ds_spmv launch failed: CUDA error {rc}")
-    launches["dia_ds"] += 1
+    _build.launch("dia_ds_spmv", xh2.device, data_hi.data_ptr(), data_lo.data_ptr(),
+                  xh2.data_ptr(), xl2.data_ptr(), yh.data_ptr(), yl.data_ptr(),
+                  nr * LANES, len(offsets), offs.ctypes.data, nd, key="dia_ds")
     return yh, yl
 
 
@@ -102,19 +85,11 @@ def spmm_dia_ds_stacked(data_hi: torch.Tensor, data_lo: torch.Tensor,
         return spmm_dia_ds_stacked_plain(data_hi, data_lo, xh2, xl2, offsets)
     if xh2.device.type != "cuda":
         raise RuntimeError(f"no DS DIA SpMM kernel for device {xh2.device}")
-    from spmv_torch._build import load_library
-
-    lib = load_library()
     nd, nr = data_hi.shape[0], data_hi.shape[1]
     yh, yl = torch.empty_like(xh2), torch.empty_like(xl2)
     offs = np.ascontiguousarray(offsets, dtype=np.int64)
-    with torch.cuda.device(xh2.device):
-        stream = torch.cuda.current_stream(xh2.device).cuda_stream
-        rc = lib.dia_ds_spmm(data_hi.data_ptr(), data_lo.data_ptr(),
-                             xh2.data_ptr(), xl2.data_ptr(), yh.data_ptr(),
-                             yl.data_ptr(), nr * LANES, len(offsets),
-                             offs.ctypes.data, xh2.shape[1] // LANES, nd, stream)
-    if rc != 0:
-        raise RuntimeError(f"dia_ds_spmm launch failed: CUDA error {rc}")
-    launches["dia_ds_spmm"] += 1
+    _build.launch("dia_ds_spmm", xh2.device, data_hi.data_ptr(), data_lo.data_ptr(),
+                  xh2.data_ptr(), xl2.data_ptr(), yh.data_ptr(), yl.data_ptr(),
+                  nr * LANES, len(offsets), offs.ctypes.data, xh2.shape[1] // LANES,
+                  nd, key="dia_ds_spmm")
     return yh, yl

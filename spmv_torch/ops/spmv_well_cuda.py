@@ -6,24 +6,17 @@ Counterpart of ``spmv_tpu.ops.spmv_well_pallas``: ``well_spmv`` replaces
 stay in the (rows, 128) lane layout.
 
 A CPU tensor takes the plain torch version (``ops/spmv_well.py``); a CUDA
-tensor launches the kernel or raises. ``launches["well"]`` counts kernel
-launches (one per call on a CUDA tensor, none on the plain path), so a run
-can show that its path went through the kernel.
+tensor launches the kernel or raises, counted in ``_build.launches`` under
+"well".
 """
 from __future__ import annotations
 
 import torch
 
+from spmv_torch import _build
 from spmv_torch.formats.well import LANES, SLICE
 from spmv_torch.ops.spmv_dia_cuda import _lanes_ok
 from spmv_torch.ops.spmv_well import spmv_well_rows_plain
-
-launches = {"well": 0}
-
-
-def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
 
 
 def check_rows(planes, pos, slice_ptr, w0, xs, tile_groups: int,
@@ -82,21 +75,12 @@ def spmv_well_stacked(values: torch.Tensor, pos: torch.Tensor,
         return spmv_well_rows_plain(values, pos, slice_ptr, w0, x2, tile_groups)
     if x2.device.type != "cuda":
         raise RuntimeError(f"no WELL kernel for device {x2.device}")
-    from spmv_torch._build import load_library
-
-    lib = load_library()
     nd, ns = slice_ptr.shape[0], slice_ptr.shape[1] - 1
     y2 = torch.empty((nd * ns * SLICE // LANES, LANES), dtype=values.dtype,
                      device=x2.device)
     name = ("well_spmv_" + ("f64" if values.dtype == torch.float64 else "f32")
             + ("_i16" if pos.dtype == torch.int16 else "_i32"))
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        rc = getattr(lib, name)(values.data_ptr(), pos.data_ptr(),
-                                slice_ptr.data_ptr(), w0.data_ptr(), x2.data_ptr(),
-                                y2.data_ptr(), ns, values.shape[1], tile_groups,
-                                col_pad, nd, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    launches["well"] += 1
+    _build.launch(name, x2.device, values.data_ptr(), pos.data_ptr(),
+                  slice_ptr.data_ptr(), w0.data_ptr(), x2.data_ptr(), y2.data_ptr(),
+                  ns, values.shape[1], tile_groups, col_pad, nd, key="well")
     return y2

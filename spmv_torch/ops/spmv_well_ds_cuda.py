@@ -8,24 +8,17 @@ stacked shards take one launch; vectors stay in the (rows, 128) lane
 layout as hi/lo float32 pairs.
 
 A CPU tensor takes the plain torch version (``ops/spmv_well_ds.py``); a
-CUDA tensor launches the kernel or raises. ``launches["well_ds"]`` counts
-kernel launches (one per call on a CUDA tensor, none on the plain path),
-so a run can show that its path went through the kernel.
+CUDA tensor launches the kernel or raises, counted in ``_build.launches``
+under "well_ds".
 """
 from __future__ import annotations
 
 import torch
 
+from spmv_torch import _build
 from spmv_torch.formats.well import LANES, SLICE
 from spmv_torch.ops.spmv_well_cuda import check_rows
 from spmv_torch.ops.spmv_well_ds import spmv_well_ds_rows_plain
-
-launches = {"well_ds": 0}
-
-
-def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
 
 
 def spmv_well_ds_stacked(values_hi: torch.Tensor, values_lo: torch.Tensor,
@@ -48,22 +41,13 @@ def spmv_well_ds_stacked(values_hi: torch.Tensor, values_lo: torch.Tensor,
                                        xh2, xl2, tile_groups)
     if xh2.device.type != "cuda":
         raise RuntimeError(f"no DS WELL kernel for device {xh2.device}")
-    from spmv_torch._build import load_library
-
-    lib = load_library()
     nd, ns = slice_ptr.shape[0], slice_ptr.shape[1] - 1
     yh = torch.empty((nd * ns * SLICE // LANES, LANES), dtype=torch.float32,
                      device=xh2.device)
     yl = torch.empty_like(yh)
     name = "well_ds_spmv_" + ("i16" if pos.dtype == torch.int16 else "i32")
-    with torch.cuda.device(xh2.device):
-        stream = torch.cuda.current_stream(xh2.device).cuda_stream
-        rc = getattr(lib, name)(values_hi.data_ptr(), values_lo.data_ptr(),
-                                pos.data_ptr(), slice_ptr.data_ptr(), w0.data_ptr(),
-                                xh2.data_ptr(), xl2.data_ptr(), yh.data_ptr(),
-                                yl.data_ptr(), ns, values_hi.shape[1], tile_groups,
-                                col_pad, nd, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    launches["well_ds"] += 1
+    _build.launch(name, xh2.device, values_hi.data_ptr(), values_lo.data_ptr(),
+                  pos.data_ptr(), slice_ptr.data_ptr(), w0.data_ptr(), xh2.data_ptr(),
+                  xl2.data_ptr(), yh.data_ptr(), yl.data_ptr(), ns, values_hi.shape[1],
+                  tile_groups, col_pad, nd, key="well_ds")
     return yh, yl

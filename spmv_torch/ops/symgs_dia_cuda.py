@@ -21,11 +21,13 @@ of the block's dtype and at least n = nx ny nz long (the lane layout's
 padding is neither read nor written).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. ``launches`` counts kernel launches by (kernel, grid), so by
-multigrid level (none on the plain path): ``("symgs_planes", grid)`` the
-sweep's, ``("restrict", grid)`` the restriction's. ``bands`` counts the
-sweep's launches by (grid, bands a plane), so a run shows how each level's
-shape cut its planes.
+raises, counted in ``_build.launches`` by (kernel, grid), so by multigrid
+level: ``("symgs_planes", grid)`` the sweep's, ``("restrict", grid)`` the
+restriction's. How a sweep cuts its planes into bands is decided here
+(``band_lines``), and the kernel takes the band lines of each launch;
+``bands`` counts the sweep's launches by (grid, bands a plane) from the
+lines passed, so a run shows how each level's shape cut its planes. Its
+reader clears it.
 """
 from __future__ import annotations
 
@@ -34,24 +36,18 @@ import functools
 
 import torch
 
+from spmv_torch import _build
 from spmv_torch.formats.dia import LANES
 from spmv_torch.ops.symgs_dia import restrict_residual_plain, symgs_sweep_plain
 
 DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 MAX_DIAGS = 14   # csrc/symgs_dia.cu: kMaxDiags, the 27-point stencil's lower half
-# csrc/symgs_dia.cu's kSweepThreads (the block of the sweep's full shape:
-# lines of more than twice as many points are long, and never cut) and
-# kSMs (the H100's SMs), which its band rule reads
+# must equal csrc/symgs_dia.cu's kSweepThreads, the block of the sweep's
+# full shape: lines of more than twice as many points are long, and never cut
 SWEEP_THREADS = 256
-SMS = 132
+SMS = 132  # the H100's SMs, which the band rule fills
 
-launches: collections.Counter = collections.Counter()
 bands: collections.Counter = collections.Counter()
-
-
-def reset_launches() -> None:
-    launches.clear()
-    bands.clear()
 
 
 def steps(offsets: tuple[int, ...], grid: tuple[int, int, int]
@@ -81,8 +77,8 @@ def band_lines(grid: tuple[int, int, int], planes: int, forward: bool) -> int:
     cut into the most bands (a power of two) that keep the blocks within
     the SMs, each of an even number of lines and at least 4. A backward
     sweep is never cut (its update reads the row's x before the sweep,
-    which a band beside may have overwritten). csrc/symgs_dia.cu's
-    ``band_lines``, the same rule."""
+    which a band beside may have overwritten). The sweep kernel takes it
+    and refuses a band it cannot run."""
     nx, ny, _ = grid
     if not forward or nx > 2 * SWEEP_THREADS:
         return ny
@@ -92,17 +88,19 @@ def band_lines(grid: tuple[int, int, int], planes: int, forward: bool) -> int:
     return ny if b == 1 else 2 * -(-ny // (2 * b))
 
 
-def sweep_bands(grid: tuple[int, int, int], forward: bool) -> list[int]:
-    """Bands a plane of each launch of one sweep direction on the card, in
+def sweep_lines(grid: tuple[int, int, int], forward: bool) -> list[int]:
+    """Lines a band of each launch of one sweep direction on the card, in
     launch order: the even planes then the odd forward, the odd then the
     even backward (a parity without planes takes no launch)."""
-    _, ny, nz = grid
-    out = []
-    for pz in ((0, 1) if forward else (1, 0)):
-        planes = (nz - pz + 1) // 2
-        if planes:
-            out.append(-(-ny // band_lines(grid, planes, forward)))
-    return out
+    nz = grid[2]
+    return [band_lines(grid, (nz - pz + 1) // 2, forward)
+            for pz in ((0, 1) if forward else (1, 0)) if (nz - pz + 1) // 2]
+
+
+def sweep_bands(grid: tuple[int, int, int], forward: bool) -> list[int]:
+    """Bands a plane of each launch of one sweep direction on the card, in
+    launch order."""
+    return [-(-grid[1] // lines) for lines in sweep_lines(grid, forward)]
 
 
 def sweep_launches(grid: tuple[int, int, int]) -> int:
@@ -136,21 +134,6 @@ def _check(data: torch.Tensor, offsets, grid, *vecs: torch.Tensor) -> None:
             raise ValueError("SymGS takes contiguous vectors")
 
 
-def _launch(name: str, entry: str, data: torch.Tensor, grid, args: tuple,
-            count: int) -> None:
-    from spmv_torch._build import load_library
-
-    lib = load_library()
-    fn = f"{entry}_{DTYPES[data.dtype]}"
-    dev = data.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
-    launches[name, tuple(grid)] += count
-
-
 def symgs_sweep(data: torch.Tensor, offsets: tuple[int, ...],
                 grid: tuple[int, int, int], r: torch.Tensor, x: torch.Tensor,
                 forward: bool, w_in: torch.Tensor | None = None,
@@ -168,16 +151,17 @@ def symgs_sweep(data: torch.Tensor, offsets: tuple[int, ...],
     _check(data, offsets, grid, *vecs)
     if x.device.type == "cpu":
         return symgs_sweep_plain(data, offsets, grid, r, x, forward, w_in, w_out)
-    table = device_steps(tuple(offsets), tuple(grid), x.device)
-    cut = sweep_bands(tuple(grid), forward)
-    _launch("symgs_planes", "symgs_dia", data, grid,
-            (data.data_ptr(), r.data_ptr(), x.data_ptr(),
-             None if w_in is None else w_in.data_ptr(),
-             None if w_out is None else w_out.data_ptr(), table.data_ptr(),
-             len(offsets), nx, ny, nz, int(forward)),
-            len(cut))
-    for b in cut:
-        bands[tuple(grid), b] += 1
+    grid = tuple(grid)
+    table = device_steps(tuple(offsets), grid, x.device)
+    lines = sweep_lines(grid, forward)
+    first, second = (lines + [ny])[:2]  # nz = 1: one launch, the second's unread
+    _build.launch(f"symgs_dia_{DTYPES[data.dtype]}", x.device, data.data_ptr(),
+                  r.data_ptr(), x.data_ptr(), None if w_in is None else w_in.data_ptr(),
+                  None if w_out is None else w_out.data_ptr(), table.data_ptr(),
+                  len(offsets), nx, ny, nz, int(forward), first, second,
+                  key=("symgs_planes", grid), count=len(lines))
+    for n in lines:
+        bands[grid, -(-ny // n)] += 1
 
 
 def restrict_residual(data: torch.Tensor, offsets: tuple[int, ...],
@@ -193,6 +177,6 @@ def restrict_residual(data: torch.Tensor, offsets: tuple[int, ...],
     if x.device.type == "cpu":
         return restrict_residual_plain(data, offsets, grid, r, x, rc)
     table = device_steps(tuple(offsets), tuple(grid), x.device)
-    _launch("restrict", "mg_restrict", data, grid,
-            (data.data_ptr(), r.data_ptr(), x.data_ptr(), rc.data_ptr(),
-             table.data_ptr(), len(offsets), nx, ny, nz), 1)
+    _build.launch(f"mg_restrict_{DTYPES[data.dtype]}", x.device, data.data_ptr(),
+                  r.data_ptr(), x.data_ptr(), rc.data_ptr(), table.data_ptr(),
+                  len(offsets), nx, ny, nz, key=("restrict", tuple(grid)))

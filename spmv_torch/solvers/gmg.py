@@ -30,7 +30,7 @@ Under a torch profiler an apply records ``spmv_torch.mg``, each SymGS
 ``spmv_torch.mg.smooth`` and each restriction or prolongation
 ``spmv_torch.mg.transfer``. ``sweeps`` counts, over the process and by
 level (0 the finest), the sweep directions run; the kernels' launches are
-``symgs_dia_cuda.launches``, by kernel and grid, and the bands each sweep
+in ``_build.launches``, by kernel and grid, and the bands each sweep
 launch cut its planes into ``symgs_dia_cuda.bands`` (none on the plain
 path).
 """

@@ -21,8 +21,8 @@ from spmv_tpu.solvers import block_cg as ref_block
 
 import spmv_torch.formats.csr as pt_csr
 import spmv_torch.gen as pt_gen
+from spmv_torch import _build
 from spmv_torch.formats.dia import csr_to_dia
-from spmv_torch.ops import spmm_dia_cuda, spmm_well_cuda, spmv_dia_ds_cuda
 from spmv_torch.ops.spmm_dia import spmm_from_layout, spmm_to_layout
 from spmv_torch.parallel.dist_matrix import build_dist_matrix
 from spmv_torch.solvers.block_cg import (
@@ -44,13 +44,12 @@ def _one_thread():
 
 @pytest.fixture(autouse=True)
 def _no_launches():
-    for mod in (spmm_dia_cuda, spmm_well_cuda, spmv_dia_ds_cuda):
-        mod.reset_launches()
+    _build.launches.clear()
     yield
     # CPU tensors take the plain versions: nothing launches
-    assert spmm_dia_cuda.launches == {"dia_spmm": 0, "dia_sym_spmm": 0}
-    assert spmm_well_cuda.launches == {"well_spmm": 0, "well_ds_spmm": 0}
-    assert spmv_dia_ds_cuda.launches["dia_ds_spmm"] == 0
+    assert _build.launches["dia_spmm"] == _build.launches["dia_sym_spmm"] == 0
+    assert _build.launches["well_spmm"] == _build.launches["well_ds_spmm"] == 0
+    assert _build.launches["dia_ds_spmm"] == 0
 
 
 def _lap(nx, ny=None):

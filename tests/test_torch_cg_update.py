@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from spmv_torch import _build
 from spmv_torch.gen import create_laplace_2d
 from spmv_torch.ops import cg_update_cuda
 from spmv_torch.parallel.dist_matrix import build_dist_matrix
@@ -45,9 +46,14 @@ def cuda():
 
 @pytest.fixture(autouse=True)
 def _fresh_counters():
-    cg_update_cuda.reset_launches()
+    _build.launches.clear()
     yield
-    cg_update_cuda.reset_launches()
+    _build.launches.clear()
+
+
+def _launched() -> dict:
+    """The CG update kernels' launches since the fixture cleared them."""
+    return {k: _build.launches[k] for k in ("cg_pap", "cg_update_r", "cg_update_xp")}
 
 
 def _operator(n: int, dt, nd: int, device):
@@ -120,7 +126,7 @@ def test_plain_versions_repeat_the_torch_loop(dt, shape, rtol):
     assert bool(ws.flag) == bool(flag) == (rtol < 1.0)
     for got, want in ((x, x_want), (r, r_want), (p, p_want)):
         assert torch.equal(got, want)
-    assert sum(cg_update_cuda.launches.values()) == 0
+    assert sum(_launched().values()) == 0
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -167,7 +173,7 @@ def test_cpu_solves_take_the_torch_loop(case):
     assert res.iterations >= 1
     assert cg_module.iterations["fused"] == before["fused"]
     assert cg_module.iterations["plain"] == before["plain"] + res.iterations
-    assert sum(cg_update_cuda.launches.values()) == 0
+    assert sum(_launched().values()) == 0
 
 
 # --- on the card ------------------------------------------------------------
@@ -185,7 +191,7 @@ def test_fused_loop_matches_the_torch_loop_on_cuda(cuda, n, dt, nd, case):
     k = sum(f.iterations for f in fused)
     assert cg_module.iterations["fused"] == its["fused"] + k
     assert cg_module.iterations["plain"] == its["plain"]
-    assert cg_update_cuda.launches == {"cg_pap": k, "cg_update_r": k,
+    assert _launched() == {"cg_pap": k, "cg_update_r": k,
                                        "cg_update_xp": k}
     plain = _solve(_plain, A, b, x0, case)
     again = _solve(cg_module.cg, A, b, x0, case)
@@ -228,7 +234,7 @@ def test_update_kernels_match_plain_on_cuda(cuda, dt, n, offset):
     cg_update_cuda.cg_pap_plain(pp, app, ws_p)
     cg_update_cuda.cg_update_r_plain(rp, app, ws_p, 0.3)
     torch.cuda.synchronize()
-    assert cg_update_cuda.launches == {"cg_pap": 1, "cg_update_r": 1, "cg_update_xp": 1}
+    assert _launched() == {"cg_pap": 1, "cg_update_r": 1, "cg_update_xp": 1}
     sk, sp = ws_k.scalars.double(), ws_p.scalars.double()
     tol = 1e-5 if dt == np.float32 else 1e-12
     for slot in (cg_update_cuda.ALPHA, cg_update_cuda.RHO, cg_update_cuda.BETA):
@@ -254,7 +260,7 @@ def test_card_solves_route_by_dtype_and_preconditioner(cuda):
     assert cg_module.iterations["fused"] == before["fused"]
     assert cg_module.iterations["plain"] == (before["plain"] + res.iterations
                                              + res16.iterations)
-    assert sum(cg_update_cuda.launches.values()) == 0
+    assert sum(_launched().values()) == 0
     res32 = cg_module.cg(lambda v: 2 * v, b16.float(), kmax=5)
     assert cg_module.iterations["fused"] == before["fused"] + res32.iterations
-    assert cg_update_cuda.launches["cg_pap"] == res32.iterations >= 1
+    assert _build.launches["cg_pap"] == res32.iterations >= 1

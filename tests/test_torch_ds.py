@@ -28,6 +28,7 @@ from spmv_tpu.ops import spmv_well_pallas as ref_well
 
 import spmv_torch.ds as pt_ds
 import spmv_torch.gen as pt_gen
+from spmv_torch import _build
 from spmv_torch.ops import spmv_dia_ds_cuda, spmv_well_ds_cuda
 from spmv_torch.ops.spmv_dia_ds import (
     csr_to_dia_ds,
@@ -303,8 +304,7 @@ def test_well_ds_f64_class():
 
 
 def test_wrappers_take_plain_path_on_cpu():
-    spmv_dia_ds_cuda.reset_launches()
-    spmv_well_ds_cuda.reset_launches()
+    _build.launches.clear()
     _, pt, rng = _dia_pair("lap2d")
     d = csr_to_dia_ds(pt, row_align=1024, device="cpu")
     xh2, xl2 = map(torch.from_numpy, _lanes(rng.standard_normal(d.nrows_pad)))
@@ -319,8 +319,8 @@ def test_wrappers_take_plain_path_on_cpu():
         w.values_hi.unsqueeze(0), w.values_lo.unsqueeze(0), w.pos.unsqueeze(0),
         w.w0.unsqueeze(0), xh2, xl2, w.tile_groups)
     assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
-    assert spmv_dia_ds_cuda.launches == {"dia_ds": 0, "dia_ds_spmm": 0}
-    assert spmv_well_ds_cuda.launches == {"well_ds": 0}
+    assert _build.launches["dia_ds"] == _build.launches["dia_ds_spmm"] == 0
+    assert _build.launches["well_ds"] == 0
 
 
 def _dia_inputs():
@@ -386,4 +386,4 @@ def test_well_ds_wrapper_rejects_bad_input(case, exc):
         ptr = ptr[:, :-2].contiguous()
     with pytest.raises(exc):
         spmv_well_ds_cuda.spmv_well_ds_stacked(vh, vl, pos, ptr, w0, xh, xl, tg)
-    assert spmv_well_ds_cuda.launches["well_ds"] == 0
+    assert _build.launches["well_ds"] == 0

@@ -10,6 +10,7 @@ preconditioned solve against the CPU's.
 """
 from __future__ import annotations
 
+import collections
 import os
 import sys
 import types
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from spmv_torch import _build
 from spmv_torch.gen import hpcg_27pt
 from spmv_torch.ops import symgs_dia, symgs_dia_cuda
 from spmv_torch.parallel.dist_matrix import build_dist_matrix
@@ -209,7 +211,8 @@ def test_counters_and_spans_of_one_apply():
     A, mg = _mg()
     b = A.to_dist(_load(A.nrows_global))
     before = dict(gmg.sweeps)
-    symgs_dia_cuda.reset_launches()
+    _build.launches.clear()
+    symgs_dia_cuda.bands.clear()
     profiling.record.clear()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         mg.apply(b)
@@ -223,7 +226,7 @@ def test_counters_and_spans_of_one_apply():
     assert {k: gmg.sweeps[k] - before.get(k, 0) for k in range(LEVELS)} == {
         0: 4, 1: 4, 2: 4, 3: 2}
     # the plain path launches nothing
-    assert not symgs_dia_cuda.launches and not symgs_dia_cuda.bands
+    assert not _build.launches and not symgs_dia_cuda.bands
 
 
 @pytest.fixture
@@ -299,6 +302,9 @@ def test_launches_and_bands_follow_the_grid(grid, forward_bands, lines):
     assert launches == (1 if nz == 1 else 2) == len(forward_bands)
     assert symgs_dia_cuda.sweep_bands(grid, True) == forward_bands
     assert symgs_dia_cuda.sweep_bands(grid, False) == [1] * launches
+    # the lines of each launch, which the kernel takes
+    assert symgs_dia_cuda.sweep_lines(grid, True) == lines
+    assert symgs_dia_cuda.sweep_lines(grid, False) == [ny] * launches
     for pz, (b, h) in enumerate(zip(forward_bands, lines)):
         planes = (nz - pz + 1) // 2
         assert symgs_dia_cuda.band_lines(grid, planes, True) == h
@@ -322,13 +328,25 @@ def test_a_v_cycle_of_hpcg_256_launches_28_sweeps():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [np.float64, np.float32])
 @pytest.mark.parametrize("grid", CARD_GRIDS)
-def test_kernels_match_plain_on_the_card(cuda, dt, grid):
+def test_kernels_match_plain_on_the_card(cuda, dt, grid, monkeypatch):
     A = build_dist_matrix(hpcg_27pt(*grid), n_devices=1, symmetric=True,
                           dtype=dt, local_format="dia", device=cuda)
     data, offs = A.local_dia_data[0], A.dia_offsets
     n = A.nrows_global
     b = A.to_dist(_load(n).astype(dt))
-    symgs_dia_cuda.reset_launches()
+    # the band lines each sweep passes to the kernel, in bands a plane
+    passed = collections.Counter()
+    launch = _build.launch
+
+    def spy(entry, device, *args, key, count=1):
+        if entry.startswith("symgs_dia_"):
+            for lines in args[-2:][:count]:
+                passed[grid, -(-grid[1] // lines)] += 1
+        launch(entry, device, *args, key=key, count=count)
+
+    monkeypatch.setattr(_build, "launch", spy)
+    _build.launches.clear()
+    symgs_dia_cuda.bands.clear()
     x, wx = torch.zeros_like(b), torch.zeros_like(b)
     y, wy = torch.zeros_like(b), torch.zeros_like(b)
     lv = types.SimpleNamespace(data=data, grid=grid)
@@ -343,11 +361,11 @@ def test_kernels_match_plain_on_the_card(cuda, dt, grid):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
         torch.testing.assert_close(wx, wy, rtol=0, atol=0)
     # 2 SymGS, 2 sweep directions each, sweep_launches a direction
-    assert symgs_dia_cuda.launches["symgs_planes", grid] == \
+    assert _build.launches["symgs_planes", grid] == \
         4 * symgs_dia_cuda.sweep_launches(grid)
     cut = [b for forward in (True, False)
            for b in symgs_dia_cuda.sweep_bands(grid, forward)]
-    assert dict(symgs_dia_cuda.bands) == {
+    assert dict(symgs_dia_cuda.bands) == dict(passed) == {
         (grid, b): 2 * cut.count(b) for b in set(cut)}
     if all(v % 2 == 0 for v in grid):
         rc = torch.zeros_like(b)
@@ -355,7 +373,36 @@ def test_kernels_match_plain_on_the_card(cuda, dt, grid):
         symgs_dia_cuda.restrict_residual(data, offs, grid, b, x, rc)
         symgs_dia.restrict_residual_plain(data, offs, grid, b, x, rc2)
         torch.testing.assert_close(rc, rc2, rtol=0, atol=0)
-        assert symgs_dia_cuda.launches["restrict", grid] == 1
+        assert _build.launches["restrict", grid] == 1
+
+
+# bands the sweep kernel cannot run: (grid, forward, lines of each launch)
+BAD_BANDS = {
+    "odd": ((16, 16, 16), True, (5, 16)),
+    "under 4": ((16, 16, 16), True, (16, 2)),
+    "backward": ((16, 16, 16), False, (8, 16)),
+    "long lines": ((1100, 8, 4), True, (4, 4)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BAD_BANDS)
+def test_sweep_kernel_refuses_a_band_it_cannot_run(cuda, case):
+    grid, forward, lines = BAD_BANDS[case]
+    A = build_dist_matrix(hpcg_27pt(*grid), n_devices=1, symmetric=True,
+                          local_format="dia", device=cuda)
+    data, offs = A.local_dia_data[0], A.dia_offsets
+    b = A.to_dist(_load(A.nrows_global))
+    x = torch.zeros_like(b)
+    table = symgs_dia_cuda.device_steps(tuple(offs), grid, cuda)
+    _build.launches.clear()
+    with pytest.raises(RuntimeError, match="symgs_dia_f64 launch failed"):
+        _build.launch("symgs_dia_f64", cuda, data.data_ptr(), b.data_ptr(),
+                      x.data_ptr(), None, None, table.data_ptr(), len(offs), *grid,
+                      int(forward), *lines, key=("symgs_planes", grid), count=2)
+    torch.cuda.synchronize()
+    assert not _build.launches
+    assert not torch.any(x)
 
 
 @pytest.mark.cuda
@@ -365,7 +412,7 @@ def test_preconditioned_set_on_the_card_is_the_cpus(cuda):
         A, mg = _mg(device=device)
         b = A.to_dist(_load(A.nrows_global))
         before = dict(gmg.sweeps)
-        symgs_dia_cuda.reset_launches()
+        _build.launches.clear()
         res = cg_module.cg(A.matvec, b, kmax=50, rtol=0.0,
                            preconditioner=mg.as_preconditioner())
         got.append(res.x.cpu())
@@ -375,5 +422,5 @@ def test_preconditioned_set_on_the_card_is_the_cpus(cuda):
     for k, lv in enumerate(mg.levels):
         swept = gmg.sweeps[k] - before.get(k, 0)
         assert swept > 0
-        assert symgs_dia_cuda.launches["symgs_planes", lv.grid] == \
+        assert _build.launches["symgs_planes", lv.grid] == \
             swept * symgs_dia_cuda.sweep_launches(lv.grid)

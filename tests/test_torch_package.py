@@ -9,11 +9,14 @@ neither jax nor spmv_tpu. On a machine without jax, run this file with
 ``--noconftest`` (``tests/conftest.py`` imports jax).
 """
 import ast
+import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -49,9 +52,6 @@ from spmv_torch.ops.spmv_well_ds import (
     spmv_well_ds_stacked_plain,
 )
 
-COUNTERS = (spmv_dia_cuda, spmv_well_cuda, spmv_dia_ds_cuda, spmv_well_ds_cuda,
-            spmm_dia_cuda, spmm_well_cuda)
-
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "spmv_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
@@ -67,11 +67,9 @@ def cuda():
 
 @pytest.fixture(autouse=True)
 def _fresh_counters():
-    for mod in COUNTERS:
-        mod.reset_launches()
+    _build.launches.clear()
     yield
-    for mod in COUNTERS:
-        mod.reset_launches()
+    _build.launches.clear()
 
 
 def _env_with_repo():
@@ -127,7 +125,7 @@ def test_wrapper_takes_plain_path_on_cpu(symmetric, dtype):
     assert torch.equal(y, want)
     y2 = spmv_dia_cuda.spmv_dia_2d(d, x.view(-1, 128))
     assert torch.equal(y2.view(-1), want)
-    assert spmv_dia_cuda.launches == {"dia": 0, "dia_sym": 0}
+    assert _build.launches["dia"] == _build.launches["dia_sym"] == 0
 
 
 def _inputs(dtype=torch.float32, k=3, nd=2, nr=4):
@@ -172,7 +170,7 @@ def test_wrapper_rejects_bad_input(case, exc):
         x2 = torch.zeros((128, 8), dtype=data.dtype).t()
     with pytest.raises(exc):
         spmv_dia_cuda.spmv_dia_stacked(data, x2, offs, sym)
-    assert spmv_dia_cuda.launches == {"dia": 0, "dia_sym": 0}
+    assert _build.launches["dia"] == _build.launches["dia_sym"] == 0
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -215,10 +213,62 @@ def test_library_path_tracks_headers(monkeypatch, tmp_path):
     assert _build.library_path() != before
 
 
+class _FakeLibrary:
+    """A kernel library whose every entry records its arguments and returns
+    ``rc``."""
+
+    def __init__(self, rc: int):
+        self.rc, self.calls = rc, []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return self.rc
+        return entry
+
+
+@pytest.mark.parametrize("rc", [0, 700])
+def test_launch_passes_the_stream_last_and_counts_only_success(monkeypatch, rc):
+    """``_build.launch`` calls the entry on the device's current stream,
+    passed last; a zero code counts ``count`` under ``key``, any other
+    raises with the entry's name and counts nothing."""
+    lib, entered = _FakeLibrary(rc), []
+
+    def device(d):
+        entered.append(d)
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0xBEEF))
+    dev = torch.device("cuda", 1)
+    if rc:
+        with pytest.raises(RuntimeError,
+                           match="^symgs_dia_f64 launch failed: CUDA error 700$"):
+            _build.launch("symgs_dia_f64", dev, 11, None, 13, key=("symgs_planes", 4),
+                          count=2)
+    else:
+        _build.launch("symgs_dia_f64", dev, 11, None, 13, key=("symgs_planes", 4), count=2)
+    assert lib.calls == [("symgs_dia_f64", (11, None, 13, 0xBEEF))]
+    assert entered == [dev]
+    assert dict(_build.launches) == ({} if rc else {("symgs_planes", 4): 2})
+
+
+@pytest.mark.parametrize("pattern", [r"load_library\(", r"\.cuda_stream",
+                                     r"def reset_launches", r"^launches(: [\w.]+)? = "])
+def test_only_build_meets_the_library(pattern):
+    """The boundary to the C library is ``_build.launch``: no other module
+    of the port loads the library, reads a stream handle or keeps a launch
+    counter of its own."""
+    found = [str(p.relative_to(REPO)) for p in sorted((REPO / "spmv_torch").rglob("*.py"))
+             if p != REPO / "spmv_torch" / "_build.py"
+             and re.search(pattern, p.read_text(), flags=re.M)]
+    assert not found
+
+
 def _code(path: Path) -> str:
     """A CUDA source with its comments removed."""
-    import re
-
     text = re.sub(r"/\*.*?\*/", "", path.read_text(), flags=re.S)
     return re.sub(r"//[^\n]*", "", text)
 
@@ -232,8 +282,6 @@ def test_ds_chain_cannot_be_contracted():
     one minus is the exact negation inside two_prod's fmaf. The kernels
     touch their accumulators only through ds_add and ds_mul_f32, and the
     build never asks for fast math."""
-    import re
-
     header = _code(_build.CSRC / "ds.cuh")
     bodies = re.findall(r"__device__ __forceinline__ Ds \w+\([^)]*\) \{(.*?)\n\}",
                         header, flags=re.S)
@@ -326,7 +374,7 @@ def test_kernels_match_plain_on_cuda(cuda, symmetric, dtype, tol):
     want = spmv_dia_stacked_plain(data, x2, offs, symmetric)
     err = float(torch.linalg.vector_norm(y - want) / torch.linalg.vector_norm(want))
     assert err <= tol
-    assert spmv_dia_cuda.launches["dia_sym" if symmetric else "dia"] == 1
+    assert _build.launches["dia_sym" if symmetric else "dia"] == 1
 
 
 @pytest.mark.cuda
@@ -340,7 +388,7 @@ def test_dist_matrix_runs_through_kernel_on_cuda(cuda):
     y = A.from_dist(A.matvec(A.to_dist(x)))
     want = a.matvec(x)
     assert np.linalg.norm(y - want) <= 1e-12 * np.linalg.norm(want)
-    assert spmv_dia_cuda.launches == {"dia": 0, "dia_sym": 1}
+    assert (_build.launches["dia"], _build.launches["dia_sym"]) == (0, 1)
 
 
 def _rows_args(rng, dtype, pos_dtype, device, planes=1, nrhs=1):
@@ -381,7 +429,7 @@ def test_well_kernel_matches_plain_on_cuda(cuda, pos_dtype, dtype, tol):
     want = spmv_well_rows_plain(values, pos, ptr, w0, x2, tg)
     err = float(torch.linalg.vector_norm(y - want) / torch.linalg.vector_norm(want))
     assert err <= tol
-    assert spmv_well_cuda.launches["well"] == 1
+    assert _build.launches["well"] == 1
 
 
 @pytest.mark.cuda
@@ -397,7 +445,7 @@ def test_dist_matrix_well_runs_through_kernel_on_cuda(cuda):
     y = A.from_dist(A.matvec(A.to_dist(x)))
     want = a.matvec(x)
     assert np.linalg.norm(y - want) <= 1e-12 * np.linalg.norm(want)
-    assert spmv_well_cuda.launches["well"] == 2  # L and L^T, D=2 in one launch each
+    assert _build.launches["well"] == 2  # L and L^T, D=2 in one launch each
 
 
 def _bits_equal(got, want):
@@ -420,7 +468,7 @@ def test_dia_ds_kernel_matches_plain_on_cuda(cuda):
     got = spmv_dia_ds_cuda.spmv_dia_ds_stacked(*t, offs)
     torch.cuda.synchronize()
     assert _bits_equal(got, spmv_dia_ds_stacked_plain(*t, offs))
-    assert spmv_dia_ds_cuda.launches["dia_ds"] == 1
+    assert _build.launches["dia_ds"] == 1
 
 
 @pytest.mark.cuda
@@ -435,7 +483,7 @@ def test_well_ds_kernel_matches_plain_on_cuda(cuda, pos_dtype):
     got = spmv_well_ds_cuda.spmv_well_ds_stacked(*args)
     torch.cuda.synchronize()
     assert _bits_equal(got, spmv_well_ds_rows_plain(*args))
-    assert spmv_well_ds_cuda.launches["well_ds"] == 1
+    assert _build.launches["well_ds"] == 1
 
 
 @pytest.mark.cuda
@@ -494,8 +542,8 @@ def test_dist_matrix_ds_runs_through_kernels_on_cuda(cuda):
         got = ds_to_f64(A.from_dist(yh), A.from_dist(yl))
         want = mat.matvec(x)
         assert np.linalg.norm(got - want) < 1e-13 * np.linalg.norm(want)
-    assert spmv_dia_ds_cuda.launches["dia_ds"] == 1
-    assert spmv_well_ds_cuda.launches["well_ds"] == 2  # L and L^T
+    assert _build.launches["dia_ds"] == 1
+    assert _build.launches["well_ds"] == 2  # L and L^T
 
 
 # ----- the block (SpMM) kernels -----
@@ -537,9 +585,9 @@ def test_spmm_wrappers_take_plain_path_on_cpu(symmetric):
     planes = (dh, dh * 1e-8, xh, xh * 1e-8)
     got = spmv_dia_ds_cuda.spmm_dia_ds_stacked(*planes, offs)
     assert _bits_equal(got, spmm_dia_ds_stacked_plain(*planes, offs))
-    assert spmm_dia_cuda.launches == {"dia_spmm": 0, "dia_sym_spmm": 0}
-    assert spmm_well_cuda.launches == {"well_spmm": 0, "well_ds_spmm": 0}
-    assert spmv_dia_ds_cuda.launches == {"dia_ds": 0, "dia_ds_spmm": 0}
+    assert _build.launches["dia_spmm"] == _build.launches["dia_sym_spmm"] == 0
+    assert _build.launches["well_spmm"] == _build.launches["well_ds_spmm"] == 0
+    assert _build.launches["dia_ds"] == _build.launches["dia_ds_spmm"] == 0
 
 
 @pytest.mark.parametrize("case,exc", [
@@ -581,8 +629,8 @@ def test_spmm_wrappers_reject_bad_input(case, exc):
     }
     with pytest.raises(exc):
         calls[case]()
-    assert spmm_dia_cuda.launches == {"dia_spmm": 0, "dia_sym_spmm": 0}
-    assert spmm_well_cuda.launches == {"well_spmm": 0, "well_ds_spmm": 0}
+    assert _build.launches["dia_spmm"] == _build.launches["dia_sym_spmm"] == 0
+    assert _build.launches["well_spmm"] == _build.launches["well_ds_spmm"] == 0
 
 
 @pytest.mark.cuda
@@ -600,7 +648,7 @@ def test_dia_spmm_kernels_match_plain_on_cuda(cuda, symmetric, dtype, tol, nrhs)
     want = spmm_dia_stacked_plain(data, x2, offs, symmetric)
     err = float(torch.linalg.vector_norm(y - want) / torch.linalg.vector_norm(want))
     assert err <= tol
-    assert spmm_dia_cuda.launches["dia_sym_spmm" if symmetric else "dia_spmm"] == 1
+    assert _build.launches["dia_sym_spmm" if symmetric else "dia_spmm"] == 1
     for c, yc in zip(columns(x2), columns(y)):
         assert torch.equal(yc, spmv_dia_cuda.spmv_dia_stacked(data, c, offs, symmetric))
 
@@ -620,7 +668,7 @@ def test_well_spmm_kernel_matches_plain_on_cuda(cuda, pos_dtype, dtype, tol, nrh
     want = spmm_well_stacked_plain(v, pos, ptr, w0, x, tg)
     err = float(torch.linalg.vector_norm(y - want) / torch.linalg.vector_norm(want))
     assert err <= tol
-    assert spmm_well_cuda.launches["well_spmm"] == 1
+    assert _build.launches["well_spmm"] == 1
     for c, yc in zip(columns(x), columns(y)):
         assert torch.equal(yc, spmv_well_cuda.spmv_well_stacked(v, pos, ptr, w0, c, tg))
 
@@ -650,8 +698,8 @@ def test_ds_spmm_kernels_match_plain_on_cuda(cuda, nrhs):
         for r, (h, lo) in enumerate(zip(columns(xs[0]), columns(xs[1]))):
             one = spmv_well_ds_cuda.spmv_well_ds_stacked(*rows, h, lo, tg)
             assert _bits_equal([columns(g)[r] for g in got], one)
-    assert spmv_dia_ds_cuda.launches["dia_ds_spmm"] == 1
-    assert spmm_well_cuda.launches["well_ds_spmm"] == 2
+    assert _build.launches["dia_ds_spmm"] == 1
+    assert _build.launches["well_ds_spmm"] == 2
 
 
 @pytest.mark.cuda
@@ -671,10 +719,9 @@ def test_matmat_runs_through_block_kernels_on_cuda(cuda):
                                (gen, "well", False, "well_spmm")):
         A = build_dist_matrix(mat, n_devices=4, symmetric=sym, dtype=np.float64,
                               local_format=fmt, device=cuda)
-        before = dict(spmm_dia_cuda.launches, **spmm_well_cuda.launches)
+        before = _build.launches[key]
         Y = A.from_dist_block(A.matmat(A.to_dist_block(X[mat.nrows])))
-        after = dict(spmm_dia_cuda.launches, **spmm_well_cuda.launches)
-        assert after[key] - before[key] == 1
+        assert _build.launches[key] - before == 1
         want = np.stack([mat.matvec(c) for c in X[mat.nrows].T], axis=1)
         assert np.linalg.norm(Y - want) <= 1e-12 * np.linalg.norm(want)
     for mat, fmt in ((lap, "dia_ds"), (gen, "well_ds")):
@@ -684,8 +731,8 @@ def test_matmat_runs_through_block_kernels_on_cuda(cuda):
         got = ds_to_f64(A.from_dist_block(yh), A.from_dist_block(yl))
         want = np.stack([mat.matvec(c) for c in X[mat.nrows].T], axis=1)
         assert np.linalg.norm(got - want) <= 1e-13 * np.linalg.norm(want)
-    assert spmv_dia_ds_cuda.launches["dia_ds_spmm"] == 1
-    assert spmm_well_cuda.launches["well_ds_spmm"] == 1
+    assert _build.launches["dia_ds_spmm"] == 1
+    assert _build.launches["well_ds_spmm"] == 1
 
 
 @pytest.mark.cuda
@@ -726,7 +773,7 @@ def test_well_spmm_kernels_on_packed_stacks_on_cuda(cuda, nrhs):
         assert torch.equal(columns(y)[c], spmv_well_2d(w, xc))
         one = spmv_well_ds_2d(wds, xc, xc * 1e-8)
         assert _bits_equal([columns(g)[c] for g in ys], one)
-    assert spmm_well_cuda.launches == {"well_spmm": 1, "well_ds_spmm": 1}
+    assert (_build.launches["well_spmm"], _build.launches["well_ds_spmm"]) == (1, 1)
 
 
 @pytest.mark.cuda
@@ -754,8 +801,8 @@ def test_dist_matrix_keeps_well_arrays_on_host_on_cuda(cuda):
     want = np.stack([a.matvec(c) for c in X.T], axis=1)
     assert np.linalg.norm(A.from_dist(y) - want[:, 0]) <= 1e-12 * np.linalg.norm(want)
     assert np.linalg.norm(A.from_dist_block(Y) - want) <= 1e-12 * np.linalg.norm(want)
-    assert spmv_well_cuda.launches["well"] == 4
-    assert spmm_well_cuda.launches["well_spmm"] == 4
+    assert _build.launches["well"] == 4
+    assert _build.launches["well_spmm"] == 4
 
 
 def _wide_dia_args(rng, dtype, symmetric, k, nrhs, dev):
@@ -851,8 +898,7 @@ def test_window_kernels_match_plain_on_cuda(cuda, symmetric, nrhs, case, dtype):
     torch.cuda.synchronize()
     key = (("dia_sym" if symmetric else "dia") if nrhs == 1 else
            ("dia_sym_spmm" if symmetric else "dia_spmm"))
-    launched = spmv_dia_cuda.launches if nrhs == 1 else spmm_dia_cuda.launches
-    assert launched[key] == 1
+    assert _build.launches[key] == 1
     assert torch.equal(kernel(data, x2, offs, symmetric), y)
     want = plain(data, x2, offs, symmetric)
     err = float(torch.linalg.vector_norm((y - want).double())
@@ -921,7 +967,7 @@ def test_dia_bf16_plain_accumulates_in_f32():
         want = spmv_dia_stacked_plain(data.float(), x2.float(), offs, symmetric)
         assert y.dtype == torch.bfloat16
         assert torch.equal(y, want.to(torch.bfloat16))
-    assert spmv_dia_cuda.launches == {"dia": 0, "dia_sym": 0}
+    assert _build.launches["dia"] == _build.launches["dia_sym"] == 0
 
 
 @pytest.mark.cuda
@@ -943,7 +989,7 @@ def test_amg_cycle_on_cuda_matches_cpu(cuda):
         h = amg_setup(a, A, **kw)
         out.append(h.as_preconditioner()(A.to_dist(gaussian_bump(a.nrows,
                                                                   dtype=np.float32))))
-    assert spmv_dia_cuda.launches["dia"] > 0
+    assert _build.launches["dia"] > 0
     got, want = out[0].cpu(), out[1]
     err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
     assert err <= 1e-5, err
@@ -993,7 +1039,7 @@ def test_matvec_transpose_matches_plain_on_cuda(cuda, fmt):
     want = a.transpose().matvec(q)
     assert np.linalg.norm(ys["cuda"] - ys["cpu"]) <= 1e-13 * np.linalg.norm(want)
     assert np.linalg.norm(ys["cuda"] - want) <= 1e-12 * np.linalg.norm(want)
-    assert (spmv_dia_cuda.launches["dia"], spmv_well_cuda.launches["well"]) == (
+    assert (_build.launches["dia"], _build.launches["well"]) == (
         (1, 0) if fmt == "dia" else (0, 1))
 
 
@@ -1029,7 +1075,7 @@ def test_general_krylov_on_cuda_matches_plain(cuda, solver):
     assert out["cuda"][0] and out["cpu"][0] and abs(its - its_plain) <= slack
     x, xp = out["cuda"][2], out["cpu"][2]
     assert np.linalg.norm(x - xp) <= tol * np.linalg.norm(xp)
-    assert spmv_dia_cuda.launches["dia"] > out["cuda"][1]
+    assert _build.launches["dia"] > out["cuda"][1]
 
 
 @pytest.mark.cuda
@@ -1047,9 +1093,9 @@ def test_powers_basis_on_cuda_matches_cpu(cuda, fmt):
     for dev in (cuda, torch.device("cpu")):
         A = build_dist_matrix(a, n_devices=4, local_format=fmt, device=dev)
         pp = build_powers_plan(a, A, s=4)
-        spmv_dia_cuda.reset_launches()
+        _build.launches.clear()
         V = chebyshev_powers_basis(pp, A.to_dist(gaussian_bump(a.nrows)), 4.4, 4.4)
-        out.append((V.cpu(), spmv_dia_cuda.launches["dia"]))
+        out.append((V.cpu(), _build.launches["dia"]))
     (v_gpu, n_gpu), (v_cpu, n_cpu) = out
     assert n_gpu == (4 if fmt == "dia" else 0) and n_cpu == 0
     assert float(torch.linalg.vector_norm(v_gpu - v_cpu) / torch.linalg.vector_norm(v_cpu)) < 1e-13
@@ -1069,11 +1115,11 @@ def test_sstep_solvers_on_cuda_match_cpu(cuda):
     for dev in (cuda, torch.device("cpu")):
         A = build_dist_matrix(a, symmetric=True, local_format="dia", device=dev)
         b = A.to_dist(gaussian_bump(a.nrows))
-        spmv_dia_cuda.reset_launches()
+        _build.launches.clear()
         r1 = cg_sstep(A.matvec, b, s=4, kmax=2000, rtol=1e-8)
         r2 = gmres_sstep(A.matvec, b, s=4, restart=32, max_cycles=40, rtol=1e-8)
         assert r1.converged and r2.converged
-        its.append((r1.iterations, r2.iterations, spmv_dia_cuda.launches["dia_sym"]))
+        its.append((r1.iterations, r2.iterations, _build.launches["dia_sym"]))
     (c1, g1, n_gpu), (c2, g2, n_cpu) = its
     assert (c1, g1) == (c2, g2) and n_cpu == 0 and n_gpu > c1 + g1
 
@@ -1102,10 +1148,10 @@ def test_svds_on_cuda_matches_cpu(cuda):
     for dev in (cuda, torch.device("cpu")):
         A = build_dist_matrix(a, local_format="dia", device=dev)
         At = A.transposed()
-        spmv_dia_cuda.reset_launches()
+        _build.launches.clear()
         r = svds(A.as_linear_operator(), At.as_linear_operator(),
                  A.to_dist(b, side="row"), k=4, m=24)
-        out.append((r, spmv_dia_cuda.launches["dia"]))
+        out.append((r, _build.launches["dia"]))
     (rg, ng), (rc, nc) = out
     assert rg.steps == rc.steps and ng == 2 * 24 + 1 and nc == 0
     np.testing.assert_allclose(rg.s, rc.s, rtol=1e-12)
@@ -1125,9 +1171,9 @@ def test_funm_and_slq_on_cuda_match_cpu(cuda):
     out = []
     for dev in (cuda, torch.device("cpu")):
         A = build_dist_matrix(a, symmetric=True, local_format="dia", device=dev)
-        spmv_dia_cuda.reset_launches()
+        _build.launches.clear()
         y, _ = expm_multiply(A.matvec, A.to_dist(gaussian_bump(a.nrows)), t=-1.0, m=32)
-        n = spmv_dia_cuda.launches["dia_sym"]
+        n = _build.launches["dia_sym"]
         mean, se = slq_logdet(A.matvec, A.to_dist(np.ones(a.nrows)),
                               torch.Generator().manual_seed(5), n_probes=4, m=24)
         out.append((A.from_dist(y), n, mean, se))
@@ -1155,9 +1201,9 @@ def test_demo_eig_lobpcg_on_cuda_matches_cpu(cuda, capsys):
         at = next(i for i, ln in enumerate(lines) if ln.startswith("LOBPCG ("))
         return lines[at], [float(ln.split()[2]) for ln in lines[at + 1:]]
 
-    spmm_dia_cuda.reset_launches()
+    _build.launches.clear()
     head_g, th_g = run("cuda")
-    assert spmm_dia_cuda.launches["dia_spmm"] > 0
+    assert _build.launches["dia_spmm"] > 0
     head_c, th_c = run("cpu")
     assert "converged=True" in head_g and "converged=True" in head_c
     its_g, its_c = (int(h.split(" in ")[1].split()[0]) for h in (head_g, head_c))

@@ -33,11 +33,12 @@ from spmv_tpu.parallel.dist_matrix import build_dist_matrix as ref_build
 
 import spmv_torch.formats.csr as pt_csr
 import spmv_torch.gen as pt_gen
+from spmv_torch import _build
 from spmv_torch.convert import dist_matrix_from_numpy
 from spmv_torch.ds import ds_from_f64, ds_to_f64
 from spmv_torch.formats.dia import csr_to_dia
 from spmv_torch.formats.well import csr_to_well
-from spmv_torch.ops import spmm_dia_cuda, spmm_well_cuda, spmv_dia_cuda, spmv_dia_ds_cuda
+from spmv_torch.ops import spmm_dia_cuda, spmv_dia_cuda, spmv_dia_ds_cuda
 from spmv_torch.ops.spmm_dia import (
     columns,
     spmm_dia,
@@ -71,12 +72,11 @@ def _one_thread():
 
 @pytest.fixture(autouse=True)
 def _fresh_counters():
-    for mod in (spmm_dia_cuda, spmm_well_cuda, spmv_dia_ds_cuda):
-        mod.reset_launches()
+    _build.launches.clear()
     yield
-    assert spmm_dia_cuda.launches == {"dia_spmm": 0, "dia_sym_spmm": 0}
-    assert spmm_well_cuda.launches == {"well_spmm": 0, "well_ds_spmm": 0}
-    assert spmv_dia_ds_cuda.launches["dia_ds_spmm"] == 0
+    assert _build.launches["dia_spmm"] == _build.launches["dia_sym_spmm"] == 0
+    assert _build.launches["well_spmm"] == _build.launches["well_ds_spmm"] == 0
+    assert _build.launches["dia_ds_spmm"] == 0
 
 
 def _rel(got, want):

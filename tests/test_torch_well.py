@@ -23,6 +23,7 @@ from spmv_tpu.ops.spmv_well_pallas import spmv_well_pallas
 from spmv_tpu.ops.spmv_well_pallas import spmv_well_sym as ref_spmv_well_sym
 
 import spmv_torch.formats.csr as pt_csr
+from spmv_torch import _build
 from spmv_torch.formats.well import (
     csr_to_well,
     csr_to_well_sym,
@@ -51,9 +52,9 @@ def _one_thread():
 
 @pytest.fixture(autouse=True)
 def _fresh_counters():
-    spmv_well_cuda.reset_launches()
+    _build.launches.clear()
     yield
-    spmv_well_cuda.reset_launches()
+    _build.launches.clear()
 
 
 def _pair(rows, cols, vals, nrows, ncols):
@@ -155,7 +156,7 @@ def test_apply_matches_reference_kernel(pair, tile_groups, dtype):
     oracle = pt.matvec(x.astype(np.float64))
     assert np.linalg.norm(got[: pt.nrows] - oracle) <= 10 * TOL[dtype] * np.linalg.norm(oracle)
     assert not got[pt.nrows:].any()  # padding rows stay zero
-    assert spmv_well_cuda.launches["well"] == 0  # the plain path launches nothing
+    assert _build.launches["well"] == 0  # the plain path launches nothing
 
 
 @pytest.mark.parametrize("shape", ["square", "wide"])
@@ -227,7 +228,7 @@ def test_stacked_plain_reads_each_shard_window():
     assert np.allclose(got.numpy().reshape(nd, -1), want, rtol=1e-13, atol=1e-13)
     assert torch.equal(got, spmv_well_rows_plain(values, pos, torch.from_numpy(ptr),
                                                  w0, x2, tg))
-    assert spmv_well_cuda.launches["well"] == 0
+    assert _build.launches["well"] == 0
 
 
 def _wrapper_inputs(dtype=torch.float32):
@@ -283,7 +284,7 @@ def test_wrapper_rejects_bad_input(case, exc):
         ptr = ptr[:, :-1]
     with pytest.raises(exc):
         spmv_well_cuda.spmv_well_stacked(values, pos, ptr, w0, x2, tg)
-    assert spmv_well_cuda.launches["well"] == 0
+    assert _build.launches["well"] == 0
 
 
 def test_conversions_default_to_the_card():
