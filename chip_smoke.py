@@ -46,6 +46,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      for bit against their plain versions, the launches (2 a sweep
      direction) and bands a plane from a reset; device ms of each beside its plain version's and its least-bytes
      bound (phase_symgs);
+ 24. (after 23) dia_sym_spmv's stream kernel (csrc/dia_stream.cu) and tile
+     kernel on HPCG's 27-point offsets at 256^3, fp64 and fp32 (the route
+     must pick the stream kernel), and on the 3200^2 Laplacian, fp64 (the
+     route must keep the tile kernel): the same bits, within TOL_KERNEL of
+     the plain version, one launch each under its key; device ms of each
+     in turns beside the plain version's and the bound (phase_dia_stream);
   7. the WELL kernel, which reads each stack's warp-sliced row lists, vs
      their plain torch version, fp32 and fp64 (and that plain version vs
      the WELL formula's, bit for bit, here and wherever a single-RHS WELL
@@ -1010,6 +1016,84 @@ def phase_symgs(dev, grids=SYMGS_GRIDS, long_grid=SYMGS_LONG) -> list:
         symgs_dia._sweep_plan.cache_clear()
         symgs_dia_cuda.device_steps.cache_clear()
         torch.cuda.empty_cache()
+    return rows
+
+
+STREAM_CASES = (  # phase 24: (name, stored offsets, rows, dtypes)
+    ("hpcg 256^3", tuple(sorted(o for o in {sx + 256 * (sy + 256 * sz) for sz in (-1, 0, 1)
+                                             for sy in (-1, 0, 1) for sx in (-1, 0, 1)}
+                                if o <= 0)), 256 ** 3, (torch.float64, torch.float32)),
+    ("laplace 3200^2", (-3200, -1, 0), 3200 ** 2, (torch.float64,)),
+)
+STREAM_ITERS = 50
+
+
+def phase_dia_stream(dev, cases=STREAM_CASES) -> list:
+    """Phase 24: dia_sym_spmv's two designs, the stream kernel
+    (csrc/dia_stream.cu) and the tile kernel (csrc/dia_window.cuh), on
+    HPCG's 27-point offsets at 256^3 (fp64, fp32), where ``route`` must
+    pick the stream kernel, and on the 3200^2 Laplacian (fp64), where it
+    must keep the tile kernel; random data and x (seeded), one shard. Both
+    launched through ``spmv_dia_cuda.launch``, one launch each under its
+    key from a reset, the same bits, within TOL_KERNEL of the plain
+    version; then device ms of each (``device_ms``) in turns, stream, tile,
+    tile, stream, beside the plain version's and the least-bytes bound
+    (K + 2) npad itemsize. The Laplacian's stream time is recorded without
+    routing it. Returns the rows."""
+    Route = spmv_dia_cuda.Route
+    rows = []
+    for name, offs, n, dtypes in cases:
+        nr = -(-n // 128)
+        for dt in dtypes:
+            dname = str(dt).split(".")[1]
+            gen = torch.Generator(device=dev).manual_seed(24)
+            data = (torch.randn((1, nr, len(offs) * 128), generator=gen, device=dev,
+                                dtype=torch.float64) / len(offs)).to(dt)
+            x2 = torch.randn((nr, 128), generator=gen, device=dev,
+                             dtype=torch.float64).to(dt)
+            want = "stream" if name.startswith("hpcg") else "tile"
+            r = spmv_dia_cuda.route(offs, True, False, dt)
+            if r.kernel != want:
+                fail(f"24 {name} {dname}: route {r}, want {want}")
+            reset_counters()
+            y_s = spmv_dia_cuda.launch(Route("stream"), data, x2, offs, True, False)
+            y_t = spmv_dia_cuda.launch(Route("tile"), data, x2, offs, True, False)
+            torch.cuda.synchronize()
+            got = launched("dia_sym", spmv_dia_cuda.STREAM_KEY)
+            if got != {"dia_sym": 1, spmv_dia_cuda.STREAM_KEY: 1}:
+                fail(f"24 {name} {dname}: launches {got}")
+            if not torch.equal(y_s, y_t):
+                bad = int((y_s != y_t).sum())
+                fail(f"24 {name} {dname}: the stream kernel differs from the tile "
+                     f"kernel at {bad} of {n} rows")
+            y_p = spmv_dia_stacked_plain(data, x2, offs, True)
+            err = rel_l2(y_s.cpu().numpy(), y_p.cpu().numpy())
+            if err > TOL_KERNEL[dname]:
+                fail(f"24 {name} {dname}: stream vs plain rel L2 {err:.3e}")
+            del y_s, y_t, y_p
+
+            def step(v, kernel):
+                spmv_dia_cuda.launch(Route(kernel), data, v, offs, True, False)
+                return v
+
+            ms = {"stream": [], "tile": []}
+            for kernel in ("stream", "tile", "tile", "stream"):
+                ms[kernel].append(device_ms(lambda v, k=kernel: step(v, k), x2,
+                                            iters=STREAM_ITERS))
+            plain_ms = device_ms(lambda v: (spmv_dia_stacked_plain(data, v, offs, True), v)[1],
+                                 x2, iters=3, sessions=YARDSTICK_SESSIONS)
+            nbytes = (len(offs) + 2) * nr * 128 * data.element_size()
+            row = dict(case=name, dtype=dname, route=r.kernel,
+                       stream_plan=spmv_dia_cuda.stream_plan(offs, dt).summary(),
+                       window_plan=spmv_dia_cuda.window_plan(offs, True, 1, dt).summary(),
+                       stream_ms=ms["stream"], tile_ms=ms["tile"], plain_ms=plain_ms,
+                       bound_ms=bound_ms(nbytes), bytes=nbytes, rel_l2=err)
+            row["stream_roofline"] = 100 * row["bound_ms"] / float(np.median(ms["stream"]))
+            row["tile_roofline"] = 100 * row["bound_ms"] / float(np.median(ms["tile"]))
+            show("24.dia_stream", **row)
+            rows.append(row)
+            del data, x2
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -5206,6 +5290,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_symgs(dev)
     show("23.seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_dia_stream(dev)
+    show("24.seconds", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     max_abs["spmv_well"], a4, w4 = phase_well_kernel(dev)

@@ -41,6 +41,9 @@ _DIA_WIN_ARGS = [_P, _P, _P, _L, _I, _P, _I, _I, _I, _P]  # data, x, y, npad,
 #     stream (the tile kernel of csrc/dia_window.cuh)
 _DIA_ROWS_ARGS = [_P, _P, _P, _L, _I, _P, _I, _I, _P]  # data, x, y, npad,
 #     ndiags, offsets (in host memory), rows a thread, nshards, stream
+_DIA_STREAM_ARGS = [_P, _P, _P, _L, _I, _P, _P, _I, _P]  # data, x, y, npad,
+#     ndiags, plan words (in host memory), zeros (on the card), nshards,
+#     stream (the stream kernel of csrc/dia_stream.cu)
 _WELL_ARGS = [_P] * 6 + [_L, _L, _I, _L, _I, _P]  # values, pos, slice_ptr,
 #                 w0, x, y, nslices, entries, tile_groups, col_pad, nshards,
 #                 stream (the row lists)
@@ -70,6 +73,7 @@ KERNEL_ENTRIES = {
     **{f"dia_spmv_{t}": _DIA_ARGS for t in ("f32", "f64", "bf16")},
     **{f"dia_spmv_rows_{t}": _DIA_ROWS_ARGS for t in ("f32", "f64", "bf16")},
     **{f"dia_sym_spmv_{t}": _DIA_WIN_ARGS for t in ("f32", "f64", "bf16")},
+    **{f"dia_sym_spmv_stream_{t}": _DIA_STREAM_ARGS for t in ("f32", "f64", "bf16")},
     **{f"well_spmv_{t}_{p}": _WELL_ARGS for t in ("f32", "f64")
        for p in ("i16", "i32")},
     "dia_ds_spmv": _DIA_DS_ARGS,

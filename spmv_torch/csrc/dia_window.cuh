@@ -6,7 +6,9 @@
 // vanilla column lost to dia_spmv_rows at every shape and to the
 // one-row-a-thread loop kernel on wide bands, and on symmetric blocks to
 // dia_sym_spmm's direct kernel (PERF.md), where its CTAs stage five x
-// windows for every column.
+// windows for every column. It sends dia_sym_spmv on offsets that span
+// planes, where the plan misses SMEM_TARGET (HPCG's 27-point operator:
+// 35 windows a 128-row tile, 53% of its bound), to dia_stream.cu.
 //
 // Layout (spmv_torch/formats/dia.py, ops/spmm_dia.py): D shards stacked;
 // shard s's data is (npad/128, K*128) with data[s, q, k*128 + l] =

@@ -43,7 +43,8 @@
 // the same order in both kernels (acc += d * x, k ascending), so they give
 // the same bits; index math is 64-bit.
 //
-// dia_sym_spmv is the tile kernel of dia_window.cuh: a CTA stages its x
+// dia_sym_spmv is the tile kernel of dia_window.cuh (and, on offsets that
+// span planes, the stream kernel of dia_stream.cu): a CTA stages its x
 // windows and its rows of each diagonal (the transpose term's rows too) in
 // shared memory with bulk copies of the Tensor Memory Accelerator, as a
 // plan made once per operator lays them out, and sums from there. Run on

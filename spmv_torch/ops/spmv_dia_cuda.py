@@ -8,7 +8,8 @@ movement.
 A CPU tensor takes the plain torch version (``ops/spmv_dia.py``); a CUDA
 tensor launches the kernel or raises. ``_build.launches`` counts the
 launches under "dia" and "dia_sym" (the block wrappers': "dia_spmm" and
-"dia_sym_spmm"), one per call on a CUDA tensor.
+"dia_sym_spmm"; dia_sym_spmv's stream kernel: "dia_sym_stream"), one per
+call on a CUDA tensor.
 
 The kernels take float32, float64 and bfloat16 storage (bf16 accumulates
 in float32 and stores y in bf16) and any number of diagonals. ``route``
@@ -19,7 +20,9 @@ int64 array on the card (``device_offsets``), at every other K.
 ``dia_sym_spmv`` and the block ``dia_spmm`` stage their reads in shared
 memory, as ``window_plan`` lays them out: a table made once per (offsets,
 symmetric, nrhs, dtype) and kept on the card (``device_window_plan``), so
-an apply does no host work beyond the launch.
+an apply does no host work beyond the launch. ``dia_sym_spmv`` on offsets
+that span planes runs the stream kernel instead (``stream_plan``: sliding
+windows a cluster of offsets, its words passed by value).
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ DTYPES = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 # the launch counter's key of each (symmetric, block) apply
 KEYS = {(False, False): "dia", (True, False): "dia_sym", (False, True): "dia_spmm",
         (True, True): "dia_sym_spmm"}
+STREAM_KEY = "dia_sym_stream"  # dia_sym_spmv's launches of the stream kernel
 
 
 @functools.lru_cache(maxsize=256)
@@ -300,6 +304,165 @@ def window_plan(offsets: tuple[int, ...], symmetric: bool, nrhs: int,
             or _plan_at(*key, TILE_ROWS[-1], SMEM_MAX))
 
 
+# The stream kernel's plan (csrc/dia_stream.cu), for symmetric storage at
+# one column. Persistent CTAs walk runs of 128-row blocks; at the step of
+# block q a CTA reads, for each cluster of read offsets (the stored offsets
+# and -o for each o < 0, their blocks merged wherever they touch), one
+# window of x blocks [q + lo, q + hi]; all K diagonals of blocks [q, q +
+# hi] (the forward rows, and the transposed rows of the diagonals whose -o
+# lies in the cluster of block 0); and, for each other cluster that holds
+# some -o, the rows of those diagonals (a contiguous range of k) in its
+# blocks. Each window slides one block a step, in a ring of ns slots: the
+# forward window's width plus `depth` steps of copies in flight, and one
+# common ns for the x and far windows, so that one slot counter serves them.
+STREAM_MAX_K = 16       # diagonals the kernel holds (kMaxK)
+STREAM_MAX_WIN = 8      # windows (kMaxWin)
+STREAM_DEPTH = (2, 8)   # steps of copies in flight: the least, the most
+STREAM_FLIGHT = 48 * 1024  # HBM bytes in flight an SM the depth aims at
+#                            (about twice what hides HBM's latency at
+#                            3.35 TB/s over 132 SMs)
+STREAM_HEAD, STREAM_WIN_WORDS, STREAM_DIAG_WORDS = 16, 6, 8
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """Where the stream kernel reads, in 128-row blocks relative to the
+    step's block q. ``x_windows[c]`` = (lo, hi) of cluster c;
+    ``data_windows[w]`` = (k0, k1, lo, hi), the forward window first;
+    ``depth`` steps of copies in flight; ``ns_f``/``ns_o`` the slots of the
+    forward ring and of every other ring; ``span`` the blocks from 0 to
+    the centre of the nearest cluster above it (a plane), which the kernel
+    takes as its run's length;
+    ``smem_bytes`` its shared memory; ``words`` the int32 words the kernel
+    takes by value."""
+
+    offsets: tuple[int, ...]
+    itemsize: int
+    x_windows: tuple[tuple[int, int], ...]
+    data_windows: tuple[tuple[int, int, int, int], ...]
+    depth: int
+    ns_f: int
+    ns_o: int
+    span: int
+    smem_bytes: int
+    words: tuple[int, ...]
+
+    def summary(self) -> dict:
+        """What a run prints about the plan."""
+        return dict(x_windows=[list(w) for w in self.x_windows],
+                    data_windows=[list(w) for w in self.data_windows],
+                    depth=self.depth, ns_f=self.ns_f, ns_o=self.ns_o, span=self.span,
+                    smem_bytes=self.smem_bytes)
+
+
+def _clusters(reads) -> list[tuple[int, int]]:
+    """The blocks [lo, hi] each read offset's 128 rows reach, merged
+    wherever they overlap or touch."""
+    out = []
+    for lo, hi in sorted((r // LANES, (r + LANES - 1) // LANES) for r in reads):
+        if out and lo <= out[-1][1] + 1:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return [tuple(c) for c in out]
+
+
+@functools.lru_cache(maxsize=256)
+def stream_plan(offsets: tuple[int, ...], dtype: torch.dtype) -> StreamPlan | None:
+    """The stream kernel's plan for symmetric storage with these offsets,
+    or None where they do not span clusters or the kernel cannot hold them:
+    fewer than two clusters, more than STREAM_MAX_K diagonals or
+    STREAM_MAX_WIN windows, offsets not ascending, or rings that miss
+    SMEM_MAX at the least depth. The depth is the largest up to
+    STREAM_FLIGHT's that fits. One object per key."""
+    offsets = tuple(int(o) for o in offsets)
+    if max(offsets) > 0:
+        raise ValueError("symmetric DIA stores offsets <= 0 only")
+    K = len(offsets)
+    if K > STREAM_MAX_K or list(offsets) != sorted(set(offsets)):
+        return None
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    clusters = _clusters(_read_offsets(offsets, True))
+    if len(clusters) < 2:
+        return None
+
+    def cluster_of(r):
+        return next(c for c, (lo, hi) in enumerate(clusters) if lo <= r // LANES <= hi)
+
+    mid = next((c for c, (lo, hi) in enumerate(clusters) if lo <= 0 <= hi), None)
+    trans = [k for k, o in enumerate(offsets) if o < 0]
+    # the forward window: all K diagonals, blocks [0, hi]
+    f_hi = max([(LANES - 1 - offsets[k]) // LANES for k in trans
+                if cluster_of(-offsets[k]) == mid], default=0)
+    windows = [(0, K, 0, f_hi)]
+    dwin = {k: 0 for k in trans if cluster_of(-offsets[k]) == mid}
+    for c in sorted({cluster_of(-offsets[k]) for k in trans} - {mid}):
+        ks = [k for k in trans if cluster_of(-offsets[k]) == c]
+        dwin.update({k: len(windows) for k in ks})
+        windows.append((ks[0], ks[-1] + 1, min(-offsets[k] // LANES for k in ks),
+                        max((LANES - 1 - offsets[k]) // LANES for k in ks)))
+    nwin = len(clusters) + len(windows)
+    if nwin > STREAM_MAX_WIN:
+        return None
+    width = [hi - lo + 1 for lo, hi in clusters] + [hi - lo + 1 for *_, lo, hi in windows]
+    o_width = max(width[:len(clusters)] + width[len(clusters) + 1:])
+    nk = [1] * len(clusters) + [k1 - k0 for k0, k1, _, _ in windows]
+    step_bytes = (K + 2) * LANES * itemsize
+    for depth in range(min(max(-(-STREAM_FLIGHT // step_bytes), STREAM_DEPTH[0]),
+                           STREAM_DEPTH[1]), STREAM_DEPTH[0] - 1, -1):
+        ns_f, ns_o = width[len(clusters)] + depth, o_width + depth
+        ns = [ns_o] * len(clusters) + [ns_f] + [ns_o] * (len(windows) - 1)
+        sizes = [n * k * LANES for n, k in zip(ns, nk)]
+        if sum(sizes) * itemsize <= SMEM_MAX:
+            break
+    else:
+        return None
+    base = [sum(sizes[:w]) for w in range(nwin)]
+    # the read offsets are symmetric about 0, so of two clusters or more one
+    # lies above it
+    span = max(1, round(min((lo + hi) / 2 for lo, hi in clusters if lo + hi > 0)))
+    smem = sum(sizes) * itemsize
+    pad_w = [0] * (STREAM_MAX_WIN - nwin)
+    los = [lo for lo, _ in clusters] + [lo for *_, lo, _ in windows]
+    head = [K, len(clusters), nwin, ns_f, ns_o, depth, span, smem]
+    words = head + [0] * (STREAM_HEAD - len(head))
+    words += [0] * len(clusters) + [k0 for k0, *_ in windows] + pad_w
+    words += nk + pad_w
+    words += los + pad_w
+    words += width + pad_w
+    words += ns + pad_w
+    words += base + pad_w
+    diag = {name: [0] * STREAM_MAX_K for name in
+            ("xf_rel", "xf_base", "xt_rel", "xt_base", "dt_far", "dt_rel", "dt_base",
+             "dt_stride")}
+    for k, o in enumerate(offsets):
+        c = cluster_of(o)
+        diag["xf_rel"][k], diag["xf_base"][k] = o - clusters[c][0] * LANES, base[c]
+        diag["xt_base"][k] = -1
+        if o < 0:
+            c = cluster_of(-o)
+            diag["xt_rel"][k], diag["xt_base"][k] = -o - clusters[c][0] * LANES, base[c]
+            w = dwin[k]
+            k0, k1, lo, _ = windows[w]
+            diag["dt_far"][k] = int(w > 0)
+            diag["dt_rel"][k] = -o - lo * LANES
+            diag["dt_base"][k] = base[len(clusters) + w] + (k - k0) * LANES
+            diag["dt_stride"][k] = (k1 - k0) * LANES
+    for v in diag.values():
+        words += v
+    if max(abs(v) for v in words) >= 2 ** 31:
+        raise ValueError("a DIA stream plan needs offsets below 2**31")
+    return StreamPlan(offsets, itemsize, tuple(clusters), tuple(windows), depth, ns_f,
+                      ns_o, span, smem, tuple(words))
+
+
+@functools.lru_cache(maxsize=64)
+def device_zeros(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """n zeros on ``device``, which the stream kernel copies in for blocks
+    outside a shard; one buffer per key is kept."""
+    return torch.zeros(n, dtype=dtype, device=device)
+
+
 @functools.lru_cache(maxsize=256)
 def device_window_plan(offsets: tuple[int, ...], symmetric: bool, nrhs: int,
                        dtype: torch.dtype, device: torch.device
@@ -310,13 +473,16 @@ def device_window_plan(offsets: tuple[int, ...], symmetric: bool, nrhs: int,
     return plan, torch.tensor(plan.table, dtype=torch.int32, device=device)
 
 
-# Which kernel an apply launches (``route``): dia_sym_spmv and dia_spmm run
-# the tile kernel, dia_spmv and dia_sym_spmm choose by shape. From the H100
-# (PERF.md): dia_spmv_rows, with K at compile time, beat both the loop
-# kernel and the tile kernel at K = 5 and 9 on every grid measured, 41k
-# to 10M rows; at K = 65 and 297 the loop kernel beat the tile kernel in
-# every dtype; and dia_sym_spmm's direct kernel without its per-column mask
-# beat the tile kernel at every Laplacian block measured.
+# Which kernel an apply launches (``route``): dia_spmm runs the tile kernel,
+# dia_sym_spmv the tile kernel or the stream kernel, dia_spmv and
+# dia_sym_spmm choose by shape. From the H100 (PERF.md): dia_spmv_rows, with
+# K at compile time, beat both the loop kernel and the tile kernel at K = 5
+# and 9 on every grid measured, 41k to 10M rows; at K = 65 and 297 the loop
+# kernel beat the tile kernel in every dtype; dia_sym_spmm's direct kernel
+# without its per-column mask beat the tile kernel at every Laplacian block
+# measured; and the tile kernel reached 53% of its bound on HPCG's 27-point
+# operator, where its plan misses SMEM_TARGET and stages 35 windows a tile,
+# against 78-80% on the 2-D Laplacian, whose plan fits.
 ROWS_K = (5, 9)          # the K dia_spmv_rows is built for (csrc/spmv_dia.cu)
 ROWS_UNALIGNED = 2       # 16 bytes of rows a thread (fp32, bf16) where at
 #                          most this many offsets are not multiples of that
@@ -329,9 +495,10 @@ ROWS_UNALIGNED = 2       # 16 bytes of rows a thread (fp32, bf16) where at
 class Route:
     """The design an apply launches: ``kernel`` "rows" (dia_spmv_rows,
     ``rows_per_thread`` rows a thread), "tile" (the tile kernel of
-    csrc/dia_window.cuh, with its ``window_plan``) or "loop" (one row a
-    thread, a runtime loop over K that reads the offsets from the card:
-    dia_spmv_kernel, or dia_sym_spmm's direct kernel)."""
+    csrc/dia_window.cuh, with its ``window_plan``), "stream" (the
+    persistent kernel of csrc/dia_stream.cu, with its ``stream_plan``) or
+    "loop" (one row a thread, a runtime loop over K that reads the offsets
+    from the card: dia_spmv_kernel, or dia_sym_spmm's direct kernel)."""
 
     kernel: str
     rows_per_thread: int = 1
@@ -344,7 +511,13 @@ def route(offsets: tuple[int, ...], symmetric: bool, block: bool,
     (symmetric), or with ``block`` dia_spmm (vanilla) and dia_sym_spmm
     (symmetric), for these offsets and storage ``dtype``. Made once per key
     and kept. No choice depends on the rows or the block width: on the
-    card none changed from 41k to 10M rows, nor from 3 to 11 columns."""
+    card none changed from 41k to 10M rows, nor from 3 to 11 columns.
+    dia_sym_spmv runs the stream kernel where the tile kernel's plan misses
+    SMEM_TARGET at every R and the read offsets form at least two clusters
+    that ``stream_plan`` holds: offsets that span planes."""
+    if (symmetric and not block and stream_plan(offsets, dtype) is not None
+            and window_plan(offsets, True, 1, dtype).smem_bytes > SMEM_TARGET):
+        return Route("stream")
     if symmetric != block:  # dia_sym_spmv, dia_spmm
         return Route("tile")
     if symmetric or len(offsets) not in ROWS_K:  # dia_sym_spmm; dia_spmv at other K
@@ -360,7 +533,7 @@ def route(offsets: tuple[int, ...], symmetric: bool, block: bool,
 # the C entry point of each (route kernel, symmetric, block) a wrapper launches
 ENTRIES = {("rows", False, False): "dia_spmv_rows", ("loop", False, False): "dia_spmv",
            ("loop", True, True): "dia_sym_spmm", ("tile", True, False): "dia_sym_spmv",
-           ("tile", False, True): "dia_spmm"}
+           ("tile", False, True): "dia_spmm", ("stream", True, False): "dia_sym_spmv_stream"}
 
 
 @functools.lru_cache(maxsize=256)
@@ -383,6 +556,13 @@ def entry(r: Route, offsets: tuple[int, ...], symmetric: bool, block: bool, nrhs
     if r.kernel == "loop":
         offs = device_offsets(offsets, device)
         return name, (offs.data_ptr(),) + ((nrhs,) if block else ()), (offs,)
+    if r.kernel == "stream":  # the plan's words in host memory, passed by value
+        plan = stream_plan(offsets, dtype)
+        if plan is None:
+            raise ValueError(f"the DIA stream kernel cannot hold offsets {offsets}")
+        words = (ctypes.c_int * len(plan.words))(*plan.words)
+        zeros = device_zeros(len(offsets) * LANES, dtype, device)
+        return name, (ctypes.addressof(words), zeros.data_ptr()), (words, zeros)
     plan, table = device_window_plan(offsets, symmetric, nrhs, dtype, device)
     args = (table.data_ptr(), plan.rows, plan.smem_bytes) + ((nrhs,) if block else ())
     return name, args, (table,)
@@ -395,12 +575,13 @@ def launch(r: Route, data: torch.Tensor, x2: torch.Tensor, offsets: tuple[int, .
     launch fails. The wrappers call it with ``route``'s choice."""
     nd, nr = data.shape[0], data.shape[1]
     nrhs = x2.shape[1] // LANES
-    if r.kernel == "tile" or r.rows_per_thread > 1:
+    if r.kernel in ("tile", "stream") or r.rows_per_thread > 1:
         _check_aligned(data, x2)
     name, args, _ = entry(r, offsets, symmetric, block, nrhs, data.dtype, x2.device)
     y2 = torch.empty_like(x2)
     _build.launch(name, x2.device, data.data_ptr(), x2.data_ptr(), y2.data_ptr(),
-                  nr * LANES, len(offsets), *args, nd, key=KEYS[symmetric, block])
+                  nr * LANES, len(offsets), *args, nd,
+                  key=STREAM_KEY if r.kernel == "stream" else KEYS[symmetric, block])
     return y2
 
 
