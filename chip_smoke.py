@@ -52,6 +52,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      route must keep the tile kernel): the same bits, within TOL_KERNEL of
      the plain version, one launch each under its key; device ms of each
      in turns beside the plain version's and the bound (phase_dia_stream);
+ 25. (after 24) DOLFINx's P1 Poisson operator of poisson2d_4480.matvec
+     (bench_h100/matrices/poisson2d_p1.py: 4480 x 2240 cells, 10.04M
+     dofs, its level order) through the general-sparsity path as the
+     benchmark's System builds it, build_dist_matrix(well, symmetric
+     float64): the host seconds by phase, both stacks' geometry and
+     layout_bytes; each stack's kernel vs its plain version; one matvec 2
+     launches under "well" and none under the DIA or DS keys; the matvec
+     vs the host CSR (<= 1e-14 of || |A| |x| ||), twice the same bits;
+     device ms of the L and L^T launches and of the whole apply (the rest
+     is the torch glue) beside each launch's row-list bound, the apply's
+     least bytes and layout_bytes, with cuSPARSE's float64 CSR @ x
+     (phase_poisson2d);
   7. the WELL kernel, which reads each stack's warp-sliced row lists, vs
      their plain torch version, fp32 and fp64 (and that plain version vs
      the WELL formula's, bit for bit, here and wherever a single-RHS WELL
@@ -1219,6 +1231,91 @@ def rows_stats(ptr, nnz: int) -> dict:
     entries = int(ptr[:, -1].sum())
     return dict(rows_entries=entries, rows_occupancy=nnz / max(entries, 1),
                 rows_widest_slice=int((ptr[:, 1:] - ptr[:, :-1]).max()) // 32)
+
+
+POISSON_CELLS = (4480, 2240)  # poisson2d_4480.matvec's mesh
+
+
+def phase_poisson2d(dev, cells=POISSON_CELLS) -> dict:
+    """Phase 25: DOLFINx's P1 Poisson operator (the benchmark's
+    ``poisson2d_p1`` generator, its level order) on ``cells`` through
+    build_dist_matrix(well, symmetric float64), as the benchmark's System
+    builds it; the gates and timings of the module doc's item 25. Returns
+    the timing row."""
+    from bench_h100 import roofline
+    from bench_h100.matrices import poisson2d_p1
+
+    cx, cy = cells
+    name = f"poisson2d_p1 {cx}x{cy}"
+    t0 = time.perf_counter()
+    a = poisson2d_p1.generate({"cx": cx, "cy": cy})
+    host = CSRHost(a.rowptr, a.colind, a.values, a.ncols)
+    t_gen = time.perf_counter() - t0
+    before = dict(dist_matrix_mod.build_seconds)
+    t0 = time.perf_counter()
+    A = build_dist_matrix(host, symmetric=True, dtype=np.float64,
+                          local_format="well", device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    if A.local_format != "well" or A.dtype != torch.float64:
+        fail(f"25 {name}: built {A.local_format} {A.dtype}")
+    layout = dist_matrix_mod.layout_bytes["well"]
+    # the strict lower triangle's nonzeros: the row lists keep no stored zero
+    rows = np.repeat(np.arange(a.nrows, dtype=np.int64), np.diff(a.rowptr))
+    nonzero = int(np.count_nonzero((a.colind < rows) & (a.values != 0)))
+    del rows
+    show("25.build", matrix=name, rows=a.nrows, nnz=a.nnz, lower_nnz=a.lower_nnz(),
+         generate_s=t_gen, build_s=t_build,
+         **{f"{k}_s": dist_matrix_mod.build_seconds[k] - before[k] for k in before},
+         well_meta=list(A.well_meta), wellT_meta=list(A.wellT_meta),
+         far_nnz=A.well_far_nnz, farT_nnz=A.well_farT_nnz,
+         pos_dtype=str(A.local_rows_pos.dtype), layout_bytes=layout,
+         apply_bytes=roofline.apply_bytes(a, True, "float64"),
+         memory_allocated=torch.cuda.memory_allocated(dev),
+         L=rows_stats(A.local_rows_ptr, nonzero), LT=rows_stats(A.local_rowsT_ptr, nonzero))
+    x = 2.0 * np.random.default_rng(25).random(a.nrows) - 1.0
+    x2 = A.to_dist(x)
+    stacks = {"L": ("", A.well_meta[2]), "LT": ("T", A.wellT_meta[2])}
+    for stack, (tag, tg) in stacks.items():
+        _, err, mabs = well_compare(f"25 spmv_well {name} {stack}", dist_rows(A, tag),
+                                    dist_well(A, tag), x2, tg, TOL_KERNEL["float64"])
+        show("25.kernel", kernel="spmv_well", dtype="float64", matrix=name,
+             stack=stack, rel_l2_vs_plain=err, max_abs_vs_plain=mabs)
+    reset_counters()
+    A.matvec(x2)
+    torch.cuda.synchronize()
+    counts = launched("well", "well_ds", "dia", "dia_sym", "dia_sym_stream")
+    if counts != {"well": 2, "well_ds": 0, "dia": 0, "dia_sym": 0, "dia_sym_stream": 0}:
+        fail(f"25 {name}: one matvec launched {counts}")
+    y = A.from_dist(same_bits(f"25 {name} matvec", lambda: A.matvec(x2)))
+    absolute = CSRHost(a.rowptr, a.colind, np.abs(a.values), a.ncols)
+    err = float(np.linalg.norm(y - host.matvec(x))
+                / np.linalg.norm(absolute.matvec(np.abs(x))))
+    if not err <= 1e-14:
+        fail(f"25 {name}: matvec vs host CSR {err:.3e}")
+    show("25.matvec", matrix=name, launches=counts, apply_error_vs_host=err)
+
+    row = {"matrix": name, "dtype": "float64"}
+    for stack, (tag, tg) in stacks.items():
+        ops = dist_rows(A, tag)
+        ms = device_ms(lambda v, ops=ops, tg=tg: spmv_well_cuda.spmv_well_stacked(
+            *ops, x2, tg), x2)
+        entries = int(ops[2][:, -1].sum())
+        nbytes = (entries * (ops[0].element_size() + ops[1].element_size())
+                  + sum(t.numel() * t.element_size() for t in ops[2:])
+                  + 2 * x2.numel() * x2.element_size())
+        row[stack] = dict(ms=ms, bound_ms=bound_ms(nbytes), entries=entries)
+    row["plain_L_ms"] = yardstick_ms(lambda v: spmv_well_rows_plain(
+        *dist_rows(A), x2, A.well_meta[2]), x2)
+    row["apply_ms"] = device_ms(lambda v: A.matvec(x2), x2)
+    row["glue_ms"] = row["apply_ms"] - row["L"]["ms"] - row["LT"]["ms"]
+    row["apply_bound_ms"] = bound_ms(roofline.apply_bytes(a, True, "float64"))
+    row["layout_bound_ms"] = bound_ms(layout)
+    row["library_ms"] = library_device_ms(host, dev, 1.0, np.float64)
+    show("25.timing", **row)
+    del A, x2
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_well_kernel(dev):
@@ -5293,6 +5390,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_dia_stream(dev)
     show("24.seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_poisson2d(dev)
+    show("25.seconds", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     max_abs["spmv_well"], a4, w4 = phase_well_kernel(dev)

@@ -205,15 +205,23 @@ def split_window(
     lens = a.row_nnz()
     rows = np.repeat(np.arange(a.nrows, dtype=np.int64), lens)
     cols = a.colind.astype(np.int64)
-    tile_of = rows // (LANES * tile_groups)
     seg = cols // LANES
     near = np.ones(a.nnz, dtype=bool)
-    for t in np.unique(tile_of):
-        sel = np.flatnonzero(tile_of == t)
+    # CSR rows ascend, so each tile's entries are one contiguous run: its
+    # bounds come from the row pointer, and only tiles whose segments span
+    # the cap or more are searched
+    tile_rows = LANES * tile_groups
+    bounds = np.asarray(a.rowptr, dtype=np.int64)[
+        np.minimum(np.arange(0, a.nrows + tile_rows, tile_rows), a.nrows)]
+    starts, ends = bounds[:-1], bounds[1:]
+    starts, ends = starts[ends > starts], ends[ends > starts]
+    if len(starts):
+        span = (np.maximum.reduceat(seg, starts)
+                - np.minimum.reduceat(seg, starts))
+        starts, ends = starts[span >= wseg_cap], ends[span >= wseg_cap]
+    for e0, e1 in zip(starts.tolist(), ends.tolist()):
+        sel = np.arange(e0, e1)
         segs = seg[sel]
-        lo, hi = segs.min(), segs.max()
-        if hi - lo < wseg_cap:
-            continue
         order = np.argsort(segs)
         s_sorted = segs[order]
         # two-pointer max-coverage window of width wseg_cap

@@ -84,6 +84,10 @@ HUB_CHUNK = 64
 # arrays: DIA/WELL/ELL blocks, transposes, diagonals), "upload" (the
 # copies to the device)
 build_seconds = {"partition": 0.0, "pack": 0.0, "upload": 0.0}
+# the bytes one ``matvec`` of the newest assembled operator reads, under its
+# local format (one key): its device arrays, the halo plan's tables where
+# it exchanges, x once and y once (``_layout_bytes``)
+layout_bytes: dict = {}
 
 
 def _lap(phase: str, t0: float) -> float:
@@ -524,6 +528,51 @@ def _stacked_mult(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
             y = halo_scatter_add(gz, y, plan.send_idx, plan.recv_pos,
                                  plan.rounds)
     return y.reshape(nd * A.row_lane_rows, LANES)
+
+
+def _layout_bytes(A: DistMatrix) -> int:
+    """The bytes of ``layout_bytes``: the arrays one ``matvec`` reads on the
+    route that ``_stacked_mult`` (or ``_stacked_mult_ds``) and
+    ``_hub_apply`` take, each double-single array with its lo plane, the
+    halo plan's tables where the apply exchanges, x once and y once (a
+    double-single apply reads and writes both planes)."""
+    fmt = A.local_format
+    ghosts = A.plan.nghost_pad > 0 and len(A.plan.rounds) > 0
+    names = []
+    if fmt in ("dia", "dia_ds"):
+        names.append("local_dia_data")
+    elif fmt in ("well", "well_ds"):
+        tags = ("", "T") if A.symmetric else ("",)
+        names += [f"local_rows{t}_{f}" for t in tags
+                  for f in ("values", "pos", "ptr")]
+        names += [f"local_well{t}_w0" for t in tags]
+        if fmt == "well":
+            names += ["far_ell_colind", "far_ell_values", "farT_ell_colind",
+                      "farT_ell_values"]
+        else:
+            if A.well_far_nnz > 0:
+                names += ["local_colind", "local_values"]
+            names += ["farT_cols", "farT_vals"]
+    else:
+        names += ["local_colind", "local_values"]
+        if A.symmetric:
+            names += ["localT_colind", "localT_values"]
+    if A.symmetric and fmt != "dia":
+        names.append("diagonal")
+    if ghosts:
+        names += ["remote_colind", "remote_values"]
+        if A.symmetric:
+            names += ["remoteT_colind", "remoteT_vals"]
+    if A.hub_nnz > 0:
+        names += ["hub_slot", "hub_chunks", "hub_colind", "hub_values"]
+    if fmt.endswith("_ds"):
+        names += [f"{n}_lo" for n in names]
+    arrays = [t for t in (getattr(A, n, None) for n in names) if t is not None]
+    if ghosts:
+        arrays += [A.plan.send_idx, A.plan.recv_pos]
+    itemsize = 8 if fmt.endswith("_ds") else A.dtype.itemsize
+    vectors = A.n_devices * (A.col_pad + A.row_pad) * itemsize
+    return sum(t.numel() * t.element_size() for t in arrays) + vectors
 
 
 def _stacked_mult_transpose(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
@@ -1424,6 +1473,8 @@ def build_dist_matrix(
     )
     if hubs is not None:
         A = _attach_hubs(A, hubs, dtype)
+    layout_bytes.clear()
+    layout_bytes[local_format] = _layout_bytes(A)
     # what transposed() and the preconditioner setups rebuild from (plain
     # attributes, as in the reference): the host matrix, whole (hub rows
     # stitched back in), and the keyword arguments, never symmetric=True
