@@ -57,13 +57,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      dofs, its level order) through the general-sparsity path as the
      benchmark's System builds it, build_dist_matrix(well, symmetric
      float64): the host seconds by phase, both stacks' geometry and
-     layout_bytes; each stack's kernel vs its plain version; one matvec 2
-     launches under "well" and none under the DIA or DS keys; the matvec
-     vs the host CSR (<= 1e-14 of || |A| |x| ||), twice the same bits;
-     device ms of the L and L^T launches and of the whole apply (the rest
-     is the torch glue) beside each launch's row-list bound, the apply's
-     least bytes and layout_bytes, with cuSPARSE's float64 CSR @ x
-     (phase_poisson2d);
+     layout_bytes; each stack's well_spmv vs its plain version; the fused
+     well_sym_spmv bit for bit against the two-launch route (well_spmv on L
+     and on L^T, then y + L^T x and + d x in torch) and within TOL_KERNEL
+     of its plain version; one matvec 1 launch under "well_sym" and none
+     under "well", the DIA or DS keys; the matvec vs the host CSR (<= 1e-14
+     of || |A| |x| ||), twice the same bits; device ms of the L and L^T
+     well_spmv launches beside their row-list bounds, of the fused launch
+     beside layout_bytes' bound, of the two-launch route (its glue the rest
+     past the two launches) and of the whole apply beside its least bytes,
+     with cuSPARSE's float64 CSR @ x (phase_poisson2d); the fused
+     launch's ms, bound, plain and cuSPARSE ms are the well_sym_spmv entry
+     of the kernels line;
   7. the WELL kernel, which reads each stack's warp-sliced row lists, vs
      their plain torch version, fp32 and fp64 (and that plain version vs
      the WELL formula's, bit for bit, here and wherever a single-RHS WELL
@@ -83,10 +88,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      for bit against the block kernel's column at nrhs 1 (both kernels read
      the row lists), with the row
      lists' geometry and the packer's seconds printed; the WELL
-     launch counter, zeroed just before the solves, must show every apply
-     went through the kernel (2 launches per symmetric apply, 1 per
-     vanilla one); A x at each solution, through the kernel, must agree
-     with the host CSR (1e-12 fp64, 2e-5 fp32, relative to || |A| |x| ||);
+     launch counters, zeroed just before the solves, must show every apply
+     went through a kernel (1 well_sym launch per symmetric apply and no
+     well launch, 1 well launch per vanilla one); A x at each solution,
+     through the kernel, must agree with the host CSR (1e-12 fp64, 2e-5 fp32, relative to || |A| |x| ||);
      the fp64 solve runs again through the plain torch WELL version (8b),
      which must take the same iterations within 1% and reach a solution
      within 1e-8 (relative L2) of the kernel path's — on this operator
@@ -196,7 +201,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      the float64 host residual within 0.5 rtol of the reported one (MINRES
      in the preconditioner's norm); (c) FSAI-PCG on phase 8's 800k FEM (G
      and G^T vanilla WELL, their stacks vs plain): fewer iterations than
-     phase 8's Jacobi-PCG, 4 WELL launches an iteration; (d) SPAI-GMRES
+     phase 8's Jacobi-PCG, a well_sym launch (A) and 2 well launches (G,
+     G^T) an iteration; (d) SPAI-GMRES
      and SPAI-BiCGStab (restarted after a breakdown) at 1600^2 beside
      Jacobi, M's DIA stack vs plain, the SPAI runs converged; (e) LSQR, 200
      iterations at NX^2 (rnorm history within 1e-4 of the plain versions'
@@ -339,6 +345,7 @@ from spmv_torch.ops.spmv_well import (
     spmv_well_rows_plain,
     spmv_well_stacked_plain,
     spmv_well_sym,
+    spmv_well_sym_rows_plain,
 )
 from spmv_torch.ops.spmv_well_ds import (
     csr_to_well_ds,
@@ -1281,11 +1288,34 @@ def phase_poisson2d(dev, cells=POISSON_CELLS) -> dict:
                                     dist_well(A, tag), x2, tg, TOL_KERNEL["float64"])
         show("25.kernel", kernel="spmv_well", dtype="float64", matrix=name,
              stack=stack, rel_l2_vs_plain=err, max_abs_vs_plain=mabs)
+    lower = (*dist_rows(A), A.well_meta[2])
+    upper = (*dist_rows(A, "T"), A.wellT_meta[2])
+
+    def fused(v):
+        return spmv_well_cuda.spmv_well_sym_stacked(lower, upper, A.diagonal, v)
+
+    def two_launches(v):
+        """The symmetric apply before well_sym_spmv: a launch a stack, then
+        the torch glue."""
+        return spmv_well_sym_rows_plain(lower, upper, A.diagonal, v,
+                                        apply=spmv_well_cuda.spmv_well_stacked)
+
+    y_f = fused(x2)
+    if not torch.equal(y_f, two_launches(x2)):
+        fail(f"25 {name}: well_sym_spmv differs from the two-launch route")
+    _, err, mabs = check_close(f"25 well_sym_spmv {name}", y_f,
+                               spmv_well_sym_rows_plain(lower, upper, A.diagonal, x2),
+                               TOL_KERNEL["float64"])
+    show("25.kernel", kernel="well_sym_spmv", dtype="float64", matrix=name,
+         same_bits_as_two_launches=True, rel_l2_vs_plain=err, max_abs_vs_plain=mabs)
+    fused_abs = mabs
+    del y_f
     reset_counters()
     A.matvec(x2)
     torch.cuda.synchronize()
-    counts = launched("well", "well_ds", "dia", "dia_sym", "dia_sym_stream")
-    if counts != {"well": 2, "well_ds": 0, "dia": 0, "dia_sym": 0, "dia_sym_stream": 0}:
+    counts = launched("well_sym", "well", "well_ds", "dia", "dia_sym", "dia_sym_stream")
+    if counts != {"well_sym": 1, "well": 0, "well_ds": 0, "dia": 0, "dia_sym": 0,
+                  "dia_sym_stream": 0}:
         fail(f"25 {name}: one matvec launched {counts}")
     y = A.from_dist(same_bits(f"25 {name} matvec", lambda: A.matvec(x2)))
     absolute = CSRHost(a.rowptr, a.colind, np.abs(a.values), a.ncols)
@@ -1295,7 +1325,7 @@ def phase_poisson2d(dev, cells=POISSON_CELLS) -> dict:
         fail(f"25 {name}: matvec vs host CSR {err:.3e}")
     show("25.matvec", matrix=name, launches=counts, apply_error_vs_host=err)
 
-    row = {"matrix": name, "dtype": "float64"}
+    row = {"matrix": name, "dtype": "float64", "max_abs_vs_plain": fused_abs}
     for stack, (tag, tg) in stacks.items():
         ops = dist_rows(A, tag)
         ms = device_ms(lambda v, ops=ops, tg=tg: spmv_well_cuda.spmv_well_stacked(
@@ -1307,8 +1337,12 @@ def phase_poisson2d(dev, cells=POISSON_CELLS) -> dict:
         row[stack] = dict(ms=ms, bound_ms=bound_ms(nbytes), entries=entries)
     row["plain_L_ms"] = yardstick_ms(lambda v: spmv_well_rows_plain(
         *dist_rows(A), x2, A.well_meta[2]), x2)
+    row["well_sym_ms"] = device_ms(lambda v: fused(x2), x2)
+    row["two_launch_ms"] = device_ms(lambda v: two_launches(x2), x2)
+    row["two_launch_glue_ms"] = row["two_launch_ms"] - row["L"]["ms"] - row["LT"]["ms"]
+    row["plain_ms"] = yardstick_ms(lambda v: spmv_well_sym_rows_plain(
+        lower, upper, A.diagonal, x2), x2)
     row["apply_ms"] = device_ms(lambda v: A.matvec(x2), x2)
-    row["glue_ms"] = row["apply_ms"] - row["L"]["ms"] - row["LT"]["ms"]
     row["apply_bound_ms"] = bound_ms(roofline.apply_bytes(a, True, "float64"))
     row["layout_bound_ms"] = bound_ms(layout)
     row["library_ms"] = library_device_ms(host, dev, 1.0, np.float64)
@@ -1459,7 +1493,7 @@ def well_stats(A, a):
 
 def phase_fem_main_path(dev):
     """Phase 8: the general-sparsity main path through the port's entry
-    points. Returns (WELL launch count of the solves, its/s, the RCM'd FEM
+    points. Returns (the solves' launches under "well" and "well_sym", its/s, the RCM'd FEM
     matrix, the symmetric fp32 operator, the largest abs kernel-vs-plain
     difference on its stacks, (iterations, solution) of the fp64 solve, the
     symmetric fp32 Jacobi-PCG's iterations)."""
@@ -1520,7 +1554,7 @@ def phase_fem_main_path(dev):
     reset_counters()
     results = []
     for dt, sym, fmt, A, b, b_host, t_asm in runs:
-        before = _build.launches["well"]
+        before = launched("well_sym", "well")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = cg(A.as_linear_operator(), b, kmax=20000, rtol=1e-6,
@@ -1528,8 +1562,8 @@ def phase_fem_main_path(dev):
         torch.cuda.synchronize()
         results.append((dt, sym, fmt, A, res, b_host, t_asm,
                         time.perf_counter() - t0,
-                        _build.launches["well"] - before))
-    counts = launched("well")
+                        {k: n - before[k] for k, n in launched("well_sym", "well").items()}))
+    counts = launched("well", "well_sym")
 
     its_per_s = {}
     for dt, sym, fmt, A, res, b_host, t_asm, t_solve, grown in results:
@@ -1537,9 +1571,9 @@ def phase_fem_main_path(dev):
         tag = f"{'symmetric' if sym else 'vanilla'} {dname} ({fmt})"
         if not res.converged:
             fail(f"FEM CG {tag} did not converge in {res.iterations}")
-        per_apply = 2 if sym else 1
-        if grown < per_apply * (res.iterations + 1):
-            fail(f"FEM CG {tag}: {grown} WELL launches for "
+        key, other = ("well_sym", "well") if sym else ("well", "well_sym")
+        if grown[key] < res.iterations + 1 or grown[other]:
+            fail(f"FEM CG {tag}: WELL launches {grown} for "
                  f"{res.iterations + 1} applies")
         x = A.from_dist(res.x).astype(np.float64)
         if not np.all(np.isfinite(x)):
@@ -1577,11 +1611,11 @@ def phase_fem_main_path(dev):
             fp64 = (res.iterations, x)
         its_per_s[tag] = res.iterations / t_solve
         show("8.main_path", **fields)
-    if counts["well"] == 0:
-        fail("the FEM main path launched no WELL kernel")
+    if counts["well"] == 0 or counts["well_sym"] == 0:
+        fail(f"the FEM main path launched {counts}")
     show("8.main_path", launches=counts)
     phase_fem_plain_cg(runs[:2])
-    return counts["well"], its_per_s, a, runs[0][3], max_abs, fp64, results[0][4].iterations
+    return counts, its_per_s, a, runs[0][3], max_abs, fp64, results[0][4].iterations
 
 
 def phase_fem_plain_cg(runs):
@@ -2326,7 +2360,7 @@ def block_launches() -> dict:
 
 def single_launches() -> int:
     """Launches of the single-RHS kernels, all together."""
-    return sum(launched("dia", "dia_sym", "well", "dia_ds", "well_ds").values())
+    return sum(launched("dia", "dia_sym", "well", "well_sym", "dia_ds", "well_ds").values())
 
 
 def lanes_block(gen: torch.Generator, rows: int, nrhs: int, dtype, dev) -> torch.Tensor:
@@ -3286,7 +3320,7 @@ def kernel_of(A) -> str | None:
 
 
 def launch_counts() -> dict:
-    return launched("dia", "dia_sym", "well")
+    return launched("dia", "dia_sym", "well", "well_sym")
 
 
 def add_counts(totals: dict, got: dict) -> None:
@@ -3353,7 +3387,7 @@ def transpose_case(tag, a, A, gen, max_abs, totals, bits_gate=False):
         y_t = same_bits(f"19a {tag} transposed().matvec", lambda: At.matvec(qt))
     torch.cuda.synchronize()
     got = launch_counts()
-    want = {"dia": 0, "dia_sym": 0, "well": 0}
+    want = {"dia": 0, "dia_sym": 0, "well": 0, "well_sym": 0}
     for op in (A, At):
         if kernel_of(op):
             want[kernel_of(op)] += 2
@@ -3472,7 +3506,7 @@ def solve_launches(name, res, A, per_cycle: int) -> dict:
         outer, prec = len(bodies) + 2 * sum(bodies), 2 * sum(bodies)
     else:  # minres, cg: the first residual and one apply an iteration
         outer, prec = 1 + k, 1 + k
-    want = {"dia": prec * per_cycle, "dia_sym": 0, "well": 0}
+    want = {"dia": prec * per_cycle, "dia_sym": 0, "well": 0, "well_sym": 0}
     want["dia_sym" if A.symmetric else "dia"] += outer
     return want
 
@@ -3582,8 +3616,8 @@ def phase_fsai(a_fem, A_fem, jacobi_its, dev, max_abs, totals):
     vanilla WELL operators built with A's own settings (fsai_preconditioner,
     its setup timed in its parts). Gates: G's and G^T's stacks through
     well_spmv vs plain; converged in fewer iterations than phase 8's
-    Jacobi-PCG; 4 WELL launches a preconditioned iteration (L and L^T of A,
-    G, G^T), exactly."""
+    Jacobi-PCG; 3 WELL launches a preconditioned iteration (A's well_sym,
+    well for G and G^T), exactly."""
     split = {}
     prec = fsai_preconditioner(A_fem, timings=split)
     G, Gt = prec.operators
@@ -3610,7 +3644,8 @@ def phase_fsai(a_fem, A_fem, jacobi_its, dev, max_abs, totals):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     got = launch_counts()
-    want = {"dia": 0, "dia_sym": 0, "well": 4 * (res.iterations + 1)}
+    want = {"dia": 0, "dia_sym": 0, "well": 2 * (res.iterations + 1),
+            "well_sym": res.iterations + 1}
     if got != want or other_launches(got):
         fail(f"19c: launches {got}, want {want} for {res.iterations} iterations")
     add_counts(totals, got)
@@ -3716,9 +3751,9 @@ def phase_lsqr_pipelined(a_cd, A_cd, As, plain_solves, dev, totals):
         got = launch_counts()
         runs[tag] = (res, time.perf_counter() - t0, got, other_launches(got))
     res, seconds, got, others = runs["kernel"]
-    want = {"dia": 1 + 2 * LSQR_ITERS, "dia_sym": 0, "well": 0}
+    want = {"dia": 1 + 2 * LSQR_ITERS, "dia_sym": 0, "well": 0, "well_sym": 0}
     if (got != want or others or runs["plain"][3]
-            or runs["plain"][2] != {"dia": 0, "dia_sym": 0, "well": 0}):
+            or runs["plain"][2] != {"dia": 0, "dia_sym": 0, "well": 0, "well_sym": 0}):
         fail(f"19e LSQR: launches {got} (plain run {runs['plain'][2]}), want {want}")
     add_counts(totals, got)
     hk, hp = (runs[t][0].history.cpu().numpy().astype(np.float64) for t in ("kernel", "plain"))
@@ -3737,7 +3772,7 @@ def phase_lsqr_pipelined(a_cd, A_cd, As, plain_solves, dev, totals):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     got = launch_counts()
-    want = {"dia": 0, "dia_sym": 2 + res.iterations, "well": 0}
+    want = {"dia": 0, "dia_sym": 2 + res.iterations, "well": 0, "well_sym": 0}
     if got != want or other_launches(got):
         fail(f"19e cg_pipelined: launches {got}, want {want}")
     add_counts(totals, got)
@@ -3917,7 +3952,7 @@ def phase_krylov(a_lap, head, plain_solves, a_fem, A_fem, jacobi_its, dev, max_a
     19f's demos run beside 19a and are checked last). Returns the
     single-RHS launch counts of its gated runs and 19b's iterations by
     solver."""
-    totals = {"dia": 0, "dia_sym": 0, "well": 0}
+    totals = {"dia": 0, "dia_sym": 0, "well": 0, "well_sym": 0}
     t0 = time.perf_counter()
     demos = start_demos()
     try:
@@ -3987,7 +4022,8 @@ def sync_counter():
 def single_counts() -> dict:
     """Every kernel's launch counter: the single-RHS (``launch_counts``),
     the double-single single-RHS and the block ones."""
-    return {**launched("dia", "dia_sym", "well", "dia_ds", "well_ds"), **block_launches()}
+    return {**launched("dia", "dia_sym", "well", "well_sym", "dia_ds", "well_ds"),
+            **block_launches()}
 
 
 def launch_gate(tag: str, got: dict, want: dict) -> None:
@@ -4500,6 +4536,7 @@ def plain_kernels():
     swaps = {"spmv_dia_stacked": spmv_dia_stacked_plain,
              "spmv_dia_ds_stacked": spmv_dia_ds_stacked_plain,
              "spmv_well_stacked": spmv_well_rows_plain,
+             "spmv_well_sym_stacked": spmv_well_sym_rows_plain,
              "spmv_well_ds_stacked": spmv_well_ds_rows_plain}
     saved = {name: getattr(dist_matrix_mod, name) for name in swaps}
     for name, fn in swaps.items():
@@ -5391,15 +5428,16 @@ def main() -> int:
     phase_dia_stream(dev)
     show("24.seconds", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    phase_poisson2d(dev)
+    poisson = phase_poisson2d(dev)
     show("25.seconds", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     max_abs["spmv_well"], a4, w4 = phase_well_kernel(dev)
     show("7.seconds", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    (counts["well"], fem_its, a_fem, A_fem, fem_abs, fem_fp64,
+    (fem_counts, fem_its, a_fem, A_fem, fem_abs, fem_fp64,
      fem_jacobi_its) = phase_fem_main_path(dev)
+    counts.update(fem_counts)
     max_abs["spmv_well"] = max(max_abs["spmv_well"], fem_abs)
     show("8.seconds", seconds=time.perf_counter() - t0, it_per_s=fem_its)
     t0 = time.perf_counter()
@@ -5479,6 +5517,14 @@ def main() -> int:
     del amg_head
     show("10.seconds", seconds=time.perf_counter() - t0,
          ds_launches_per_cg_iteration=per_iter)
+    # the fused symmetric apply is timed on phase 25's operator, against
+    # its layout_bytes bound
+    timing["well_sym_spmv"] = {"ms": poisson["well_sym_ms"],
+                               "plain_ms": poisson["plain_ms"],
+                               "bound_ms": poisson["layout_bound_ms"],
+                               "library_ms": poisson["library_ms"],
+                               "matrix": poisson["matrix"]}
+    max_abs["well_sym_spmv"] = poisson["max_abs_vs_plain"]
 
     kernels = []
     for kname, key, source, replaces in (
@@ -5488,6 +5534,8 @@ def main() -> int:
              "spmv_tpu/ops/spmv_dia_pallas.py:265"),
             ("spmv_well", "well", "spmv_torch/csrc/spmv_well.cu",
              "spmv_tpu/ops/spmv_well_pallas.py:43"),
+            ("well_sym_spmv", "well_sym", "spmv_torch/csrc/spmv_well.cu",
+             "spmv_tpu/ops/spmv_well_pallas.py:579"),
             ("dia_ds_spmv", "dia_ds", "spmv_torch/csrc/spmv_dia_ds.cu",
              "spmv_tpu/ops/spmv_dia_ds_pallas.py:164"),
             ("well_ds_spmv", "well_ds", "spmv_torch/csrc/spmv_well_ds.cu",
@@ -5509,7 +5557,7 @@ def main() -> int:
             "max_abs_err": max_abs[kname], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": "bytes", "library_ms": row["library_ms"],
-            **{k: row[k] for k in ("other_shapes", "nrhs", "single_rhs_x8_ms", "nrhs1",
+            **{k: row[k] for k in ("matrix", "other_shapes", "nrhs", "single_rhs_x8_ms", "nrhs1",
                                    "timing", "chained_ms", "library_chained_ms")
                if k in row},
         })

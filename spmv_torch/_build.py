@@ -47,6 +47,9 @@ _DIA_STREAM_ARGS = [_P, _P, _P, _L, _I, _P, _P, _I, _P]  # data, x, y, npad,
 _WELL_ARGS = [_P] * 6 + [_L, _L, _I, _L, _I, _P]  # values, pos, slice_ptr,
 #                 w0, x, y, nslices, entries, tile_groups, col_pad, nshards,
 #                 stream (the row lists)
+_WELL_SYM_ARGS = ([_P] * 4 + [_L, _I]) * 2 + [_P, _P, _P, _L, _L, _I, _P]
+#     L's values, pos, slice_ptr, w0, entries, tile_groups, the same of L^T,
+#     diagonal, x, y, nslices, col_pad, nshards, stream
 _DIA_DS_ARGS = [_P, _P, _P, _P, _P, _P, _L, _I, _P, _I, _P]  # data hi, lo,
 #                 x hi, lo, y hi, lo, npad, ndiags, offsets, nshards, stream
 _WELL_DS_ARGS = [_P] * 9 + [_L, _L, _I, _L, _I, _P]  # values hi, lo, pos,
@@ -76,6 +79,8 @@ KERNEL_ENTRIES = {
     **{f"dia_sym_spmv_stream_{t}": _DIA_STREAM_ARGS for t in ("f32", "f64", "bf16")},
     **{f"well_spmv_{t}_{p}": _WELL_ARGS for t in ("f32", "f64")
        for p in ("i16", "i32")},
+    **{f"well_sym_spmv_{t}_{p}_{q}": _WELL_SYM_ARGS for t in ("f32", "f64")
+       for p in ("i16", "i32") for q in ("i16", "i32")},
     "dia_ds_spmv": _DIA_DS_ARGS,
     **{f"well_ds_spmv_{p}": _WELL_DS_ARGS for p in ("i16", "i32")},
     **{f"dia_spmm_{t}": _DIA_WIN_SPMM_ARGS for t in ("f32", "f64", "bf16")},

@@ -13,7 +13,9 @@ in order; it equals the row-list version bit for bit (each row sums the
 same terms in the same order, and every padded term adds an exact zero)
 and is the oracle both are held to. The entry points go through the
 wrapper, which takes the plain version on a CPU tensor and launches the
-kernel on a CUDA tensor.
+kernel on a CUDA tensor. ``spmv_well_sym_rows_plain`` is the plain version
+of the symmetric kernel (``spmv_well_sym_stacked``), which applies both
+row-list stacks of the dual-WELL form and the diagonal in one pass.
 
 The far remainders of the symmetric form are applied as gathers over
 their ELL rectangles (plain torch: on the TPU they were XLA scatter-adds,
@@ -61,17 +63,38 @@ def spmv_well_rows_plain(values: torch.Tensor, pos: torch.Tensor,
                          x2: torch.Tensor, tile_groups: int) -> torch.Tensor:
     """D stacked row lists: values/pos (D, E), slice_ptr (D, S+1), w0
     (D, S/4/tg), x2 (D*col_pad/128, 128) -> y2 (D*S/4, 128). Rows past
-    their slice's width keep their sum (the kernel's thread stops)."""
+    their slice's width keep their sum (the kernel's thread stops); a
+    gather outside [0, col_pad) reads 0, as the kernel's does."""
     nd = values.shape[0]
     xs = x2.reshape(nd, -1)
+    col_pad = xs.shape[1]
     first, width, base, wmax = row_slots(slice_ptr, w0, tile_groups)
     y = values.new_zeros(first.shape)
     for j in range(wmax):
         live = width > j
         e = torch.where(live, first + SLICE * j, 0)
         idx = base + torch.gather(pos, 1, e).to(torch.int64)
-        y = torch.where(live, y + torch.gather(values, 1, e) * torch.gather(xs, 1, idx), y)
+        inside = (idx >= 0) & (idx < col_pad)
+        xj = torch.where(inside, torch.gather(xs, 1, idx.clamp(0, col_pad - 1)), 0)
+        y = torch.where(live, y + torch.gather(values, 1, e) * xj, y)
     return y.reshape(-1, LANES)
+
+
+def spmv_well_sym_rows_plain(lower: tuple, upper: tuple, diagonal: torch.Tensor,
+                             x2: torch.Tensor, apply=spmv_well_rows_plain) -> torch.Tensor:
+    """The symmetric dual-WELL apply y = L x + L^T x + d x of D stacked
+    shards in three steps: ``apply`` over L's row lists, plus the same
+    over L^T's, plus diagonal * x. ``lower`` and ``upper`` are (values,
+    pos, slice_ptr, w0, tile_groups) of the two stacks, diagonal (D, R)
+    and x2 (D*R/128, 128) -> y2 (D*R/128, 128). ``apply`` takes
+    (values, pos, slice_ptr, w0, x2, tile_groups) of one stack, as
+    ``spmv_well_rows_plain`` and ``spmv_well_stacked`` do: with the latter
+    on the card these are the two-launch route that the fused kernel
+    replaced, which it equals bit for bit."""
+    *rows, tg = lower
+    *rows_t, tg_t = upper
+    y = apply(*rows, x2, tg) + apply(*rows_t, x2, tg_t)
+    return y + diagonal.reshape(y.shape) * x2
 
 
 def well_to_2d(a: WellMatrix, x: torch.Tensor) -> torch.Tensor:

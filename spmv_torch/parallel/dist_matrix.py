@@ -16,8 +16,8 @@ works on all shards at once:
 The symmetric path stores the strict lower triangle plus diagonal; ghost
 column contributions return to their owners through the reverse plan. The
 symmetric WELL form ("dual-WELL") also stores the local block's transpose
-as a second WELL stack, so its local apply is two gather launches plus the
-diagonal product. The WELL kernels, single-RHS and block, read each
+as a second WELL stack, and one launch applies both stacks and the
+diagonal. The WELL kernels, single-RHS and block, read each
 stack's warp-sliced row lists (``formats/well.pack_rows``); the WELL
 arrays they are derived from stay on the host.
 
@@ -51,7 +51,7 @@ from spmv_torch.ops.spmm_well_cuda import spmm_well_ds_stacked, spmm_well_stacke
 from spmv_torch.ops.spmv_dia_cuda import spmv_dia_stacked
 from spmv_torch.ops.spmv_dia_ds_cuda import MAX_DIAGS as DS_MAX_DIAGS
 from spmv_torch.ops.spmv_dia_ds_cuda import spmm_dia_ds_stacked, spmv_dia_ds_stacked
-from spmv_torch.ops.spmv_well_cuda import spmv_well_stacked
+from spmv_torch.ops.spmv_well_cuda import spmv_well_stacked, spmv_well_sym_stacked
 from spmv_torch.ops.spmv_well_ds_cuda import spmv_well_ds_stacked
 from spmv_torch.parallel.comm_plan import (
     CommPlan,
@@ -484,6 +484,14 @@ def relayout(x: torch.Tensor, pad_out: int, nd: int) -> torch.Tensor:
     return v.reshape(nd * pad_out // LANES, LANES)
 
 
+def _well_rows(A: DistMatrix, tag: str) -> tuple:
+    """(values, pos, slice_ptr, w0, tile_groups) of the local WELL stack's
+    row lists ("") or of its transpose's ("T")."""
+    return (getattr(A, f"local_rows{tag}_values"), getattr(A, f"local_rows{tag}_pos"),
+            getattr(A, f"local_rows{tag}_ptr"), getattr(A, f"local_well{tag}_w0"),
+            getattr(A, f"well{tag}_meta")[2])
+
+
 def _stacked_mult(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
     """All shards' y = A_s @ x at once (the reference's ``_shard_mult``,
     ell and dia branches, run over the stacked shard axis)."""
@@ -499,9 +507,16 @@ def _stacked_mult(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
         y = spmv_dia_stacked(A.local_dia_data, x2, A.dia_offsets,
                              A.symmetric).reshape(nd, A.row_pad)
     elif A.local_format == "well":
-        y = spmv_well_stacked(A.local_rows_values, A.local_rows_pos,
-                              A.local_rows_ptr, A.local_well_w0, x2,
-                              A.well_meta[2]).reshape(nd, A.row_pad)
+        if A.symmetric:
+            # dual-WELL: L x, L^T x (gathered from the transpose stack) and
+            # the diagonal product in one launch
+            y = spmv_well_sym_stacked(_well_rows(A, ""), _well_rows(A, "T"),
+                                      A.diagonal, x2)
+        else:
+            y = spmv_well_stacked(A.local_rows_values, A.local_rows_pos,
+                                  A.local_rows_ptr, A.local_well_w0, x2,
+                                  A.well_meta[2])
+        y = y.reshape(nd, A.row_pad)
         if A.far_ell_colind is not None:
             y = y + _ell_apply(A.far_ell_colind, A.far_ell_values, x)
     else:
@@ -510,12 +525,6 @@ def _stacked_mult(A: DistMatrix, x2: torch.Tensor) -> torch.Tensor:
         y = y + _ell_apply(A.remote_colind, A.remote_values, ghosts)
     if A.symmetric:
         if A.local_format == "well":
-            # dual-WELL: the local transpose term L^T x is a second gather
-            # launch over the pre-built transpose stack
-            y = y + spmv_well_stacked(A.local_rowsT_values, A.local_rowsT_pos,
-                                      A.local_rowsT_ptr, A.local_wellT_w0, x2,
-                                      A.wellT_meta[2]).reshape(nd, A.row_pad)
-            y = y + A.diagonal * x
             if A.farT_ell_colind is not None:
                 y = y + _ell_apply(A.farT_ell_colind, A.farT_ell_values, x)
         elif A.local_format != "dia":

@@ -445,7 +445,8 @@ def test_dist_matrix_well_runs_through_kernel_on_cuda(cuda):
     y = A.from_dist(A.matvec(A.to_dist(x)))
     want = a.matvec(x)
     assert np.linalg.norm(y - want) <= 1e-12 * np.linalg.norm(want)
-    assert _build.launches["well"] == 2  # L and L^T, D=2 in one launch each
+    # L, L^T and the diagonal in one launch for D=2, no single-stack launch
+    assert (_build.launches["well_sym"], _build.launches["well"]) == (1, 0)
 
 
 def _bits_equal(got, want):
@@ -779,9 +780,9 @@ def test_well_spmm_kernels_on_packed_stacks_on_cuda(cuda, nrhs):
 @pytest.mark.cuda
 def test_dist_matrix_keeps_well_arrays_on_host_on_cuda(cuda):
     """A WELL DistMatrix built for the card keeps the WELL arrays on the
-    host and its row lists on the card; matvec and matmat (two launches
-    each: L and L^T) agree with the host oracle and give the same bits on
-    a second run."""
+    host and its row lists on the card; matvec (one launch for L, L^T and
+    the diagonal) and matmat (two launches: L and L^T) agree with the host
+    oracle and give the same bits on a second run."""
     from spmv_torch.corpus import fem_p1_2d
     from spmv_torch.parallel.dist_matrix import HOST_FIELDS, build_dist_matrix
     from spmv_torch.reorder import rcm_reorder
@@ -801,7 +802,7 @@ def test_dist_matrix_keeps_well_arrays_on_host_on_cuda(cuda):
     want = np.stack([a.matvec(c) for c in X.T], axis=1)
     assert np.linalg.norm(A.from_dist(y) - want[:, 0]) <= 1e-12 * np.linalg.norm(want)
     assert np.linalg.norm(A.from_dist_block(Y) - want) <= 1e-12 * np.linalg.norm(want)
-    assert _build.launches["well"] == 4
+    assert (_build.launches["well_sym"], _build.launches["well"]) == (2, 0)
     assert _build.launches["well_spmm"] == 4
 
 

@@ -52,6 +52,7 @@ from spmv_torch.ops.spmv_well import (
     spmv_well,
     spmv_well_rows_plain,
     spmv_well_stacked_plain,
+    spmv_well_sym_rows_plain,
 )
 from spmv_torch.ops.spmv_well_ds import (
     csr_to_well_ds,
@@ -435,7 +436,11 @@ def _through_well_formula(monkeypatch, A):
         out = _well_block(well, args[-3:-1] if lo else args[-2:-1], args[-1])
         return out if lo else out[0]
 
+    def well_sym(lower, upper, diagonal, x2):
+        return spmv_well_sym_rows_plain(lower, upper, diagonal, x2, apply=well)
+
     monkeypatch.setattr(dm, "spmv_well_stacked", well)
+    monkeypatch.setattr(dm, "spmv_well_sym_stacked", well_sym)
     monkeypatch.setattr(dm, "spmv_well_ds_stacked", well_ds)
     monkeypatch.setattr(dm, "spmm_well_stacked", block)
     monkeypatch.setattr(dm, "spmm_well_ds_stacked", block)
@@ -445,22 +450,24 @@ def _through_well_formula(monkeypatch, A):
 @pytest.mark.parametrize("n_dev", [1, 2, 4])
 @pytest.mark.parametrize("fmt", ["well", "well_ds"])
 def test_dist_matvec_runs_through_rows(fmt, n_dev, symmetric, monkeypatch):
-    """matvec / matvec_ds read the row lists (a spy sees them), agree with
-    the host oracle, and equal the same apply through the WELL formula bit
-    for bit."""
+    """matvec / matvec_ds read the row lists (a spy sees them; a symmetric
+    "well" apply hands both stacks to one op), agree with the host oracle,
+    and equal the same apply through the WELL formula bit for bit."""
     a = _fem(3000, seed=1)
     A = dm.build_dist_matrix(a, n_devices=n_dev, symmetric=symmetric, local_format=fmt,
                              dtype=np.float64 if fmt == "well" else None, device="cpu")
     x = np.random.default_rng(5).standard_normal(a.nrows)
-    seen = []
-    wrapper = {"well": dm.spmv_well_stacked, "well_ds": dm.spmv_well_ds_stacked}[fmt]
+    fused = fmt == "well" and symmetric
+    name = ("spmv_well_sym_stacked" if fused
+            else {"well": "spmv_well_stacked", "well_ds": "spmv_well_ds_stacked"}[fmt])
+    wrapper, seen = getattr(dm, name), []
 
     def spy(*args):
-        seen.append(args[0])
+        seen.extend([args[0][0], args[1][0]] if fused else [args[0]])
         return wrapper(*args)
 
     with monkeypatch.context() as m:
-        m.setattr(dm, "spmv_well_stacked" if fmt == "well" else "spmv_well_ds_stacked", spy)
+        m.setattr(dm, name, spy)
         if fmt == "well":
             y = A.matvec(A.to_dist(x))
         else:
